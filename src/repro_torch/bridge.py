@@ -1,0 +1,30 @@
+"""Convert the JAX reference's parameters into the port's.
+
+The reference draws its weights from jax.random (threefry), which torch
+cannot replay, so parity tests take the reference's own parameter tree,
+turned into numpy arrays by the caller, and convert it name for name.
+bf16 leaves arrive as ml_dtypes `bfloat16`; reading their bits as uint16
+and viewing them as torch.bfloat16 is bit-exact.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _leaf(a, device) -> torch.Tensor:
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device)
+
+
+def params_from_jax(tree, device="cpu"):
+    """Nested dicts of numpy arrays (a reference param tree after
+    np.asarray on each leaf) -> the same dicts of torch tensors."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    return _leaf(tree, device)

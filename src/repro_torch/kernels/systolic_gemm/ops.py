@@ -1,0 +1,59 @@
+"""Public pod-GEMM entry points (counterpart of
+repro/kernels/systolic_gemm/ops.py): `systolic_gemm` and the serving
+hot-loop form `fused_lane_gemm`, with the same signatures and contract.
+
+A CPU tensor runs the plain version (ref.py); a CUDA tensor launches the
+Hopper kernel, which raises if it cannot run. There is no other path.
+
+The JAX wrappers pad to block multiples, call the kernel and slice back.
+The Hopper kernel masks ragged M/N/K edges itself, so nothing is padded
+here and the result has the same [M, N] contract. Its tile is fixed
+(csrc/systolic_gemm.cu): explicit `block_m/n/k` are accepted and checked,
+and, as on the TPU, the geometry does not change the result. The TPU's
+autotuner (parallel/autoshard.py::choose_blocks) is not ported.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .ref import systolic_gemm_ref
+from .systolic_gemm import systolic_gemm_cuda
+
+
+def systolic_gemm(x, w, scale=None, bias=None, *, activation=None,
+                  block_m: int | None = None, block_n: int | None = None,
+                  block_k: int | None = None, out_dtype=torch.float32):
+    """out = epilogue((x @ w) * scale + bias). x [M,K], w [K,N].
+
+    int8 x int8 -> int32 accumulate; bf16/f32 -> f32 accumulate."""
+    for b in (block_m, block_n, block_k):
+        if b is not None and b <= 0:
+            raise ValueError(f"block sizes must be positive, got {b}")
+    if x.device.type == "cpu":
+        return systolic_gemm_ref(x, w, scale, bias, activation=activation,
+                                 out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"systolic_gemm runs on cuda or cpu, not {x.device}")
+    return systolic_gemm_cuda(x.contiguous(), w.contiguous(), scale, bias,
+                              activation=activation, out_dtype=out_dtype)
+
+
+def fused_lane_gemm(x, w, scale=None, bias=None, *, activation=None,
+                    out_dtype=None, block_m: int | None = None,
+                    block_n: int | None = None, block_k: int | None = None):
+    """Fused-lane GEMM: x [..., K] @ w [K, N] -> [..., N].
+
+    All leading axes of x (decode lanes, sequence positions, batch) fold
+    into the GEMM M axis: one pod GEMM instead of a fan of GEMVs. The
+    leading shape is restored on return. `out_dtype=None` means float32."""
+    lead = x.shape[:-1]
+    m = math.prod(lead)
+    out_dtype = torch.float32 if out_dtype is None else out_dtype
+    out = systolic_gemm(x.reshape(m, x.shape[-1]), w, scale, bias,
+                        activation=activation, block_m=block_m,
+                        block_n=block_n, block_k=block_k,
+                        out_dtype=out_dtype)
+    return out.reshape(*lead, w.shape[1])

@@ -1,0 +1,62 @@
+"""Plain PyTorch version of the pod GEMM (counterpart of
+repro/kernels/systolic_gemm/ref.py). The CPU path of ops.py runs it, and
+the card compares the kernel against it."""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+import torch.nn.functional as F
+
+
+def _matmul_exact_int8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """int8 x int8 with exact integer accumulation, as f32. The CPU has an
+    int64 matmul; CUDA has none, so the card uses float64, exact for sums
+    below 2**53 (float32 would not be past 2**24 = K * 127**2, K >= 1041)."""
+    if x.is_cuda:
+        return (x.double() @ w.double()).float()
+    return (x.long() @ w.long()).float()
+
+
+def epilogue_ref(acc: torch.Tensor, scale=None, bias=None, *,
+                 activation=None) -> torch.Tensor:
+    """scale, bias and activation on an f32 accumulator."""
+    if scale is not None:
+        acc = acc * scale.float()[None, :]
+    if bias is not None:
+        acc = acc + bias.float()[None, :]
+    if activation == "relu":
+        acc = torch.clamp_min(acc, 0.0)
+    elif activation == "gelu":
+        acc = F.gelu(acc, approximate="tanh")   # jax.nn.gelu's default
+    elif activation == "silu":
+        acc = acc * torch.sigmoid(acc)
+    elif activation == "relu2":
+        acc = torch.square(torch.clamp_min(acc, 0.0))
+    elif activation is not None:
+        raise ValueError(f"unknown activation {activation!r}")
+    return acc
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """Full f32 products on the card, never TF32, for this call only: the
+    caller's setting is restored afterwards."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def systolic_gemm_ref(x, w, scale=None, bias=None, *, activation=None,
+                      out_dtype=torch.float32):
+    if x.dtype == torch.int8:
+        acc = _matmul_exact_int8(x, w)
+    else:
+        with _no_tf32():
+            acc = x.float() @ w.float()
+    return epilogue_ref(acc, scale, bias,
+                        activation=activation).to(out_dtype)

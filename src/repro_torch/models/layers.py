@@ -1,0 +1,187 @@
+"""Common layers and the parameter schema (counterpart of
+repro/models/layers.py).
+
+A model declares a *schema*: nested dicts of `ParamSpec`s with shape, init
+style and dtype. `init_from_schema` materializes it on a device from a
+`torch.Generator`, with the JAX package's init styles (normal with fan-in
+scale, ones, zeros). The numbers differ from `jax.random`'s, so parity
+tests convert the reference's own parameters instead (bridge.py).
+
+Layers are plain functions over dicts of tensors. Where the result depends
+on the order of rounding, they follow the reference step for step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.systolic_gemm.ops import fused_lane_gemm
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    init: str = "normal"                  # normal | zeros | ones
+    scale: float | None = None            # stddev; default fan-in
+    dtype: torch.dtype = torch.bfloat16
+
+
+def _init_leaf(spec: ParamSpec, generator: torch.Generator, device):
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    scale = spec.scale
+    if scale is None:
+        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        scale = 1.0 / math.sqrt(max(1, fan_in))
+    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (x.mul_(scale)).to(spec.dtype)
+
+
+def init_from_schema(schema: dict, generator: torch.Generator, device):
+    """Materialize a schema, leaf by leaf in sorted key order (the order
+    jax.tree flattens dicts in), drawing from `generator`."""
+    if isinstance(schema, ParamSpec):
+        return _init_leaf(schema, generator, device)
+    return {k: init_from_schema(schema[k], generator, device)
+            for k in sorted(schema)}
+
+
+def param_count(schema: dict) -> int:
+    if isinstance(schema, ParamSpec):
+        return math.prod(schema.shape)
+    return sum(param_count(v) for v in schema.values())
+
+
+# --------------------------------------------------------------------------
+# primitive layers
+# --------------------------------------------------------------------------
+
+def rmsnorm(x, w, eps: float = 1e-6):
+    """Statistics in f32, cast back to x's dtype, then times w."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def layernorm(x, w, b, eps: float = 1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * w + b
+
+
+def norm_schema(d: int, kind: str) -> dict:
+    if kind == "layernorm":
+        return {"scale": ParamSpec((d,), init="ones"),
+                "bias": ParamSpec((d,), init="zeros")}
+    return {"scale": ParamSpec((d,), init="ones")}
+
+
+def apply_norm(p: dict, x, kind: str):
+    if kind == "layernorm":
+        return layernorm(x, p["scale"], p["bias"])
+    return rmsnorm(x, p["scale"])
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    exps = -torch.arange(0, head_dim, 2, dtype=torch.float32,
+                         device=device) / head_dim
+    return torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                  device=device), exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """Split-half RoPE in f32. x: [..., S, H, hd]; positions broadcastable
+    to [..., S]."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # [hd/2]
+    ang = positions[..., :, None].float() * freqs            # [..., S, hd/2]
+    cos = torch.cos(ang)[..., :, None, :]                    # [..., S, 1, hd/2]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def pod_dense(x, w, *, activation: str | None = None):
+    """One dense projection on the pod GEMM, in fused-lane form: every
+    leading axis of x folds into M, and trailing axes of w past the
+    contraction fold into N and unfold on return ([d, H, hd] heads).
+    `activation` runs in the kernel's fused epilogue."""
+    k = x.shape[-1]
+    out = fused_lane_gemm(x, w.reshape(k, -1), activation=activation,
+                          out_dtype=x.dtype)
+    return out.reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def activation_fn(name: str):
+    if name == "silu":
+        return lambda x: x * torch.sigmoid(x)
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu2":
+        return lambda x: torch.square(torch.relu(x))
+    raise ValueError(name)
+
+
+def mlp_schema(d_model: int, d_ff: int, activation: str,
+               layers: int | None = None) -> dict:
+    """Gated (GLU) for silu archs; plain up/down for relu2/gelu."""
+    lead = (layers,) if layers else ()
+    sch = {"up": ParamSpec(lead + (d_model, d_ff)),
+           "down": ParamSpec(lead + (d_ff, d_model))}
+    if activation in ("silu",):
+        sch["gate"] = ParamSpec(lead + (d_model, d_ff))
+    return sch
+
+
+def apply_mlp(p: dict, x, activation: str, use_pallas: bool = False):
+    if use_pallas:
+        # up without activation, then gate with the activation fused in the
+        # epilogue; their product in x's dtype, then down
+        up = pod_dense(x, p["up"],
+                       activation=None if "gate" in p else activation)
+        if "gate" in p:
+            up = pod_dense(x, p["gate"], activation=activation) * up
+        return pod_dense(up, p["down"])
+    act = activation_fn(activation)
+    up = torch.einsum("...d,df->...f", x, p["up"])
+    if "gate" in p:
+        up = act(torch.einsum("...d,df->...f", x, p["gate"])) * up
+    else:
+        up = act(up)
+    return torch.einsum("...f,fd->...d", up, p["down"])
+
+
+def embed_schema(vocab: int, d_model: int, tie: bool) -> dict:
+    sch = {"tok": ParamSpec((vocab, d_model), scale=1.0)}
+    if not tie:
+        sch["unembed"] = ParamSpec((d_model, vocab))
+    return sch
+
+
+def embed(p: dict, tokens):
+    return p["tok"][tokens]
+
+
+def unembed(p: dict, x, use_pallas: bool = False):
+    """Hidden states -> logits, the largest GEMM of a decode step. Under
+    use_pallas the untied [d, vocab] head runs on the fused-lane pod GEMM;
+    the tied head needs the transposed-weight kernel, not yet ported."""
+    if use_pallas:
+        if "unembed" not in p:
+            raise NotImplementedError(
+                "tied-embedding LM head needs the transposed pod GEMM "
+                "(systolic_gemm_nt), which is not ported yet")
+        return fused_lane_gemm(x, p["unembed"], out_dtype=x.dtype)
+    if "unembed" in p:
+        return torch.einsum("...d,dv->...v", x, p["unembed"])
+    return torch.einsum("...d,vd->...v", x, p["tok"])

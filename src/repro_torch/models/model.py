@@ -1,0 +1,117 @@
+"""Model API over the segment system (counterpart of
+repro/models/model.py).
+
+    model = Model(get_arch("granite-8b"), use_pallas=True)   # on the card
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    logits, cache = model.prefill(params, batch, model.init_cache(4, 512))
+    logits, cache = model.decode_step(params, tok, cache, position)
+
+Parameters are nested dicts of tensors with the reference's names and
+stacked per-layer weights [L, ...] (also for a one-layer segment, which
+the reference keeps unstacked); a Python loop walks the layers where the
+reference scans them. Caches are updated in place and returned, so
+call sites read as in the reference.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..runtime import resolve_device
+from .attention import KVCache
+from .layers import (apply_norm, embed, embed_schema, init_from_schema,
+                     norm_schema, param_count, unembed)
+from .transformer import Segment, apply_block, block_schema, segments
+
+
+def _index(tree, i: int):
+    """Layer i of a stacked parameter or cache tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    if isinstance(tree, KVCache):
+        return tree.layer(i)
+    return tree[i]
+
+
+class Model:
+    def __init__(self, cfg: ArchConfig, use_pallas: bool = False,
+                 device=None):
+        """device None means the card (raises without one); tests pass
+        device="cpu". use_pallas routes every dense projection, the MLP and
+        the LM head through the pod GEMM (a kernel on the card, its plain
+        version on the CPU); off, they are plain torch einsums."""
+        self.cfg = cfg
+        self.use_pallas = use_pallas
+        self.device = resolve_device(device)
+        self.segs = segments(cfg)
+
+    # -- schema / params ---------------------------------------------------
+    def schema(self) -> dict:
+        cfg = self.cfg
+        sch: dict = {"embed": embed_schema(cfg.vocab, cfg.d_model,
+                                           cfg.tie_embeddings),
+                     "ln_f": norm_schema(cfg.d_model, cfg.norm)}
+        for seg in self.segs:
+            sch[seg.name] = block_schema(cfg, seg.kind, seg.n)
+        return sch
+
+    def init(self, generator: torch.Generator) -> dict:
+        """Random parameters on the model's device, drawn from `generator`
+        (which must live on that device). Same schema and init styles as
+        the reference; other numbers (see bridge.py for parity)."""
+        return init_from_schema(self.schema(), generator, self.device)
+
+    def param_count(self) -> int:
+        return param_count(self.schema())
+
+    # -- forward -----------------------------------------------------------
+    def _run_segment(self, seg: Segment, p_seg, x, positions, cache_seg):
+        kw = dict(positions=positions, use_pallas=self.use_pallas)
+        for i in range(seg.n):
+            x = apply_block(_index(p_seg, i), x, self.cfg, seg.kind,
+                            cache=None if cache_seg is None
+                            else _index(cache_seg, i), **kw)
+        return x
+
+    def forward(self, params, batch, cache: dict | None = None,
+                positions=None):
+        """Returns (logits, cache). With a cache, prefill (S > 1) or decode
+        (S == 1) writes into it in place and the same object comes back."""
+        tokens = batch["tokens"]
+        S = tokens.shape[1]
+        if positions is None:
+            positions = torch.arange(S, device=tokens.device)
+        x = embed(params["embed"], tokens)
+        for seg in self.segs:
+            cseg = cache.get(seg.name) if cache is not None else None
+            x = self._run_segment(seg, params[seg.name], x, positions, cseg)
+        x = apply_norm(params["ln_f"], x, self.cfg.norm)
+        return unembed(params["embed"], x, use_pallas=self.use_pallas), cache
+
+    # -- serving -----------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int,
+                   dtype=torch.bfloat16) -> dict:
+        cfg = self.cfg
+        return {seg.name: {"attn": KVCache.zeros(
+                    batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim,
+                    dtype, layers=seg.n, device=self.device)}
+                for seg in self.segs}
+
+    def prefill(self, params, batch, cache: dict):
+        """Run the prompt, filling `cache` in place. Returns (last-position
+        logits [B, vocab], cache)."""
+        logits, cache = self.forward(params, batch, cache=cache)
+        return logits[:, -1, :], cache
+
+    def decode_step(self, params, tokens, cache: dict, position):
+        """tokens [B] or [B,1]; position: a scalar, or [B] per-lane
+        positions (lanes of mixed length in one batch)."""
+        if tokens.dim() == 1:
+            tokens = tokens[:, None]
+        B = tokens.shape[0]
+        pos_vec = torch.as_tensor(position, dtype=torch.int64,
+                                  device=tokens.device).expand(B)
+        logits, cache = self.forward(params, {"tokens": tokens}, cache=cache,
+                                     positions=pos_vec[:, None])
+        return logits[:, -1, :], cache

@@ -1,0 +1,115 @@
+"""Model assembly for the dense family (counterpart of
+repro/models/transformer.py).
+
+A model is a list of segments; a segment is a homogeneous stack of layers
+whose parameters carry a leading `layers` axis. The reference scans the
+stack with lax.scan; here a Python loop walks it (model.py). Only the
+dense family is ported so far: GQA attention with a dense KVCache and the
+(gated) MLP. Other families raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..configs.base import ArchConfig
+from .attention import KVCache, chunked_attention, decode_attention
+from .layers import (ParamSpec, apply_mlp, apply_norm, apply_rope,
+                     mlp_schema, norm_schema, pod_dense)
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    name: str
+    kind: str                  # dense (the only kind ported so far)
+    n: int                     # number of layers
+
+
+def segments(cfg: ArchConfig) -> list[Segment]:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet; repro_torch serves "
+            f"the dense family")
+    return [Segment("layers", "dense", cfg.n_layers)]
+
+
+def attn_schema(cfg: ArchConfig, layers: int | None) -> dict:
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim
+    lead = (layers,) if layers else ()
+    return {
+        "q": ParamSpec(lead + (d, cfg.n_heads, hd)),
+        "k": ParamSpec(lead + (d, cfg.n_kv_heads, hd)),
+        "v": ParamSpec(lead + (d, cfg.n_kv_heads, hd)),
+        "o": ParamSpec(lead + (cfg.n_heads, hd, d)),
+    }
+
+
+def apply_gqa(p, x, cfg: ArchConfig, *, positions,
+              cache: KVCache | None = None, use_pallas: bool = False):
+    """Causal GQA attention. Prefill when x has S > 1 (filling `cache` if
+    given); decode when S == 1 and a cache is given. The cache is updated
+    in place. use_pallas runs the q/k/v/o projections on the pod GEMM."""
+    if use_pallas:
+        q = pod_dense(x, p["q"])
+        k = pod_dense(x, p["k"])
+        v = pod_dense(x, p["v"])
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p["q"])
+        k = torch.einsum("bsd,dhk->bshk", x, p["k"])
+        v = torch.einsum("bsd,dhk->bshk", x, p["v"])
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is not None and x.shape[1] == 1:            # decode
+        q_pos = positions[..., 0]                        # scalar or [B]
+        cache.append(k, v)
+        ar = torch.arange(cache.k.shape[1], device=x.device)
+        k_pos = torch.where(ar[None, :] < cache.length[:, None],
+                            ar[None, :], -1)             # [B, S]
+        out = decode_attention(q, cache.k, cache.v, k_pos, q_pos)
+    else:                                                # prefill
+        if cache is not None:
+            cache.append(k, v)
+        out = chunked_attention(q, k, v, causal=True)
+    B, S = x.shape[0], x.shape[1]
+    out = out.reshape(B, S, cfg.n_heads, -1)
+    if use_pallas:
+        o_w = p["o"].reshape(-1, p["o"].shape[-1])       # [(H hd), d]
+        return pod_dense(out.reshape(B, S, -1), o_w)
+    return torch.einsum("bshk,hkd->bsd", out, p["o"])
+
+
+def block_schema(cfg: ArchConfig, kind: str, layers: int | None) -> dict:
+    if kind != "dense":
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    return {"ln_attn": _norms(cfg, cfg.d_model, layers),
+            "attn": attn_schema(cfg, layers),
+            "ln_mlp": _norms(cfg, cfg.d_model, layers),
+            "mlp": mlp_schema(cfg.d_model, cfg.d_ff, cfg.activation, layers)}
+
+
+def _norms(cfg: ArchConfig, d: int, layers: int | None) -> dict:
+    base = norm_schema(d, cfg.norm)
+    if layers:
+        return {k: ParamSpec((layers,) + v.shape, init=v.init, dtype=v.dtype)
+                for k, v in base.items()}
+    return base
+
+
+def apply_block(p, x, cfg: ArchConfig, kind: str, *, positions,
+                cache: dict | None = None, use_pallas: bool = False):
+    """One dense layer: pre-norm GQA attention and pre-norm MLP, both
+    residual. `cache` is {"attn": KVCache} or None, updated in place."""
+    if kind != "dense":
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    h = apply_norm(p["ln_attn"], x, cfg.norm)
+    a = apply_gqa(p["attn"], h, cfg, positions=positions,
+                  cache=cache["attn"] if cache else None,
+                  use_pallas=use_pallas)
+    x = x + a
+    h = apply_norm(p["ln_mlp"], x, cfg.norm)
+    return x + apply_mlp(p["mlp"], h, cfg.activation, use_pallas=use_pallas)

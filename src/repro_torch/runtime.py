@@ -1,0 +1,121 @@
+"""Device rule, counted host syncs and the port's tolerance table.
+
+* `resolve_device`: entry points run on the card unless the caller names
+  another device. With no device named and no CUDA device present they
+  raise; nothing falls back to the CPU on its own.
+* `to_host`: every device->host read of the port goes through this one
+  helper, which counts it. It is the counterpart of the `np.asarray`
+  syncs the JAX engine's tests count (tests/test_serving.py).
+* `TOLERANCES`: every comparison of the port against a plain version or
+  against the JAX reference takes its tolerance from here, with its reason.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """`None` means the card. Raises when no CUDA device exists and none
+    was asked for; an explicit device (e.g. "cpu") is taken as given."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: repro_torch runs on the GPU by default; pass "
+            "device='cpu' to run the plain versions on the CPU")
+    return torch.device("cuda")
+
+
+class HostSyncCounter:
+    """Counts device->host reads made through `to_host`."""
+
+    def __init__(self):
+        self.count = 0
+
+
+HOST_SYNCS = HostSyncCounter()
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """The port's one device->host read: returns a numpy copy of `t` and
+    adds one to `HOST_SYNCS.count` (even for a CPU tensor, so the CPU tests
+    count the same syncs the card would see)."""
+    HOST_SYNCS.count += 1
+    return t.detach().to("cpu").numpy()
+
+
+@dataclasses.dataclass(frozen=True)
+class Tol:
+    rtol: float
+    atol: float
+    why: str
+
+    def excess(self, got: torch.Tensor, ref: torch.Tensor) -> float:
+        """max |got - ref| / (atol + rtol |ref|): at most 1 when `got` is
+        within tolerance (NaN when either holds a NaN)."""
+        got, ref = got.double(), ref.double()
+        err = (got - ref).abs()
+        ratio = err / (self.atol + self.rtol * ref.abs())
+        return float(torch.where(err == 0, torch.zeros_like(err),
+                                 ratio).max())
+
+    def ok(self, got: torch.Tensor, ref: torch.Tensor) -> bool:
+        return self.excess(got, ref) <= 1.0
+
+
+TOLERANCES: dict[str, Tol] = {
+    # pod GEMM, kernel or port against its plain version / the JAX one
+    "gemm_f32": Tol(1e-5, 1e-4,
+                    "f32 accumulation in another order (tests/test_kernels.py)"),
+    "gemm_bf16": Tol(2e-2, 2e-1,
+                     "bf16 inputs: products are exact in f32, the order of "
+                     "the sum differs and a bf16 result rounds once more "
+                     "(tests/test_kernels.py; the CPU tests against JAX)"),
+    # the Hopper kernel against its plain version on the card, with
+    # fan-in-scaled weights (O(1) outputs); a kernel that sums in bf16
+    # (an error of about 2**-9 per partial sum) misses both by 10x or more
+    "gemm_bf16_f32out": Tol(1e-4, 1e-3,
+                            "bf16 products are exact in f32; the tensor "
+                            "cores round their f32 sums otherwise than "
+                            "cuBLAS's FMA chain (seen: 3.4e-4 with the "
+                            "epilogue, PERF.md)"),
+    "gemm_bf16out": Tol(2 ** -6, 1e-4,
+                        "both sides round f32 values that agree to ~1e-5 "
+                        "to bf16: one ulp (at most 2**-7 relative) apart, "
+                        "two allowed"),
+    "gemm_int8_epilogue": Tol(1e-5, 1e-4,
+                              "int32 accumulation is exact; the f32 epilogue "
+                              "may fuse scale and bias into one FMA, and "
+                              "exp/tanh differ in the last bits "
+                              "(tests/test_kernels.py)"),
+    "gemm_int8_exact": Tol(0.0, 0.0,
+                           "int8 x int8 accumulates exactly in int32"),
+    # layers and attention, port against the JAX functions (both on the CPU)
+    "elementwise_f32": Tol(1e-5, 1e-5,
+                           "f32 rsqrt/cos/sin differ in the last bits "
+                           "between XLA and torch"),
+    "elementwise_bf16": Tol(8e-3, 8e-3,
+                            "one bf16 rounding (2**-7 relative) of f32 values "
+                            "that differ in their last bits"),
+    "attention_f32": Tol(1e-5, 1e-5,
+                         "f32 exp and sums in another order"),
+    "attention_bf16": Tol(2e-2, 2e-2,
+                          "bf16 scores and probabilities round at other "
+                          "places: a few bf16 ulps"),
+    # model logits, port against the JAX Model (both on the CPU)
+    "logits_bf16": Tol(0.1, 0.05,
+                       "atol is relative to max|ref|: bf16 rounds at other "
+                       "places in the two frameworks (tests/test_serving.py)"),
+    "logits_f32": Tol(1e-5, 1e-5,
+                      "atol is relative to max|ref|: f32 sums in another "
+                      "order across two frameworks (seen: 2e-6 relative)"),
+    # served tokens: where two engines pick different tokens, the
+    # reference's top-1 minus top-2 logit at the first differing step must
+    # be below atol * max|logit| (a near tie that rounding may flip)
+    "token_margin": Tol(0.0, 0.02,
+                        "bf16 logits: a few bf16 ulps of the largest logit"),
+}

@@ -1,0 +1,165 @@
+"""The port's pod GEMM against the JAX package's.
+
+On the CPU `repro_torch...ops.systolic_gemm` runs its plain version; it is
+held against the JAX Pallas kernel in interpret mode and against the JAX
+oracle `systolic_gemm_ref`, over f32/bf16/int8 x every activation x ragged
+M/K/N. Tolerances come from `repro_torch.TOLERANCES` (the values of
+tests/test_kernels.py); int8 accumulation without an epilogue must be
+exact. The Hopper kernel itself runs only on the card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.systolic_gemm import ops as jops
+from repro.kernels.systolic_gemm.ref import systolic_gemm_ref as jax_ref
+from repro_torch import TOLERANCES
+from repro_torch.bridge import params_from_jax
+from repro_torch.kernels.systolic_gemm import ops
+from repro_torch.kernels.systolic_gemm.ref import systolic_gemm_ref
+from repro_torch.kernels.systolic_gemm.systolic_gemm import systolic_gemm_cuda
+
+SHAPES = [(1, 1, 1), (33, 57, 29), (100, 130, 70), (5, 260, 130)]
+ACTS = [None, "relu", "gelu", "silu", "relu2"]
+DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "int8": jnp.int8}
+
+
+def _inputs(rng, M, K, N, dtype):
+    if dtype == "int8":
+        x = rng.integers(-128, 128, (M, K))
+        w = rng.integers(-128, 128, (K, N))
+    else:
+        x = rng.standard_normal((M, K))
+        w = rng.standard_normal((K, N)) / np.sqrt(K)
+    s = (rng.random(N) + 0.5).astype(np.float32)
+    b = rng.standard_normal(N).astype(np.float32)
+    jx, jw = jnp.asarray(x, DTYPES[dtype]), jnp.asarray(w, DTYPES[dtype])
+    to_t = lambda a: params_from_jax(np.asarray(a))
+    return (jx, jw, jnp.asarray(s), jnp.asarray(b)), \
+        (to_t(jx), to_t(jw), torch.from_numpy(s), torch.from_numpy(b))
+
+
+def _tol(dtype, act):
+    if dtype == "int8":
+        # exact without an epilogue; scale/bias may be fused into one FMA
+        return TOLERANCES["gemm_int8_exact" if act is None
+                          else "gemm_int8_epilogue"]
+    return TOLERANCES["gemm_" + ("f32" if dtype == "float32" else "bf16")]
+
+
+def _assert_close(got: torch.Tensor, ref, tol):
+    ref_t = torch.from_numpy(np.array(ref, np.float32))
+    assert got.shape == ref_t.shape
+    assert tol.ok(got.float(), ref_t), (
+        f"max_abs_err {(got.float() - ref_t).abs().max()} ({tol})")
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_systolic_gemm_matches_jax(dtype, act):
+    rng = np.random.default_rng(0)
+    tol = _tol(dtype, act)
+    for M, K, N in SHAPES:
+        (jx, jw, js, jb), (tx, tw, ts, tb) = _inputs(rng, M, K, N, dtype)
+        sb_j = (js, jb) if act else (None, None)
+        sb_t = (ts, tb) if act else (None, None)
+        got = ops.systolic_gemm(tx, tw, *sb_t, activation=act)
+        assert got.dtype == torch.float32
+        _assert_close(got, jax_ref(jx, jw, *sb_j, activation=act), tol)
+        if (M, K, N) == (33, 57, 29):       # one ragged shape through Pallas
+            pallas = jops.systolic_gemm(jx, jw, *sb_j, activation=act,
+                                        interpret=True)
+            _assert_close(got, pallas, tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_systolic_gemm_bf16_out_and_blocks(dtype):
+    """out_dtype=bf16 rounds once, like the reference; explicit blocks are
+    accepted and change nothing."""
+    rng = np.random.default_rng(1)
+    (jx, jw, js, jb), (tx, tw, ts, tb) = _inputs(rng, 37, 100, 130, dtype)
+    ref = jax_ref(jx, jw, js, jb, activation="silu", out_dtype=jnp.bfloat16)
+    got = ops.systolic_gemm(tx, tw, ts, tb, activation="silu",
+                            out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    _assert_close(got, ref, TOLERANCES["gemm_bf16"])
+    blocked = ops.systolic_gemm(tx, tw, ts, tb, activation="silu",
+                                out_dtype=torch.bfloat16, block_m=32,
+                                block_n=64, block_k=16)
+    assert torch.equal(blocked, got)
+
+
+def test_fused_lane_gemm_folds_leading_axes():
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 3, 5, 48)).astype(np.float32)
+    w = (rng.standard_normal((48, 40)) / 7).astype(np.float32)
+    ref = jops.fused_lane_gemm(jnp.asarray(x, jnp.bfloat16),
+                               jnp.asarray(w, jnp.bfloat16),
+                               activation="gelu", out_dtype=jnp.bfloat16,
+                               interpret=True)
+    tx = params_from_jax(np.asarray(jnp.asarray(x, jnp.bfloat16)))
+    tw = params_from_jax(np.asarray(jnp.asarray(w, jnp.bfloat16)))
+    got = ops.fused_lane_gemm(tx, tw, activation="gelu",
+                              out_dtype=torch.bfloat16)
+    assert got.shape == (2, 3, 5, 40) and got.dtype == torch.bfloat16
+    _assert_close(got, ref, TOLERANCES["gemm_bf16"])
+    # out_dtype=None means f32, and the fold equals the 2-D call row for row
+    got32 = ops.fused_lane_gemm(tx, tw)
+    assert got32.dtype == torch.float32
+    flat = ops.systolic_gemm(tx.reshape(30, 48), tw)
+    assert torch.equal(got32.reshape(30, 40), flat)
+
+
+def test_int8_plain_version_is_exact_past_f32_range():
+    """K * 127**2 > 2**24: an f32 accumulation would round, int64 does not."""
+    K = 2048
+    x = torch.full((2, K), 127, dtype=torch.int8)
+    w = torch.full((K, 3), 127, dtype=torch.int8)
+    x[0, 0] = 126
+    got = systolic_gemm_ref(x, w)
+    exact = np.array(np.full((2, K), 127, np.int64) @ np.full((K, 3), 127),
+                     dtype=np.float64)
+    exact[0] -= 127
+    assert np.array_equal(got.numpy(), exact.astype(np.float32))
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    """The kernel wrapper never takes the plain version itself."""
+    x = torch.zeros((4, 8), dtype=torch.bfloat16)
+    w = torch.zeros((8, 16), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        systolic_gemm_cuda(x, w)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the Hopper kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_kernel_matches_plain_on_card(cuda_device, dtype):
+    g = torch.Generator(cuda_device).manual_seed(0)
+    for M, K, N in [(37, 100, 130), (4, 4096, 1024), (300, 520, 200)]:
+        if dtype == torch.int8:
+            x = torch.randint(-128, 128, (M, K), generator=g,
+                              device=cuda_device, dtype=torch.int8)
+            w = torch.randint(-128, 128, (K, N), generator=g,
+                              device=cuda_device, dtype=torch.int8)
+        else:
+            x = torch.randn((M, K), generator=g, device=cuda_device).to(dtype)
+            w = (torch.randn((K, N), generator=g, device=cuda_device)
+                 / K ** 0.5).to(dtype)
+        for act in ACTS:
+            got = systolic_gemm_cuda(x, w, activation=act)
+            ref = systolic_gemm_ref(x, w, activation=act)
+            torch.cuda.synchronize()
+            # bf16 inputs on the card: f32 sums only (see TOLERANCES)
+            tol = (TOLERANCES["gemm_bf16_f32out"] if dtype == torch.bfloat16
+                   else _tol("float32" if dtype == torch.float32 else "int8",
+                             act))
+            assert tol.ok(got, ref)
