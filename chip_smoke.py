@@ -5,21 +5,42 @@
 
 Phases, one JSON line each; any failure exits non-zero:
 
-  1. build   - nvcc builds the pod-GEMM kernel from src/ for sm_90a.
-  2. kernel  - the kernel against its plain PyTorch version on the card:
-               f32/bf16/int8 x every activation x ragged shapes x f32/bf16
-               out, each within runtime.TOLERANCES.
-  3. serve   - granite-8b at full width and depth (random weights from a
+  1. build   - nvcc builds the pod-GEMM and flash-attention kernels from
+               src/ for sm_90a, in parallel, and prints each ptxas report.
+  2. kernel  - the pod-GEMM kernel against its plain PyTorch version on the
+               card: f32/bf16/int8 x every activation x ragged shapes x
+               f32/bf16 out, each within runtime.TOLERANCES.
+  3. flash   - the flash-attention kernel against its plain version:
+               f32/bf16 x the cases of tests/test_kernels.py, granite-8b's
+               heads, Sq != Skv, D = 192, within runtime.TOLERANCES; bf16
+               also against the Pallas kernel's own arithmetic at about one
+               bf16 ulp. Two planted controls (causal mask off by one, GQA
+               map h % Hkv) must fail; at granite-8b's [4, 2048, 32, 128]
+               two that err on late KV tiles only (a stale K tile, PV
+               summed in bf16) must fail the one-ulp tolerance.
+  4. serve   - granite-8b at full width and depth (random weights from a
                seeded torch.Generator, bf16) served by ServeEngine; every
                request must finish with valid tokens, and the pod-GEMM
                launch count must be 7 x 36 + 1 = 253 per forward.
-  4. oracle  - the same requests through the per-token ReferenceEngine.
+  5. oracle  - the same requests through the per-token ReferenceEngine.
                Random weights at 36 layers turn a last-bit difference into
                different tokens, so agreement is reported there and the
                rule (tokens agree, or differ only after a near tie) is held
                on the first ORACLE_LAYERS layers of the same weights.
-  5. kernels - the kernel's time at the served shapes beside its bound,
-               its plain version and one torch.matmul (a yardstick only).
+  6. serve_paged  - the same weights as Model(attention_impl="pallas"),
+               served by a paged ServeEngine (max_len 2048, a pool of half
+               the dense pages) on prompts of up to 1500 tokens: every
+               request done, the pool drained, at least one lane recycled,
+               36 flash launches per prefill, 253 pod-GEMM launches per
+               forward, one host sync per prefill group and decode chunk.
+  7. paged_oracle - the same requests through a dense ServeEngine on the
+               same flash model: tokens must be equal. On ORACLE_LAYERS
+               layers the paged flash engine is held to the margin rule
+               against the per-token ReferenceEngine of the same model.
+               The kernel on layer 0's real activations of the served
+               prompts is held to the Pallas kernel's own arithmetic.
+  8. kernels - each kernel's time at the served shapes beside its bound,
+               its plain version and one PyTorch call (a yardstick only).
 
 The last lines are the card's name and power limit, the kernels line, and
 {"ok": true, "device": {...}}.
@@ -34,6 +55,7 @@ import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -45,8 +67,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import HOST_SYNCS, TOLERANCES  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_ref, flash_attention_tiled_ref)
 from repro_torch.kernels.systolic_gemm import systolic_gemm as sg  # noqa: E402
 from repro_torch.kernels.systolic_gemm.ref import systolic_gemm_ref  # noqa: E402
+from repro_torch.models.layers import (apply_norm, apply_rope, embed,  # noqa: E402
+                                       pod_dense)
+from repro_torch.runtime import no_tf32  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.reference import ReferenceEngine  # noqa: E402
@@ -60,6 +88,11 @@ SLOTS, MAX_LEN, DECODE_CHUNK, MAX_NEW = 4, 512, 8, 16
 N_REQUESTS = 6
 ORACLE_LAYERS = 2       # depth at which the engine/oracle margin rule holds
 GEMMS_PER_LAYER = ("q", "k", "v", "o", "gate", "up", "down")
+# the paged engine: a pool of half the dense 4 x 2048 / 16 = 512 pages
+PAGED = dict(slots=4, max_len=2048, decode_chunk=8, paged=True, page_size=16,
+             kv_pages=256)
+N_PAGED_REQUESTS = 8
+PAGED_MAX_PROMPT = 1500
 
 
 class SmokeFailure(RuntimeError):
@@ -87,12 +120,18 @@ def gpu_name_and_power() -> str:
 # --------------------------------------------------------------------------
 
 def phase_build() -> None:
+    """Both kernels build at once, one nvcc each."""
     t0 = time.perf_counter()
-    sg._lib()
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(sg._lib), pool.submit(fa._lib)]:
+            f.result()
     seconds = time.perf_counter() - t0
-    info = _build.build_info("systolic_gemm")
-    ptxas = [ln.strip() for ln in info["ptxas"].splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {}
+    for name in ("systolic_gemm", "flash_attention"):
+        info = _build.build_info(name)
+        ptxas[name] = {"seconds": info["seconds"], "report": [
+            ln.strip() for ln in info["ptxas"].splitlines()
+            if "entry function" in ln or "registers" in ln or "spill" in ln]}
     emit("build", seconds=seconds, ptxas=ptxas, torch=torch.__version__,
          cuda=torch.version.cuda, gpu=gpu_name_and_power())
 
@@ -196,7 +235,193 @@ def phase_kernel() -> None:
 
 
 # --------------------------------------------------------------------------
-# 3. serve and 4. oracle
+# 3. flash attention vs plain
+# --------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # B, Sq, Skv, Hq, Hkv, D, causal, window, kv_len
+    # the six cases of tests/test_kernels.py
+    (2, 64, 64, 4, 2, 32, True, None, None),
+    (1, 100, 100, 8, 8, 16, True, None, None),
+    (2, 33, 33, 4, 1, 64, False, None, None),
+    (1, 128, 128, 5, 5, 32, True, 48, None),
+    (1, 256, 256, 16, 2, 64, True, None, None),
+    (1, 80, 80, 6, 3, 128, True, 16, None),
+    # granite-8b's heads, at a tile multiple and ragged
+    (2, 256, 256, 32, 8, 128, True, None, None),
+    (2, 333, 333, 32, 8, 128, True, None, None),
+    # Sq != Skv (positions from 0 on both), a kv_len tail, D = 192
+    (2, 300, 200, 8, 2, 64, True, None, None),
+    (2, 100, 300, 8, 2, 64, False, None, 250),
+    (1, 200, 200, 8, 8, 192, True, None, None),
+]
+
+
+def kernel_block_k(D: int) -> int:
+    """The kernel's key tile (csrc/flash_attention.cu, launch_bf16)."""
+    return 64 if D <= 128 else 32
+
+
+def pv_summed_in_bf16(q, k, v, block_k: int) -> torch.Tensor:
+    """Planted control: flash_attention_tiled_ref (causal) with its PV
+    accumulator rounded to bf16 after every KV tile, as a kernel that sums
+    PV in bf16 would. Its error grows with the tiles a row has seen."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qs = (q * torch.tensor(1.0 / math.sqrt(D), dtype=q.dtype,
+                           device=q.device)).float()
+    qs = qs.reshape(B, S, Hkv, Hq // Hkv, D)
+    q_pos = torch.arange(S, device=q.device)[:, None]
+    m = torch.full((B, Hkv, Hq // Hkv, S, 1), -1e30, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Hkv, Hq // Hkv, S, D), device=q.device)
+    with no_tf32():
+        for k0 in range(0, S, block_k):
+            k_pos = k0 + torch.arange(min(block_k, S - k0),
+                                      device=q.device)[None, :]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qs,
+                             k[:, k0:k0 + block_k].float())
+            s = torch.where(k_pos <= q_pos, s, -1e30)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            acc = (acc * corr + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p.to(v.dtype).float(),
+                v[:, k0:k0 + block_k].float())).to(torch.bfloat16).float()
+            m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q.dtype)
+
+
+def flash_served_shape(g) -> dict:
+    """The kernel at granite-8b's served prefill shape, [4, 2048, 32, 128]
+    bf16 causal, on randn inputs, against the Pallas kernel's arithmetic
+    (flash_bf16_tiled) and the naive version (flash_bf16). Two controls err
+    on late KV tiles only, which a causal row sees among ~1000 others: the
+    last K tile read stale (the one before it, as a cp.async race would
+    leave it) and PV summed in bf16. Both must fail flash_bf16_tiled; their
+    excess at flash_bf16 is reported."""
+    B, S, Hq, Hkv, D = 4, 2048, 32, 8, 128
+    bk = kernel_block_k(D)
+    q, k, v = (torch.randn((B, S, h, D), generator=g, device="cuda")
+               .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    got = fa.flash_attention_cuda(q, k, v, causal=True)
+    tiled = flash_attention_tiled_ref(q, k, v, causal=True, block_k=bk)
+    naive = flash_attention_ref(q, k, v, causal=True)
+    stale = k.clone()
+    stale[:, S - bk:] = k[:, S - 2 * bk:S - bk]
+    controls = {
+        "stale_last_k_tile": flash_attention_tiled_ref(q, stale, v,
+                                                       causal=True,
+                                                       block_k=bk),
+        "pv_summed_in_bf16": pv_summed_in_bf16(q, k, v, bk)}
+    tight, loose = TOLERANCES["flash_bf16_tiled"], TOLERANCES["flash_bf16"]
+    out = {"shape": [B, S, Hq, D],
+           "excess_vs_tiled": tight.excess(got, tiled),
+           "excess_vs_naive": loose.excess(got, naive),
+           "max_abs_err_vs_tiled": float((got.double() - tiled.double())
+                                         .abs().max()),
+           "controls": {n: {"excess_vs_tiled": tight.excess(c, tiled),
+                            "excess_at_flash_bf16": loose.excess(c, naive)}
+                        for n, c in controls.items()}}
+    return out
+
+
+def plain_masked(q, k, v, ok, kv_head):
+    """The plain version's arithmetic with a given [Sq, Skv] mask and
+    q-head -> kv-head map; the planted controls take a wrong one of each."""
+    qs = q * torch.tensor(1.0 / math.sqrt(q.shape[-1]), dtype=q.dtype,
+                          device=q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs, k[:, :, kv_head]).float()
+    p = torch.softmax(torch.where(ok, s, -1e30), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v[:, :, kv_head]).to(q.dtype)
+
+
+def phase_flash() -> None:
+    """Every case is read before any verdict. The kernel's `excess` must
+    stay at or below 1 in each class; each control's must exceed 1 in every
+    case where it differs from the right mask (causal cases for the
+    off-by-one mask, G > 1 and Hkv > 1 for the head map) and, at the served
+    shape, on late tiles."""
+    g = torch.Generator("cuda").manual_seed(3)
+    cases, failures = 0, []
+    worst: dict[str, dict] = {}
+    control: dict[str, dict] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOLERANCES["flash_f32" if dtype == torch.float32
+                         else "flash_bf16"]
+        cls = str(dtype)[6:]
+        for (B, Sq, Skv, Hq, Hkv, D, causal, window, kv_len) in FLASH_CASES:
+            q, k, v = (torch.randn(s, generator=g, device="cuda").to(dtype)
+                       for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D),
+                                 (B, Skv, Hkv, D)))
+            got = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                          window=window, kv_len=kv_len)
+            ref = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                      kv_len=kv_len)
+            torch.cuda.synchronize()
+            err = float((got.double() - ref.double()).abs().max())
+            excess = tol.excess(got, ref)
+            row = worst.setdefault(cls, {"max_abs_err": 0.0, "excess": 0.0})
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["excess"] = max(row["excess"], excess)
+            case = (f"{cls} q{(B, Sq, Hq, D)} kv{(Skv, Hkv)} causal={causal} "
+                    f"window={window} kv_len={kv_len} max_abs_err={err} "
+                    f"excess={excess} ({tol})")
+            if not bool(torch.isfinite(got.float()).all()):
+                failures.append("non-finite kernel output " + case)
+            elif not excess <= 1.0:
+                failures.append("kernel disagrees with plain " + case)
+            if dtype == torch.bfloat16:
+                tiled = flash_attention_tiled_ref(
+                    q, k, v, causal=causal, window=window, kv_len=kv_len,
+                    block_k=kernel_block_k(D))
+                te = TOLERANCES["flash_bf16_tiled"].excess(got, tiled)
+                row = worst.setdefault("bfloat16 vs tiled", {"excess": 0.0})
+                row["excess"] = max(row["excess"], te)
+                if not te <= 1.0:
+                    failures.append(f"kernel disagrees with tiled plain "
+                                    f"{case} excess_vs_tiled={te}")
+            # planted controls, on the same inputs
+            qp = torch.arange(Sq, device="cuda")[:, None]
+            kp = torch.arange(Skv, device="cuda")[None, :]
+            ok = kp < (Skv if kv_len is None else kv_len)
+            if window is not None:
+                ok = ok & (qp - kp < window)
+            heads = torch.arange(Hq, device="cuda")
+            planted = {}
+            if causal:
+                planted["causal_off_by_one"] = plain_masked(
+                    q, k, v, ok & (kp < qp), heads // (Hq // Hkv))
+            if Hq // Hkv > 1 and Hkv > 1:
+                planted["gqa_h_mod_hkv"] = plain_masked(
+                    q, k, v, ok & (kp <= qp) if causal else ok, heads % Hkv)
+            for name, out in planted.items():
+                c = tol.excess(out, ref)
+                row = control.setdefault(f"{name} {cls}", {"min_excess": c})
+                row["min_excess"] = min(row["min_excess"], c)
+                if not c > 1.0:
+                    failures.append(f"control {name} passes: {case} "
+                                    f"control excess={c}")
+            cases += 1
+    served = flash_served_shape(g)
+    if not served["excess_vs_tiled"] <= 1.0 or \
+            not served["excess_vs_naive"] <= 1.0:
+        failures.append(f"kernel disagrees at the served shape {served}")
+    for name, c in served["controls"].items():
+        if not c["excess_vs_tiled"] > 1.0:
+            failures.append(f"late-tile control {name} passes "
+                            f"flash_bf16_tiled: {c}")
+    emit("flash", cases=cases + 1, worst=worst, control=control,
+         served_shape=served,
+         tolerances={k: [t.rtol, t.atol] for k, t in TOLERANCES.items()
+                     if k.startswith("flash")}, failures=failures)
+    check(not failures, f"{len(failures)} flash checks failed")
+
+
+# --------------------------------------------------------------------------
+# 4. serve and 5. oracle
 # --------------------------------------------------------------------------
 
 def make_requests(vocab: int) -> list[Request]:
@@ -278,7 +503,7 @@ def cut_depth(model, params, n_layers: int):
     cut = {k: v for k, v in params.items() if k != "layers"}
     cut["layers"] = {blk: {k: v[:n_layers] for k, v in sub.items()}
                      for blk, sub in params["layers"].items()}
-    return Model(cfg, use_pallas=True), cut
+    return Model(cfg, attention_impl=model.impl, use_pallas=True), cut
 
 
 def phase_oracle(model, params, served: list[Request]) -> None:
@@ -317,7 +542,188 @@ def phase_oracle(model, params, served: list[Request]) -> None:
 
 
 # --------------------------------------------------------------------------
-# 5. kernels line
+# 6. serve_paged and 7. paged_oracle
+# --------------------------------------------------------------------------
+
+def make_paged_requests(vocab: int) -> list[Request]:
+    rng = np.random.default_rng(0)
+    lens = rng.integers(5, PAGED_MAX_PROMPT + 1, N_PAGED_REQUESTS)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, int(n)),
+                    max_new_tokens=MAX_NEW) for i, n in enumerate(lens)]
+
+
+def dense_of(paged: dict) -> dict:
+    return {k: v for k, v in paged.items()
+            if k not in ("paged", "page_size", "kv_pages")}
+
+
+def phase_serve_paged(model, params):
+    """granite-8b with flash prefill through the paged pool. The engine is
+    stepped by hand so the page stats are read after every quantum."""
+    cfg = model.cfg
+    # warm-up at the largest bucket: lazy set-up stays out of the timings
+    serve(ServeEngine(model, params, **PAGED),
+          [Request(rid=-1, prompt=np.arange(PAGED["max_len"] // 2 + 1)
+                   % cfg.vocab, max_new_tokens=2)])
+    reqs = make_paged_requests(cfg.vocab)
+    eng = ServeEngine(model, params, **PAGED)
+    torch.cuda.synchronize()
+    start_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sg.systolic_gemm_cuda.launches = 0
+    fa.flash_attention_cuda.launches = 0
+    syncs0 = HOST_SYNCS.count
+    peak = None
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(1000):
+        if not eng.queue and not any(eng.active):
+            break
+        eng.step()
+        stats = eng.paged_kv_stats()
+        if peak is None or stats["mapped_bytes"] > peak["mapped_bytes"]:
+            peak = stats
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gemm_launches = sg.systolic_gemm_cuda.launches
+    flash_launches = fa.flash_attention_cuda.launches
+    syncs = HOST_SYNCS.count - syncs0
+    st = eng.stats
+    # the prefill's dense transient lane cache at the largest bucket, and
+    # the device's peak over the run above what the weights and the pool
+    # already held (transient cache, activations, logits)
+    ps = PAGED["page_size"]
+    bucket = max(eng._bucket(len(r.prompt)) for r in reqs)
+    transient = (PAGED["slots"] * -(-bucket // ps) * ps
+                 * peak["kv_bytes_per_token"])
+    peak_over_start = torch.cuda.max_memory_allocated() - start_bytes
+    for r in reqs:
+        check(r.done and r.state == "done",
+              f"paged request {r.rid} ended {r.state} ({r.reason})")
+        check(len(r.out) == MAX_NEW,
+              f"paged request {r.rid}: {len(r.out)} tokens")
+        check(all(0 <= t < cfg.vocab for t in r.out),
+              f"paged request {r.rid}: token outside [0, {cfg.vocab})")
+    eng._pool.assert_drained()
+    check(eng.recycled >= 1, "no lane was recycled inside a chunk")
+    per_forward = len(GEMMS_PER_LAYER) * cfg.n_layers + 1
+    forwards = st["prefill_calls"] + st["decode_steps"]
+    check(gemm_launches == per_forward * forwards,
+          f"pod-GEMM launches {gemm_launches} != {per_forward} x {forwards}")
+    check(flash_launches == cfg.n_layers * st["prefill_calls"],
+          f"flash launches {flash_launches} != {cfg.n_layers} x "
+          f"{st['prefill_calls']} prefill calls")
+    check(syncs == st["prefill_calls"] + st["chunks"],
+          f"host syncs {syncs} != prefill groups + decode chunks")
+    generated = sum(len(r.out) for r in reqs)
+    emit("serve_paged", arch=cfg.name, n_layers=cfg.n_layers,
+         attention_impl=model.impl, **PAGED,
+         prompt_lens=[len(r.prompt) for r in reqs], max_new_tokens=MAX_NEW,
+         requests_done=len(reqs), tokens_generated=generated,
+         wall_s=wall, tokens_per_s=generated / wall,
+         prefill_calls=st["prefill_calls"],
+         prefill_ms_per_call=1e3 * st["prefill_s"] / st["prefill_calls"],
+         decode_chunks=st["chunks"], decode_steps=st["decode_steps"],
+         decode_ms_per_step=1e3 * st["decode_s"] / st["decode_steps"],
+         host_syncs=syncs, pod_gemm_launches=gemm_launches,
+         flash_launches=flash_launches, recycled=eng.recycled,
+         peak_paged_kv_stats=peak, largest_bucket=bucket,
+         prefill_transient_kv_bytes=transient,
+         device_peak_bytes_over_start=peak_over_start)
+    return reqs, flash_launches
+
+
+def layer0_qkv(cfg, params, tokens):
+    """Layer 0's q, k, v (after RoPE) for a token batch: the real inputs
+    the flash kernel meets first in a served prefill."""
+    p = {k: v[0] for k, v in params["layers"]["attn"].items()}
+    h = apply_norm({k: v[0] for k, v in params["layers"]["ln_attn"].items()},
+                   embed(params["embed"], tokens), cfg.norm)
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    q, k, v = (pod_dense(h, p[n]) for n in ("q", "k", "v"))
+    return (apply_rope(q, pos, cfg.rope_theta),
+            apply_rope(k, pos, cfg.rope_theta), v)
+
+
+def layer0_gate(cfg, params) -> dict:
+    """The kernel on the real activations it meets first in a served
+    prefill: layer 0's q, k, v of the first served prompts at bucket
+    max_len. Random weights with the reference's fan-in (the [d, H, hd]
+    projections scale by H) give scores in the hundreds, where the naive
+    version's bf16 scores (ulp 2-4) pick other keys than f32 scores
+    (PERF.md), so the kernel is held to the Pallas kernel's own arithmetic
+    with its key tile, at flash_bf16_tiled_large_scores."""
+    toks = np.zeros((PAGED["slots"], PAGED["max_len"]), np.int64)
+    for g, r in enumerate(make_paged_requests(cfg.vocab)[:PAGED["slots"]]):
+        toks[g, :len(r.prompt)] = r.prompt
+    q, k, v = layer0_qkv(cfg, params, torch.from_numpy(toks).cuda())
+    D = q.shape[-1]
+    got = fa.flash_attention_cuda(q, k, v, causal=True)
+    tiled = flash_attention_tiled_ref(q, k, v, causal=True,
+                                      block_k=kernel_block_k(D))
+    # the score scale, over batch 0's first 256 rows (their causal pairs)
+    qs = q[:1, :256].float() / math.sqrt(D)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs, k[:1, :256].float()
+                     .repeat_interleave(q.shape[2] // k.shape[2], dim=2))
+    ok = torch.ones((256, 256), dtype=torch.bool, device=q.device).tril()
+    return {"shape": list(q.shape),
+            "score_std": float(s[:, :, ok].std()),
+            "excess": TOLERANCES["flash_bf16_tiled_large_scores"].excess(
+                got, tiled),
+            "excess_at_flash_bf16_tiled":
+                TOLERANCES["flash_bf16_tiled"].excess(got, tiled),
+            "max_abs_err": float((got.double() - tiled.double())
+                                 .abs().max())}
+
+
+def phase_paged_oracle(model, params, served: list[Request]) -> None:
+    """Paged against dense on the same flash model: the gathered page view
+    is position-ordered and every lane's arithmetic is row-independent, so
+    the tokens must be equal. On the first ORACLE_LAYERS layers, the paged
+    flash engine against the per-token ReferenceEngine of the same model:
+    the margin rule. Then the kernel on layer 0's real activations."""
+    tol = TOLERANCES["token_margin"]
+    cfg = model.cfg
+    dense = make_paged_requests(cfg.vocab)
+    wall = serve(ServeEngine(model, params, **dense_of(PAGED)), dense)
+    unequal = [r.rid for r, d in zip(served, dense) if r.out != d.out]
+
+    cut_model, cut_params = cut_depth(model, params, ORACLE_LAYERS)
+    cut_served = make_paged_requests(cfg.vocab)
+    eng = ServeEngine(cut_model, cut_params, **PAGED)
+    serve(eng, cut_served)
+    eng._pool.assert_drained()
+    reqs = make_paged_requests(cfg.vocab)
+    ref = ReferenceEngine(cut_model, cut_params, slots=PAGED["slots"],
+                          max_len=PAGED["max_len"])
+    serve(ref, reqs)
+    cut = first_differences(cut_served, reqs, ref)
+
+    real = layer0_gate(cfg, params)
+    emit("paged_oracle", requests=len(served), dense_wall_s=wall,
+         full_depth={"n_layers": cfg.n_layers,
+                     "paged_equals_dense": len(served) - len(unequal),
+                     "unequal_rids": unequal},
+         cut_depth={"n_layers": ORACLE_LAYERS,
+                    "token_exact_vs_oracle": len(cut_served) - len(cut),
+                    "first_differences": cut},
+         layer0_real_activations=real,
+         margin_tolerance=f"{tol.atol} x max|logit|")
+    check(not unequal, f"paged tokens differ from dense for requests "
+                       f"{unequal} at full depth")
+    for d in cut:
+        check(d["margin"] <= tol.atol * d["max_abs_logit"],
+              f"{ORACLE_LAYERS}-layer cut: paged flash engine differs from "
+              f"its oracle for request {d['rid']} at token {d['step']} with "
+              f"oracle margin {d['margin']} > {tol.atol} x max|logit| "
+              f"{d['max_abs_logit']}")
+    check(real["excess"] <= 1.0, f"kernel disagrees with the tiled plain "
+                                 f"version on layer 0's activations {real}")
+
+
+# --------------------------------------------------------------------------
+# 8. kernels line
 # --------------------------------------------------------------------------
 
 def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
@@ -336,7 +742,15 @@ def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
     return sum(s.elapsed_time(e) for s, e in ev) / iters
 
 
-def phase_kernels_line(cfg, launches: int) -> dict:
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of the operations at
+    the bf16 tensor-core peak and the bytes at the HBM rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def gemm_line(cfg, launches: int) -> dict:
     d, ff, vocab = cfg.d_model, cfg.d_ff, cfg.vocab
     kv = cfg.n_kv_heads * cfg.resolved_head_dim
     q = cfg.n_heads * cfg.resolved_head_dim
@@ -376,18 +790,14 @@ def phase_kernels_line(cfg, launches: int) -> dict:
                 "library_ms": time_ms(library, iters, flush),
                 "max_abs_err": err,
             }
-            nbytes = 2 * (M * K + K * N + M * N)
-            flops = 2 * M * N * K
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / BF16_FLOP_PER_S * 1e3
-            row["bound_ms"] = max(t_bytes, t_ops)
-            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            row["bound_ms"], row["bound_by"] = bound(
+                2 * M * N * K, 2 * (M * K + K * N + M * N))
             rows.append(row)
             per_forward = 1 if name == "head" else cfg.n_layers
             for key in totals[phase]:
                 totals[phase][key] += per_forward * row[key]
     dec = totals["decode"]
-    return {"kernels": [{
+    return {
         "name": "systolic_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/systolic_gemm/csrc/systolic_gemm.cu",
         "replaces": "src/repro/kernels/systolic_gemm/systolic_gemm.py:121",
@@ -400,7 +810,69 @@ def phase_kernels_line(cfg, launches: int) -> dict:
                    f"(per-shape rows below, L2 flushed)"),
         "prefill_forward": totals["prefill"],
         "shapes": rows,
-    }]}
+    }
+
+
+FLASH_SEQS = (256, 2048)     # granite-8b prefill buckets, B = SLOTS
+
+
+def flash_line(cfg, launches: int) -> dict:
+    B, Hq, Hkv = SLOTS, cfg.n_heads, cfg.n_kv_heads
+    D = cfg.resolved_head_dim
+    g = torch.Generator("cuda").manual_seed(4)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    rows, worst = [], 0.0
+    for S, iters in zip(FLASH_SEQS, (20, 5)):
+        q, k, v = (torch.randn((B, S, h, D), generator=g,
+                               device="cuda").to(torch.bfloat16)
+                   for h in (Hq, Hkv, Hkv))
+        got = fa.flash_attention_cuda(q, k, v, causal=True)
+        ref = flash_attention_ref(q, k, v, causal=True)
+        tiled = flash_attention_tiled_ref(q, k, v, causal=True,
+                                          block_k=kernel_block_k(D))
+        err = float((got.double() - ref.double()).abs().max())
+        check(TOLERANCES["flash_bf16"].ok(got, ref)
+              and TOLERANCES["flash_bf16_tiled"].ok(got, tiled),
+              f"flash S={S}: kernel disagrees (max_abs_err {err})")
+        worst = max(worst, err)
+        del got, ref, tiled
+
+        def library(q=q, k=k, v=v):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True)
+        row = {
+            "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D, "causal": True,
+            "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v,
+                                                          causal=True),
+                          iters, flush),
+            "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v,
+                                                            causal=True),
+                                2, flush),
+            "library_ms": time_ms(library, iters, flush),
+            "max_abs_err": err,
+        }
+        # 4 D operations per unmasked (q, k) pair (QK^T and PV); q, k, v
+        # read once, o written once
+        row["bound_ms"], row["bound_by"] = bound(
+            4 * B * Hq * D * (S * (S + 1) // 2),
+            2 * B * S * D * (2 * Hq + 2 * Hkv))
+        rows.append(row)
+    top, L = rows[-1], cfg.n_layers
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:72",
+        "launches": launches, "max_abs_err": worst,
+        "ms": L * top["ms"], "plain_ms": L * top["plain_ms"],
+        "bound_ms": L * top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": L * top["library_ms"],
+        "ms_are": (f"sums over the {L} launches of one {cfg.name} prefill "
+                   f"forward at bucket {top['S']} (B={B}, bf16, causal; "
+                   f"per-shape rows below, L2 flushed)"),
+        "shapes": rows,
+    }
 
 
 def main() -> int:
@@ -411,10 +883,13 @@ def main() -> int:
         phase_build()
         phase_kernel()
         torch.cuda.synchronize()
+        phase_flash()
+        torch.cuda.synchronize()
 
         cfg = get_arch(ARCH)
         t0 = time.perf_counter()
         model = Model(cfg, use_pallas=True)
+        flash_model = Model(cfg, attention_impl="pallas", use_pallas=True)
         params = model.init(torch.Generator("cuda").manual_seed(0))
         torch.cuda.synchronize()
         emit("init", arch=cfg.name, params=model.param_count(),
@@ -425,9 +900,14 @@ def main() -> int:
         torch.cuda.synchronize()
         phase_oracle(model, params, served)
         torch.cuda.synchronize()
+        paged, flash_launches = phase_serve_paged(flash_model, params)
+        torch.cuda.synchronize()
+        phase_paged_oracle(flash_model, params, paged)
+        torch.cuda.synchronize()
         del params
         torch.cuda.empty_cache()
-        kernels = phase_kernels_line(cfg, launches)
+        kernels = {"kernels": [gemm_line(cfg, launches),
+                               flash_line(cfg, flash_launches)]}
         torch.cuda.synchronize()
         gpu = gpu_name_and_power()
     except Exception:  # every phase failure ends the run non-zero

@@ -4,10 +4,10 @@ the card compares the kernel against it."""
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 import torch.nn.functional as F
+
+from ...runtime import no_tf32
 
 
 def _matmul_exact_int8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -39,24 +39,12 @@ def epilogue_ref(acc: torch.Tensor, scale=None, bias=None, *,
     return acc
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    """Full f32 products on the card, never TF32, for this call only: the
-    caller's setting is restored afterwards."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def systolic_gemm_ref(x, w, scale=None, bias=None, *, activation=None,
                       out_dtype=torch.float32):
     if x.dtype == torch.int8:
         acc = _matmul_exact_int8(x, w)
     else:
-        with _no_tf32():
+        with no_tf32():
             acc = x.float() @ w.float()
     return epilogue_ref(acc, scale, bias,
                         activation=activation).to(out_dtype)

@@ -1,11 +1,12 @@
-"""Attention forward passes and the dense KV cache (counterpart of
-repro/models/attention.py).
+"""Attention forward passes and the dense and paged KV caches (counterpart
+of repro/models/attention.py).
 
 Shapes: q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D] with Hq = G * Hkv (GQA).
 Masks come from position comparisons, with the finite NEG_INF = -1e30 of
 the reference; q is scaled in its own dtype before QK^T, scores are f32,
 and probabilities are cast to q's dtype before PV. These are jnp functions
-in the reference, so they are torch ops here (no kernel).
+in the reference, so they are torch ops here; `attention(impl="pallas")`
+reaches the flash-attention kernel (kernels/flash_attention).
 """
 
 from __future__ import annotations
@@ -105,6 +106,20 @@ def naive_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     return out.reshape(B, Sq, Hq, v.shape[-1]).to(q.dtype)
 
 
+def attention(q, k, v, *, impl: str = "chunked", causal: bool = True,
+              window: int | None = None):
+    """Prefill attention by implementation: "chunked" (torch ops) or
+    "pallas" (the flash-attention kernel on the card, its plain version on
+    the CPU)."""
+    if impl == "chunked":
+        return chunked_attention(q, k, v, causal=causal, window=window)
+    if impl == "pallas":
+        # imported here: the kernel's plain version imports this module
+        from ..kernels.flash_attention import ops as fl
+        return fl.flash_attention(q, k, v, causal=causal, window=window)
+    raise ValueError(impl)
+
+
 # --------------------------------------------------------------------------
 # KV cache
 # --------------------------------------------------------------------------
@@ -147,6 +162,126 @@ class KVCache:
         self.k[rows, cols] = k_new
         self.v[rows, cols] = v_new
         self.length += s
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Pooled (paged) KV cache for serving, updated in place: device memory
+    scales with the pages mapped, not `slots x max_len`.
+
+    `k`/`v`: [(L,) n_pages + 1, page_size, H, D], a pool of pages shared by
+    every lane plus one scratch page at index `n_pages`. `page_table`:
+    [B, P_max] int64, position-ordered: entry j of lane b names the pool
+    page that holds that lane's tokens [j*page_size, (j+1)*page_size). The
+    sentinel id `n_pages` marks an unmapped entry. `length`: [(L,) B] filled
+    tokens per lane, as KVCache.length.
+
+    The reference lets JAX drop every write routed through the sentinel
+    (`mode="drop"`); torch has no drop mode, so such writes land in the
+    scratch page instead, which nothing reads: a lane writes only into
+    pages its table maps, or into scratch. One page table serves every
+    layer (the reference broadcasts it across L).
+    """
+    k: torch.Tensor
+    v: torch.Tensor
+    page_table: torch.Tensor
+    length: torch.Tensor
+
+    @staticmethod
+    def zeros(batch, max_len, n_kv, head_dim, *, n_pages, page_size,
+              dtype=torch.bfloat16, layers: int | None = None, device=None):
+        if max_len % page_size:
+            raise ValueError(f"max_len {max_len} must be a multiple of "
+                             f"page_size {page_size}")
+        shape = (n_pages + 1, page_size, n_kv, head_dim)
+        lshape: tuple[int, ...] = (batch,)
+        if layers:
+            shape = (layers,) + shape
+            lshape = (layers, batch)
+        return PagedKVCache(
+            torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device),
+            torch.full((batch, max_len // page_size), n_pages,
+                       dtype=torch.int64, device=device),
+            torch.zeros(lshape, dtype=torch.int64, device=device))
+
+    @property
+    def n_pages(self) -> int:
+        return self.k.shape[-4] - 1          # the scratch page is not a page
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[-3]
+
+    def layer(self, i: int) -> "PagedKVCache":
+        """Layer i of a stacked cache, as views: writes land in the stack."""
+        return PagedKVCache(self.k[i], self.v[i], self.page_table,
+                            self.length[i])
+
+    def append(self, k_new, v_new) -> None:
+        """Decode-step write of [B, 1, H, D] at each lane's position
+        `length`, inside the page the table maps it to, in place; `length`
+        advances by 1. A position past the lane's mapped pages (an empty
+        slot, or a lane decoding inertly after it finished) resolves to the
+        sentinel, whose write lands in the scratch page."""
+        ps, P = self.page_size, self.page_table.shape[1]
+        col = torch.div(self.length, ps, rounding_mode="floor")      # [B]
+        page = self.page_table.gather(1, col.clamp(max=P - 1)[:, None])[:, 0]
+        page = torch.where(col < P, page, self.n_pages)
+        slot = self.length % ps
+        self.k[page, slot] = k_new[:, 0].to(self.k.dtype)
+        self.v[page, slot] = v_new[:, 0].to(self.v.dtype)
+        self.length += k_new.shape[1]
+
+    def flat_view(self):
+        """Gather by page table: dense [B, P_max*page_size, H, D] views of
+        k/v and absolute positions [B, P_max*page_size] (-1 on unmapped
+        pages and past-length slots, the decode_attention mask contract).
+        Unmapped entries read page n_pages - 1 (never the scratch page) and
+        are masked, as in the reference; every masked slot is also zeroed,
+        so whatever a page not owned by the lane holds never reaches the
+        arithmetic. The view is position-ordered, so decode attention over
+        it computes what it computes over the dense KVCache."""
+        pt = self.page_table                               # [B, P]
+        B, P = pt.shape
+        ps = self.page_size
+        safe = pt.clamp(max=self.n_pages - 1)
+        t = torch.arange(P * ps, device=pt.device)[None, :]
+        mapped = (pt < self.n_pages).repeat_interleave(ps, dim=1)
+        valid = mapped & (t < self.length[:, None])
+        k_pos = torch.where(valid, t, -1)
+        masked = ~valid[:, :, None, None]
+        k = self.k[safe].reshape(B, P * ps, *self.k.shape[-2:])
+        v = self.v[safe].reshape(B, P * ps, *self.v.shape[-2:])
+        return k.masked_fill(masked, 0), v.masked_fill(masked, 0), k_pos
+
+    def scatter_prefill(self, lane: KVCache, dest_pages, slot_ids,
+                        true_lens) -> None:
+        """Page-granular scatter of a dense transient prefill cache into
+        the pool, in place. `lane` is a KVCache over the full lane batch
+        ([(L,) B, S, H, D], S = P*page_size with P <= P_max: the engine's
+        transient spans the prefill bucket's pages only); `dest_pages`
+        [B, P] maps lane g's page j to a pool page (sentinel entries, for
+        pad lanes and pages past the prompt, land in scratch). `slot_ids`
+        [B] routes lane g's true length to its engine slot (negative = pad
+        lane, no write). Garbage past a lane's true length inside its last
+        mapped page is masked by `length` and overwritten by decode."""
+        ps = self.page_size
+        P = dest_pages.shape[-1]
+        for pool, lk in ((self.k, lane.k), (self.v, lane.v)):
+            shp = lk.shape
+            pages = lk.reshape(shp[:-3] + (P, ps) + shp[-2:]).to(pool.dtype)
+            if pool.dim() == 5:                   # stacked [L, n_pages+1, ...]
+                pool[:, dest_pages] = pages
+            else:
+                pool[dest_pages] = pages
+        # length[..., slot_ids[g]] = true_lens[g] for real lanes, without
+        # reading slot_ids back to the host
+        n_slots = self.length.shape[-1]
+        hit = slot_ids[:, None] == torch.arange(n_slots,
+                                                device=slot_ids.device)
+        new = (hit * true_lens[:, None].to(self.length.dtype)).sum(0)
+        self.length.copy_(torch.where(hit.any(0), new, self.length))
 
 
 def decode_attention(q, cache_k, cache_v, k_pos, q_pos, *,

@@ -1,7 +1,8 @@
 """Model API over the segment system (counterpart of
 repro/models/model.py).
 
-    model = Model(get_arch("granite-8b"), use_pallas=True)   # on the card
+    model = Model(get_arch("granite-8b"), attention_impl="pallas",
+                  use_pallas=True)                             # on the card
     params = model.init(torch.Generator("cuda").manual_seed(0))
     logits, cache = model.prefill(params, batch, model.init_cache(4, 512))
     logits, cache = model.decode_step(params, tok, cache, position)
@@ -19,7 +20,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..runtime import resolve_device
-from .attention import KVCache
+from .attention import KVCache, PagedKVCache
 from .layers import (apply_norm, embed, embed_schema, init_from_schema,
                      norm_schema, param_count, unembed)
 from .transformer import Segment, apply_block, block_schema, segments
@@ -29,19 +30,25 @@ def _index(tree, i: int):
     """Layer i of a stacked parameter or cache tree (views, no copies)."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
-    if isinstance(tree, KVCache):
+    if isinstance(tree, (KVCache, PagedKVCache)):
         return tree.layer(i)
     return tree[i]
 
 
 class Model:
-    def __init__(self, cfg: ArchConfig, use_pallas: bool = False,
-                 device=None):
+    def __init__(self, cfg: ArchConfig, attention_impl: str = "chunked",
+                 use_pallas: bool = False, device=None):
         """device None means the card (raises without one); tests pass
-        device="cpu". use_pallas routes every dense projection, the MLP and
-        the LM head through the pod GEMM (a kernel on the card, its plain
-        version on the CPU); off, they are plain torch einsums."""
+        device="cpu". attention_impl picks the prefill attention: "chunked"
+        (torch ops) or "pallas" (the flash-attention kernel on the card,
+        its plain version on the CPU). use_pallas routes every
+        dense projection, the MLP and the LM head through the pod GEMM (a
+        kernel on the card, its plain version on the CPU); off, they are
+        plain torch einsums."""
+        if attention_impl not in ("chunked", "pallas"):
+            raise ValueError(f"unknown attention_impl {attention_impl!r}")
         self.cfg = cfg
+        self.impl = attention_impl
         self.use_pallas = use_pallas
         self.device = resolve_device(device)
         self.segs = segments(cfg)
@@ -67,7 +74,8 @@ class Model:
 
     # -- forward -----------------------------------------------------------
     def _run_segment(self, seg: Segment, p_seg, x, positions, cache_seg):
-        kw = dict(positions=positions, use_pallas=self.use_pallas)
+        kw = dict(positions=positions, impl=self.impl,
+                  use_pallas=self.use_pallas)
         for i in range(seg.n):
             x = apply_block(_index(p_seg, i), x, self.cfg, seg.kind,
                             cache=None if cache_seg is None
@@ -90,12 +98,25 @@ class Model:
         return unembed(params["embed"], x, use_pallas=self.use_pallas), cache
 
     # -- serving -----------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int,
-                   dtype=torch.bfloat16) -> dict:
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                   page_size: int | None = None,
+                   kv_pages: int | None = None) -> dict:
+        """page_size/kv_pages set builds a *paged* cache: every KVCache
+        becomes a PagedKVCache over a shared kv_pages-page pool
+        (serve/paging.PagePool owns the host-side allocation)."""
         cfg = self.cfg
+        if (page_size is None) != (kv_pages is None):
+            raise ValueError("page_size and kv_pages must be set together")
+        hd = cfg.resolved_head_dim
+        if page_size is not None:
+            return {seg.name: {"attn": PagedKVCache.zeros(
+                        batch, max_len, cfg.n_kv_heads, hd, n_pages=kv_pages,
+                        page_size=page_size, dtype=dtype, layers=seg.n,
+                        device=self.device)}
+                    for seg in self.segs}
         return {seg.name: {"attn": KVCache.zeros(
-                    batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim,
-                    dtype, layers=seg.n, device=self.device)}
+                    batch, max_len, cfg.n_kv_heads, hd, dtype, layers=seg.n,
+                    device=self.device)}
                 for seg in self.segs}
 
     def prefill(self, params, batch, cache: dict):

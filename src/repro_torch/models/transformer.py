@@ -4,8 +4,8 @@ repro/models/transformer.py).
 A model is a list of segments; a segment is a homogeneous stack of layers
 whose parameters carry a leading `layers` axis. The reference scans the
 stack with lax.scan; here a Python loop walks it (model.py). Only the
-dense family is ported so far: GQA attention with a dense KVCache and the
-(gated) MLP. Other families raise NotImplementedError.
+dense family is ported so far: GQA attention with a dense or paged KV
+cache and the (gated) MLP. Other families raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import dataclasses
 import torch
 
 from ..configs.base import ArchConfig
-from .attention import KVCache, chunked_attention, decode_attention
+from .attention import KVCache, PagedKVCache, attention, decode_attention
 from .layers import (ParamSpec, apply_mlp, apply_norm, apply_rope,
                      mlp_schema, norm_schema, pod_dense)
 
@@ -47,11 +47,16 @@ def attn_schema(cfg: ArchConfig, layers: int | None) -> dict:
     }
 
 
-def apply_gqa(p, x, cfg: ArchConfig, *, positions,
-              cache: KVCache | None = None, use_pallas: bool = False):
-    """Causal GQA attention. Prefill when x has S > 1 (filling `cache` if
-    given); decode when S == 1 and a cache is given. The cache is updated
-    in place. use_pallas runs the q/k/v/o projections on the pod GEMM."""
+def apply_gqa(p, x, cfg: ArchConfig, *, positions, window: int | None = None,
+              impl: str = "chunked",
+              cache: KVCache | PagedKVCache | None = None,
+              use_pallas: bool = False):
+    """Causal GQA attention. Prefill when x has S > 1 (filling a dense
+    `cache` if given); decode when S == 1 and a cache is given. The cache is
+    updated in place. `impl` picks the prefill attention ("chunked", or
+    "pallas": the flash-attention kernel); decode attention is
+    torch ops (the reference has no decode kernel). use_pallas runs the
+    q/k/v/o projections on the pod GEMM."""
     if use_pallas:
         q = pod_dense(x, p["q"])
         k = pod_dense(x, p["k"])
@@ -67,14 +72,25 @@ def apply_gqa(p, x, cfg: ArchConfig, *, positions,
     if cache is not None and x.shape[1] == 1:            # decode
         q_pos = positions[..., 0]                        # scalar or [B]
         cache.append(k, v)
-        ar = torch.arange(cache.k.shape[1], device=x.device)
-        k_pos = torch.where(ar[None, :] < cache.length[:, None],
-                            ar[None, :], -1)             # [B, S]
-        out = decode_attention(q, cache.k, cache.v, k_pos, q_pos)
+        if isinstance(cache, PagedKVCache):
+            # append into the mapped page, then gather the lane's pages
+            # back into a position-ordered view: the dense path's contract
+            ck, cv, k_pos = cache.flat_view()
+        else:
+            ck, cv = cache.k, cache.v
+            ar = torch.arange(ck.shape[1], device=x.device)
+            k_pos = torch.where(ar[None, :] < cache.length[:, None],
+                                ar[None, :], -1)         # [B, S]
+        out = decode_attention(q, ck, cv, k_pos, q_pos, window=window)
     else:                                                # prefill
+        if isinstance(cache, PagedKVCache):
+            raise TypeError(
+                "PagedKVCache cannot be prefilled in place; prefill "
+                "through a dense transient cache and scatter_prefill "
+                "into the pool (the serve engine does)")
         if cache is not None:
             cache.append(k, v)
-        out = chunked_attention(q, k, v, causal=True)
+        out = attention(q, k, v, impl=impl, causal=True, window=window)
     B, S = x.shape[0], x.shape[1]
     out = out.reshape(B, S, cfg.n_heads, -1)
     if use_pallas:
@@ -101,13 +117,15 @@ def _norms(cfg: ArchConfig, d: int, layers: int | None) -> dict:
 
 
 def apply_block(p, x, cfg: ArchConfig, kind: str, *, positions,
-                cache: dict | None = None, use_pallas: bool = False):
+                impl: str = "chunked", cache: dict | None = None,
+                use_pallas: bool = False):
     """One dense layer: pre-norm GQA attention and pre-norm MLP, both
-    residual. `cache` is {"attn": KVCache} or None, updated in place."""
+    residual. `cache` is {"attn": KVCache | PagedKVCache} or None, updated
+    in place."""
     if kind != "dense":
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     h = apply_norm(p["ln_attn"], x, cfg.norm)
-    a = apply_gqa(p["attn"], h, cfg, positions=positions,
+    a = apply_gqa(p["attn"], h, cfg, positions=positions, impl=impl,
                   cache=cache["attn"] if cache else None,
                   use_pallas=use_pallas)
     x = x + a

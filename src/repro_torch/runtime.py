@@ -6,12 +6,14 @@
 * `to_host`: every device->host read of the port goes through this one
   helper, which counts it. It is the counterpart of the `np.asarray`
   syncs the JAX engine's tests count (tests/test_serving.py).
+* `no_tf32`: full f32 products in a plain version on the card.
 * `TOLERANCES`: every comparison of the port against a plain version or
   against the JAX reference takes its tolerance from here, with its reason.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -48,23 +50,49 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu").numpy()
 
 
+@contextlib.contextmanager
+def no_tf32():
+    """Full f32 products on the card, never TF32, for this block only: the
+    caller's setting is restored afterwards."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 @dataclasses.dataclass(frozen=True)
 class Tol:
     rtol: float
     atol: float
     why: str
 
+    def _atol(self, ref: torch.Tensor):
+        return self.atol
+
     def excess(self, got: torch.Tensor, ref: torch.Tensor) -> float:
         """max |got - ref| / (atol + rtol |ref|): at most 1 when `got` is
         within tolerance (NaN when either holds a NaN)."""
         got, ref = got.double(), ref.double()
         err = (got - ref).abs()
-        ratio = err / (self.atol + self.rtol * ref.abs())
+        ratio = err / (self._atol(ref) + self.rtol * ref.abs())
         return float(torch.where(err == 0, torch.zeros_like(err),
                                  ratio).max())
 
     def ok(self, got: torch.Tensor, ref: torch.Tensor) -> bool:
         return self.excess(got, ref) <= 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class RowTol(Tol):
+    """atol is relative to the rms of each row of `ref` (its last axis).
+    An attention output row is a weighted mean of the values its row sees,
+    and shrinks as that row sees more keys (randn inputs: ~1 at row 0, ~0.04
+    after 1000 keys), so a fixed atol is loose on the late rows."""
+
+    def _atol(self, ref: torch.Tensor):
+        return self.atol * ref.square().mean(dim=-1, keepdim=True).sqrt()
 
 
 TOLERANCES: dict[str, Tol] = {
@@ -106,6 +134,38 @@ TOLERANCES: dict[str, Tol] = {
     "attention_bf16": Tol(2e-2, 2e-2,
                           "bf16 scores and probabilities round at other "
                           "places: a few bf16 ulps"),
+    # flash attention, kernel against its plain version on the card and
+    # plain version against the JAX Pallas kernel (interpret mode) on the
+    # CPU; the gross planted controls of chip_smoke.py (a causal mask off
+    # by one, a wrong GQA head map) miss both by 25x or more
+    "flash_f32": Tol(2e-5, 2e-5,
+                     "f32 exp and sums in another order: the kernel updates "
+                     "its softmax key by key, the plain version normalises "
+                     "once"),
+    "flash_bf16": Tol(2e-2, 2e-2,
+                      "the plain version rounds its scores to bf16 and "
+                      "normalises p before the bf16 cast, the kernel keeps "
+                      "f32 scores and casts p unnormalised: a few bf16 ulps "
+                      "(tests/test_kernels.py holds Pallas to 2e-2)"),
+    # the Hopper kernel (card) or the plain version of the Pallas kernel's
+    # own arithmetic (CPU, against Pallas in interpret mode) against
+    # flash_attention_tiled_ref with the same key tile: both round p at the
+    # same running max, so they differ by the order of f32 sums only. The
+    # late-tile controls of chip_smoke.py (a stale K tile, PV summed in
+    # bf16) must fail it at granite-8b's [4, 2048, 32, 128]
+    "flash_bf16_tiled": RowTol(2 ** -7, 2 ** -8,
+                               "one bf16 ulp (at most 2**-7 relative) where "
+                               "the output rounds the other way; atol 2**-8 "
+                               "of the row's rms for f32 scores summed in "
+                               "another order, which moves a few p across a "
+                               "bf16 rounding"),
+    "flash_bf16_tiled_large_scores": RowTol(
+        2 ** -7, 2 ** -6,
+        "as flash_bf16_tiled, for scores in the hundreds (layer 0 of "
+        "random granite-8b weights): an f32 score there is exact to ~1e-4 "
+        "only, so the sum order moves about half of the p across a bf16 "
+        "rounding, each by 2**-8 relative; near-tied keys carry that into "
+        "the output (readings in PERF.md)"),
     # model logits, port against the JAX Model (both on the CPU)
     "logits_bf16": Tol(0.1, 0.05,
                        "atol is relative to max|ref|: bf16 rounds at other "

@@ -1,6 +1,5 @@
-"""Batched serving engine (counterpart of repro/serve/engine.py in its
-default configuration: fifo admission, no deadlines, no paging, no guard,
-no chaos).
+"""Batched serving engine (counterpart of repro/serve/engine.py with fifo
+admission, no deadlines, no guard, no chaos; paging optional).
 
 The engine owns a fixed decode batch of `slots` lanes; requests queue,
 prefill into free slots, and decode step-locked with the rest of the batch.
@@ -17,6 +16,20 @@ prefill into free slots, and decode step-locked with the rest of the batch.
     powers of two.
   * Host syncs: exactly one counted read (runtime.to_host) per prefill
     group and one per decode chunk.
+  * Paging (paged=True): the KV cache is a PagedKVCache over a shared pool
+    of kv_pages pages, allocated host-side by serve/paging.PagePool at the
+    syncs the engine already has. A request is admitted only when its
+    worst-case page count reserves (else it waits queued; one larger than
+    the whole pool is rejected `pages-exhausted` at submit); prefill runs
+    over a dense transient lane cache and scatters whole pages into the
+    pool; the transient spans only the bucket's pages, so a prefill
+    allocates [slots, bucket] lanes, not [slots, max_len]. Each decode
+    chunk maps the pages its appends reach and pushes the page table
+    host->device when it changed. Every way a lane ends returns its pages
+    (_release_slot). In-chunk recycling (always on when paged) re-runs
+    admission at the chunk's own sync, so a lane that died mid-chunk is
+    handed to queued work without an idle chunk. Paging adds no host
+    sync.
 
 The KV cache is updated in place.
 """
@@ -30,9 +43,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..models.attention import KVCache
+from ..models.attention import KVCache, PagedKVCache
 from ..models.model import Model
 from ..runtime import to_host
+from .paging import PagePool
 
 MIN_BUCKET = 8          # smallest prefill bucket (the reference's default)
 
@@ -92,6 +106,13 @@ def _fix_lengths(cache: dict, true_lens: torch.Tensor) -> None:
                 c.length.copy_(true_lens.expand_as(c.length))
 
 
+def _paged_nodes(cache: dict):
+    for node in cache.values():
+        for c in node.values():
+            if isinstance(c, PagedKVCache):
+                yield c
+
+
 def _write_lane(big: dict, lane: dict, slot: int, g: int = 0) -> None:
     """Copy lane g of `lane` into slot `slot` of `big`, in place (the
     caches are stacked, lane axis second: [L, B, ...])."""
@@ -106,7 +127,8 @@ def _write_lane(big: dict, lane: dict, slot: int, g: int = 0) -> None:
 class ServeEngine:
     def __init__(self, model: Model, params, slots: int = 4,
                  max_len: int = 512, eos_id: Optional[int] = None,
-                 decode_chunk: int = 8):
+                 decode_chunk: int = 8, paged: bool = False,
+                 page_size: int = 16, kv_pages: Optional[int] = None):
         self.model = model
         self.params = params
         self.slots = slots
@@ -114,7 +136,23 @@ class ServeEngine:
         self.eos_id = eos_id
         self.decode_chunk = max(1, decode_chunk)
         self.device = model.device
-        self.cache = model.init_cache(slots, max_len)
+        # paged=True swaps every KVCache for a PagedKVCache over a shared
+        # kv_pages-page pool; paged=False keeps the engine as it was
+        self._pool: Optional[PagePool] = None
+        if paged:
+            if kv_pages is None:
+                # the default pool covers the dense worst case exactly;
+                # size it down to oversubscribe (admission queues on pages)
+                kv_pages = slots * (max_len // page_size)
+            self._pool = PagePool(kv_pages, page_size, slots, max_len,
+                                  chunk_slack=self.decode_chunk)
+            self.cache = model.init_cache(slots, max_len, page_size=page_size,
+                                          kv_pages=kv_pages)
+        else:
+            self.cache = model.init_cache(slots, max_len)
+        # in-chunk lane recycling: on exactly when paged
+        self.recycle = bool(paged)
+        self.recycled = 0
         self.active: list[Optional[Request]] = [None] * slots
         self.positions = np.zeros(slots, np.int64)
         self.budgets = np.zeros(slots, np.int64)
@@ -128,6 +166,13 @@ class ServeEngine:
     def submit(self, req: Request) -> None:
         validate(req, self.max_len)
         req.state = "queued"
+        if self._pool is not None and self._pool.worst_pages(
+                len(req.prompt), self._clamped_budget(req)) > \
+                self._pool.n_pages:
+            # larger than the entire page pool: no amount of waiting lets
+            # this request reserve, so it fails at the door
+            reject(req, "pages-exhausted")
+            return
         self.queue.append(req)
 
     def _free_slots(self) -> list[int]:
@@ -150,10 +195,25 @@ class ServeEngine:
             rest: list[Request] = []
             for r in self.queue:
                 if len(take) < len(free) and self._bucket(len(r.prompt)) == b:
+                    if self._pool is not None:
+                        # a lane starts only if its worst-case page count
+                        # (prompt + clamped budget + one chunk of inert
+                        # writes) reserves now, so mapping never fails
+                        # mid-flight; requests that don't fit wait queued
+                        worst = self._pool.worst_pages(
+                            len(r.prompt), self._clamped_budget(r))
+                        if not self._pool.can_reserve(worst):
+                            rest.append(r)
+                            continue
+                        self._pool.reserve(free[len(take)], worst)
                     take.append(r)
                 else:
                     rest.append(r)
             self.queue = rest
+            if not take:
+                # the head bucket is blocked on pages; retires at the next
+                # chunk sync will free some
+                return
             self._prefill_group(take, free[: len(take)], b)
 
     # -- bucketed prefill ------------------------------------------------
@@ -164,16 +224,30 @@ class ServeEngine:
         for g, r in enumerate(reqs):
             toks[g, :len(r.prompt)] = r.prompt
             true_lens[g] = len(r.prompt)
+        dest = None
+        if self._pool is not None:
+            # map each lane's prompt pages; row g of the LANE-indexed
+            # destination table names lane g's pages over the bucket
+            # (sentinel-padded). The slot-indexed page table reaches the
+            # device before the next decode chunk (step() checks
+            # pool.dirty).
+            dest = np.full((self.slots, -(-bucket // self._pool.page_size)),
+                           self._pool.sentinel, np.int64)
+            for g, s in enumerate(slot_list):
+                self._pool.map_to(s, len(reqs[g].prompt))
+                own = self._pool.owned(s)
+                dest[g, :len(own)] = own
         t_start = time.perf_counter()
         first = self._prefill_batched(
             torch.from_numpy(toks).to(self.device),
-            torch.from_numpy(true_lens).to(self.device), slot_list)
+            torch.from_numpy(true_lens).to(self.device), slot_list, dest)
         first = to_host(first)                           # the ONE host sync
         self.stats["prefill_calls"] += 1
         self.stats["prefill_s"] += time.perf_counter() - t_start
         for g, (r, s) in enumerate(zip(reqs, slot_list)):
             if first[g] < 0:      # non-finite last-position logits
                 reject(r, "non-finite-logits")
+                self._release_slot(s)        # never activated: free pages
                 continue
             r.out.append(int(first[g]))
             r.state = "running"
@@ -182,13 +256,20 @@ class ServeEngine:
             self.budgets[s] = self._clamped_budget(r)
             self._retire_if_full(s)
 
-    def _prefill_batched(self, tokens, true_lens, slot_list: list[int]):
+    def _prefill_batched(self, tokens, true_lens, slot_list: list[int],
+                         dest: Optional[np.ndarray] = None):
         """One prefill over a fixed [slots, bucket] token batch into a
-        transient lane cache: per-lane last-real-position argmax (-1 where
-        those logits are not finite), the length fixup, then an in-place
-        copy of each real lane into its slot. Slot ids are host values, so
-        the scatter needs no device-side masking."""
-        lane_cache = self.model.init_cache(self.slots, self.max_len)
+        transient dense lane cache: per-lane last-real-position argmax (-1
+        where those logits are not finite), the length fixup, then an
+        in-place copy of each real lane into its slot, or, paged, a
+        page-granular scatter into the pool along `dest`. Slot ids are host
+        values, so the dense copy needs no device-side masking. Paged, the
+        transient spans the bucket's whole pages only (dest's columns)."""
+        if dest is None:
+            lane_cache = self.model.init_cache(self.slots, self.max_len)
+        else:
+            lane_cache = self.model.init_cache(
+                self.slots, dest.shape[1] * self._pool.page_size)
         logits, lane_cache = self.model.forward(
             self.params, {"tokens": tokens}, cache=lane_cache)
         idx = torch.clamp_min(true_lens - 1, 0)
@@ -196,6 +277,17 @@ class ServeEngine:
         first = torch.argmax(last, dim=-1)
         first = torch.where(torch.isfinite(last).all(dim=-1), first, -1)
         _fix_lengths(lane_cache, true_lens)
+        if dest is not None:
+            slot_ids = np.full(self.slots, -1, np.int64)    # -1: pad lane
+            slot_ids[:len(slot_list)] = slot_list
+            dev = self.device
+            dest_t = torch.from_numpy(dest).to(dev)
+            slot_t = torch.from_numpy(slot_ids).to(dev)
+            for name, node in self.cache.items():
+                for key, c in node.items():
+                    c.scatter_prefill(lane_cache[name][key], dest_t, slot_t,
+                                      true_lens)
+            return first
         for g, s in enumerate(slot_list):
             _write_lane(self.cache, lane_cache, s, g)
         return first
@@ -210,7 +302,14 @@ class ServeEngine:
         """A prompt that fills the cache retires with its prefill token."""
         if self.positions[slot] >= self.max_len:
             finish(self.active[slot])
-            self.active[slot] = None
+            self._release_slot(slot)
+
+    def _release_slot(self, i: int) -> None:
+        """Clear a lane AND return its pages: the one retirement path for
+        every way a lane can end, so no path leaks a page."""
+        if self._pool is not None:
+            self._pool.release(i)
+        self.active[i] = None
 
     # -- fused decode loop ------------------------------------------------
     def _decode_chunk(self, toks, pos, bud, alive, n: int):
@@ -260,6 +359,18 @@ class ServeEngine:
         if not live:
             return 0
         n = self._chunk_len(live)
+        if self._pool is not None:
+            # map pages to cover this chunk's appends (live lanes reach
+            # pos + n; a lane that dies mid-chunk writes inertly inside the
+            # same bound, covered by its reservation's chunk slack), then
+            # push the slot-indexed table if it changed: host work and one
+            # host->device copy, no device->host read
+            for i in live:
+                self._pool.map_to(i, int(self.positions[i]) + n)
+            if self._pool.dirty:
+                table = torch.from_numpy(self._pool.table().astype(np.int64))
+                for c in _paged_nodes(self.cache):
+                    c.page_table.copy_(table, non_blocking=True)
         toks = np.zeros(self.slots, np.int64)
         alive0 = np.zeros(self.slots, bool)
         for i in live:
@@ -290,13 +401,52 @@ class ServeEngine:
                        and int(seq[cnt - 1, i]) == self.eos_id)
             if self.budgets[i] <= 0 or hit_eos:
                 finish(r)
-                self.active[i] = None
+                self._release_slot(i)
             elif bad[i]:
                 # logits went NaN/Inf: the lane stopped emitting at that
                 # step; tokens emitted before it are kept
                 reject(r, "non-finite-logits")
-                self.active[i] = None
+                self._release_slot(i)
+        if self.recycle and self.queue and \
+                any(r is None for r in self.active):
+            # in-chunk lane recycling: a lane that died inside THIS chunk
+            # hands its slot and pages to queued work at this same sync,
+            # so the successor's prefill lands before the next chunk
+            occupied = sum(r is not None for r in self.active)
+            self._admit()
+            self.recycled += max(
+                0, sum(r is not None for r in self.active) - occupied)
         return len(live)
+
+    def paged_kv_stats(self) -> dict:
+        """Host-side page-pool accounting (no device sync). KV bytes come
+        from the paged caches' dtypes and shapes; `dense_bytes` is what the
+        same caches would cost as slots x max_len dense lanes. The pool's
+        scratch page is not a page: totals count n_pages."""
+        pool = self._pool
+        if pool is None:
+            raise ValueError("paged_kv_stats requires paged=True")
+        per_tok = sum((c.k.nbytes + c.v.nbytes)
+                      // ((pool.n_pages + 1) * pool.page_size)
+                      for c in _paged_nodes(self.cache))
+        live_tokens = sum(int(self.positions[i])
+                          for i, r in enumerate(self.active)
+                          if r is not None)
+        return {
+            "page_size": pool.page_size,
+            "total_pages": pool.n_pages,
+            "pages_in_use": pool.pages_in_use,
+            "free_pages": pool.free_pages,
+            "reserved_pages": pool.reserved_pages,
+            "occupancy": pool.occupancy,
+            "live_tokens": live_tokens,
+            "mapped_tokens": pool.pages_in_use * pool.page_size,
+            "kv_bytes_per_token": per_tok,
+            "mapped_bytes": pool.pages_in_use * pool.page_size * per_tok,
+            "pool_bytes": pool.n_pages * pool.page_size * per_tok,
+            "dense_bytes": self.slots * self.max_len * per_tok,
+            "recycled": self.recycled,
+        }
 
     def run_to_completion(self, max_steps: int = 10_000) -> None:
         """Drive the engine until queue and slots drain; raises

@@ -40,7 +40,8 @@ def test_port_and_chip_smoke_import_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
-    assert int(proc.stdout.split()[1]) >= 15    # every module was imported
+    # every module was imported, flash attention and paging included
+    assert int(proc.stdout.split()[1]) >= 25
 
 
 def _leaves(tree, prefix=""):
