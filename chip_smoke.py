@@ -5,12 +5,17 @@
 
 Phases, one JSON line each; any failure exits non-zero:
 
-  1. build   - nvcc builds the pod-GEMM and flash-attention kernels from
-               src/ for sm_90a, in parallel, and prints each ptxas report.
+  1. build   - nvcc builds the pod-GEMM, flash-attention and SSD kernels
+               from src/ for sm_90a, in parallel, and prints each ptxas
+               report.
   2. kernel  - the pod-GEMM kernel against its plain PyTorch version on the
                card: f32/bf16/int8 x every activation x ragged shapes x
-               f32/bf16 out, each within runtime.TOLERANCES.
-  3. flash   - the flash-attention kernel against its plain version:
+               f32/bf16 out, each within runtime.TOLERANCES; a planted
+               control that sums in bf16 must fail.
+  3. gemm_nt - the same for the transposed-weight kernel (w [N, K], the
+               tied LM head), with mamba2's head [4, 1024] x [50280, 1024]^T
+               among the shapes (a 104-column ragged tail).
+  4. flash   - the flash-attention kernel against its plain version:
                f32/bf16 x the cases of tests/test_kernels.py, granite-8b's
                heads, Sq != Skv, D = 192, within runtime.TOLERANCES; bf16
                also against the Pallas kernel's own arithmetic at about one
@@ -18,28 +23,49 @@ Phases, one JSON line each; any failure exits non-zero:
                map h % Hkv) must fail; at granite-8b's [4, 2048, 32, 128]
                two that err on late KV tiles only (a stale K tile, PV
                summed in bf16) must fail the one-ulp tolerance.
-  4. serve   - granite-8b at full width and depth (random weights from a
+  5. ssd     - the SSD chunk-scan kernel against the Pallas kernel's own
+               arithmetic (ssd_kernel_ref) at about one bf16 ulp and
+               against the reference (ssd_ref, bf16 state) at its stated
+               drift, y and final state: the cases of tests/test_kernels.py
+               in f32 and bf16, mamba2's [4, 2048, 32, 64] (N 128, chunk
+               256), a ragged S and G > 1. At the served shape five planted
+               controls (no state carried across chunks, the mask after
+               exp, y_inter from the updated state, ssd_ref itself, and
+               the state and y_inter rounded to bf16) must fail the
+               one-ulp tolerance.
+  6. serve   - granite-8b at full width and depth (random weights from a
                seeded torch.Generator, bf16) served by ServeEngine; every
                request must finish with valid tokens, and the pod-GEMM
                launch count must be 7 x 36 + 1 = 253 per forward.
-  5. oracle  - the same requests through the per-token ReferenceEngine.
+  7. oracle  - the same requests through the per-token ReferenceEngine.
                Random weights at 36 layers turn a last-bit difference into
                different tokens, so agreement is reported there and the
                rule (tokens agree, or differ only after a near tie) is held
                on the first ORACLE_LAYERS layers of the same weights.
-  6. serve_paged  - the same weights as Model(attention_impl="pallas"),
+  8. serve_paged  - the same weights as Model(attention_impl="pallas"),
                served by a paged ServeEngine (max_len 2048, a pool of half
                the dense pages) on prompts of up to 1500 tokens: every
                request done, the pool drained, at least one lane recycled,
                36 flash launches per prefill, 253 pod-GEMM launches per
                forward, one host sync per prefill group and decode chunk.
-  7. paged_oracle - the same requests through a dense ServeEngine on the
+  9. paged_oracle - the same requests through a dense ServeEngine on the
                same flash model: tokens must be equal. On ORACLE_LAYERS
                layers the paged flash engine is held to the margin rule
                against the per-token ReferenceEngine of the same model.
                The kernel on layer 0's real activations of the served
                prompts is held to the Pallas kernel's own arithmetic.
-  8. kernels - each kernel's time at the served shapes beside its bound,
+ 10. serve_ssm - mamba2-370m at full width and depth (48 layers, d 1024,
+               vocab 50280, tied embeddings; random bf16 weights) as
+               Model(ssd_impl="pallas", use_pallas=True), served by
+               ServeEngine(slots 4, max_len 2048, decode_chunk 8) on the
+               paged phase's prompts: every request done, one NT-GEMM
+               launch per forward, 48 SSD launches per prefill and none per
+               decode step, no other kernel, one host sync per prefill
+               group and decode chunk.
+ 11. ssm_oracle - the same requests through the per-token ReferenceEngine:
+               agreement reported at 48 layers, the margin rule held on
+               ORACLE_LAYERS layers of the same weights.
+ 12. kernels - each kernel's time at the served shapes beside its bound,
                its plain version and one PyTorch call (a yardstick only).
 
 The last lines are the card's name and power limit, the kernels line, and
@@ -70,8 +96,12 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref, flash_attention_tiled_ref)
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd import ssd as ssd_mod  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_kernel_ref, ssd_ref  # noqa: E402
 from repro_torch.kernels.systolic_gemm import systolic_gemm as sg  # noqa: E402
-from repro_torch.kernels.systolic_gemm.ref import systolic_gemm_ref  # noqa: E402
+from repro_torch.kernels.systolic_gemm.ref import (  # noqa: E402
+    systolic_gemm_ref, systolic_gemm_t_ref)
 from repro_torch.models.layers import (apply_norm, apply_rope, embed,  # noqa: E402
                                        pod_dense)
 from repro_torch.runtime import no_tf32  # noqa: E402
@@ -82,6 +112,7 @@ from repro_torch.serve.reference import ReferenceEngine  # noqa: E402
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12          # CUDA cores, outside the tensor cores
 
 ARCH = "granite-8b"
 SLOTS, MAX_LEN, DECODE_CHUNK, MAX_NEW = 4, 512, 8, 16
@@ -93,6 +124,9 @@ PAGED = dict(slots=4, max_len=2048, decode_chunk=8, paged=True, page_size=16,
              kv_pages=256)
 N_PAGED_REQUESTS = 8
 PAGED_MAX_PROMPT = 1500
+# mamba2: the paged phase's traffic on a dense lane-resident SSM cache
+SSM_ARCH = "mamba2-370m"
+SSM_SERVE = dict(slots=4, max_len=2048, decode_chunk=8)
 
 
 class SmokeFailure(RuntimeError):
@@ -120,14 +154,15 @@ def gpu_name_and_power() -> str:
 # --------------------------------------------------------------------------
 
 def phase_build() -> None:
-    """Both kernels build at once, one nvcc each."""
+    """Every kernel builds at once, one nvcc each."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(sg._lib), pool.submit(fa._lib)]:
+    libs = (sg._lib, fa._lib, ssd_mod._lib)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for f in [pool.submit(lib) for lib in libs]:
             f.result()
     seconds = time.perf_counter() - t0
     ptxas = {}
-    for name in ("systolic_gemm", "flash_attention"):
+    for name in ("systolic_gemm", "flash_attention", "ssd"):
         info = _build.build_info(name)
         ptxas[name] = {"seconds": info["seconds"], "report": [
             ln.strip() for ln in info["ptxas"].splitlines()
@@ -140,17 +175,19 @@ def phase_build() -> None:
 # 2. kernel vs plain
 # --------------------------------------------------------------------------
 
-def gemm_inputs(M, K, N, dtype, g):
+def gemm_inputs(M, K, N, dtype, g, transposed: bool = False):
+    """x [M, K] and w [K, N], or w [N, K] when transposed."""
     dev = "cuda"
+    w_shape = (N, K) if transposed else (K, N)
     if dtype == torch.int8:
         x = torch.randint(-128, 128, (M, K), generator=g, device=dev,
                           dtype=torch.int8)
-        w = torch.randint(-128, 128, (K, N), generator=g, device=dev,
+        w = torch.randint(-128, 128, w_shape, generator=g, device=dev,
                           dtype=torch.int8)
     else:
         # the model's fan-in scale keeps outputs O(1)
         x = torch.randn((M, K), generator=g, device=dev).to(dtype)
-        w = (torch.randn((K, N), generator=g, device=dev)
+        w = (torch.randn(w_shape, generator=g, device=dev)
              / math.sqrt(K)).to(dtype)
     return x, w
 
@@ -180,27 +217,41 @@ def bf16_summed(x, w, k_step: int = 16) -> torch.Tensor:
 
 
 def phase_kernel() -> None:
+    gemm_phase("kernel", sg.systolic_gemm_cuda, systolic_gemm_ref,
+               [(37, 100, 130), (1, 4096, 14336), (5, 4096, 49152)],
+               transposed=False, seed=1)
+
+
+def phase_gemm_nt() -> None:
+    """mamba2's tied head at decode, [4, 1024] x [50280, 1024]^T, and a
+    ragged prefill-sized M with a ragged K."""
+    gemm_phase("gemm_nt", sg.systolic_gemm_nt_cuda, systolic_gemm_t_ref,
+               [(37, 100, 130), (4, 1024, 50280), (300, 1000, 50280)],
+               transposed=True, seed=5)
+
+
+def gemm_phase(phase: str, kernel, plain, shapes, *, transposed: bool,
+               seed: int) -> None:
     """Every case is read before any verdict, so one failing run shows
     all of them. `excess` is max |got - ref| / (atol + rtol |ref|): the
     kernel must stay at or below 1, the bf16-summing control above it."""
-    g = torch.Generator("cuda").manual_seed(1)
-    shapes = [(37, 100, 130), (1, 4096, 14336), (5, 4096, 49152)]
+    g = torch.Generator("cuda").manual_seed(seed)
     cases, failures = 0, []
     worst: dict[str, dict] = {}
     control: dict[str, dict] = {}
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
         for (M, K, N) in shapes:
-            x, w = gemm_inputs(M, K, N, dtype, g)
+            x, w = gemm_inputs(M, K, N, dtype, g, transposed)
             scale = torch.rand(N, generator=g, device="cuda") + 0.5
             bias = torch.randn(N, generator=g, device="cuda")
             for act in sg.ACTIVATIONS:
                 for out_dtype in (torch.float32, torch.bfloat16):
                     # the epilogue with and without scale/bias
                     sb = (scale, bias) if act is not None else (None, None)
-                    got = sg.systolic_gemm_cuda(x, w, *sb, activation=act,
-                                                out_dtype=out_dtype)
-                    ref = systolic_gemm_ref(x, w, *sb, activation=act,
-                                            out_dtype=out_dtype)
+                    got = kernel(x, w, *sb, activation=act,
+                                 out_dtype=out_dtype)
+                    ref = plain(x, w, *sb, activation=act,
+                                out_dtype=out_dtype)
                     torch.cuda.synchronize()
                     tol = tolerance(dtype, out_dtype, act)
                     err = float((got.double() - ref.double()).abs().max())
@@ -217,7 +268,8 @@ def phase_kernel() -> None:
                     elif not excess <= 1.0:
                         failures.append("kernel disagrees with plain " + case)
                     if act is None and dtype != torch.int8:
-                        planted = bf16_summed(x, w).to(out_dtype)
+                        planted = bf16_summed(
+                            x, w.t() if transposed else w).to(out_dtype)
                         c = tol.excess(planted, ref)
                         row = control.setdefault(key, {"min_excess": c,
                                                        "max_abs_err": 0.0})
@@ -228,10 +280,10 @@ def phase_kernel() -> None:
                             failures.append("bf16-summing control passes "
                                             f"{key} {M}x{K}x{N} excess={c}")
                     cases += 1
-    emit("kernel", cases=cases, worst=worst, control=control,
+    emit(phase, cases=cases, worst=worst, control=control,
          tolerances={k: [t.rtol, t.atol] for k, t in TOLERANCES.items()
                      if k.startswith("gemm")}, failures=failures)
-    check(not failures, f"{len(failures)} kernel checks failed")
+    check(not failures, f"{len(failures)} {phase} checks failed")
 
 
 # --------------------------------------------------------------------------
@@ -421,6 +473,192 @@ def phase_flash() -> None:
 
 
 # --------------------------------------------------------------------------
+# 5. ssd vs plain
+# --------------------------------------------------------------------------
+
+SSD_CASES = [
+    # b, S, H, P, G, N, chunk: the four of tests/test_kernels.py
+    (2, 64, 4, 16, 1, 32, 16), (1, 100, 2, 8, 2, 16, 32),
+    (1, 32, 4, 16, 4, 8, 32), (2, 48, 8, 32, 1, 64, 16),
+    # mamba2-370m's heads: a ragged S, and G > 1
+    (2, 1000, 32, 64, 1, 128, 256), (2, 512, 32, 64, 4, 128, 256),
+]
+SSD_SERVED = (SLOTS, 2048, 32, 64, 1, 128)   # mamba2's largest prefill
+SSD_FAULTS = ("state_not_carried", "mask_after_exp",
+              "y_inter_from_updated_state")
+
+
+def ssd_inputs(shape, dtype, g, device="cuda"):
+    """x, B, C randn in dtype; dt = softplus(randn) and A = -exp(U(-0.5,
+    0.5)), f32, as mamba2's init gives them (dt ~ 0.8, A ~ -1), so the
+    exponent above a 256-token chunk's diagonal overflows f32; D U(0, 1)."""
+    b, S, H, P, G, N = shape
+    x = torch.randn((b, S, H, P), generator=g, device=device).to(dtype)
+    dt = F.softplus(torch.randn((b, S, H), generator=g, device=device))
+    A = -torch.exp(torch.rand(H, generator=g, device=device) - 0.5)
+    B = torch.randn((b, S, G, N), generator=g, device=device).to(dtype)
+    C = torch.randn((b, S, G, N), generator=g, device=device).to(dtype)
+    D = torch.rand(H, generator=g, device=device)
+    return x, dt, A, B, C, D
+
+
+def ssd_planted(x, dt, A, B, C, D, *, chunk: int, fault):
+    """ssd_kernel_ref's arithmetic (the Pallas kernel's) with one planted
+    fault of SSD_FAULTS, or none: the state reset at every chunk; the mask
+    applied after exp (exp(seg) * 0 is NaN where exp overflows); y_inter
+    taken from the state after this chunk's update instead of h_prev.
+    Fault "state_in_bf16" rounds the state and y_inter to x's dtype, as
+    ssd_ref does, and nothing else: a control at the served shape only
+    (its excess is a max over rows, and a smaller input can pass)."""
+    b, S, H, P = x.shape
+    pad = (-S) % chunk
+    x, dt = F.pad(x, (0, 0, 0, 0, 0, pad)), F.pad(dt.float(), (0, 0, 0, pad))
+    rep = H // B.shape[2]
+    Bh, Ch = (F.pad(t, (0, 0, 0, 0, 0, pad)).repeat_interleave(rep, dim=2)
+              .float() for t in (B, C))
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=x.device).tril()[None, :, :, None]
+    h = torch.zeros((b, H, P, Bh.shape[-1]), device=x.device)
+    ys = []
+    with no_tf32():
+        for c0 in range(0, x.shape[1], chunk):
+            sl = slice(c0, c0 + chunk)
+            xf, dtc, Bc, Cc = x[:, sl].float(), dt[:, sl], Bh[:, sl], Ch[:, sl]
+            if fault == "state_not_carried":
+                h = torch.zeros_like(h)
+            cum = torch.cumsum(dtc * A.float(), dim=1)
+            seg = cum[:, :, None, :] - cum[:, None, :, :]
+            if fault == "mask_after_exp":
+                decay = torch.exp(seg) * tri
+            else:
+                decay = torch.where(tri, torch.exp(torch.where(tri, seg, 0.0)),
+                                    0.0)
+            M = torch.einsum("bthn,bshn->btsh", Cc, Bc) * decay * \
+                dtc[:, None, :, :]
+            y = torch.einsum("btsh,bshp->bthp", M.to(x.dtype).float(), xf)
+            w = torch.exp(cum[:, -1:, :] - cum) * dtc
+            h_new = torch.exp(cum[:, -1, :])[..., None, None] * h + \
+                torch.einsum("bshp,bshn->bhpn", xf * w[..., None], Bc)
+            if fault == "state_in_bf16":
+                h_new = h_new.to(x.dtype).float()
+            h_read = h_new if fault == "y_inter_from_updated_state" else h
+            y_inter = torch.exp(cum)[..., None] * torch.einsum(
+                "bthn,bhpn->bthp", Cc, h_read)
+            if fault == "state_in_bf16":
+                y_inter = y_inter.to(x.dtype).float()
+            y = y + y_inter
+            h = h_new
+            ys.append((y + D.float()[None, None, :, None] * xf).to(x.dtype))
+    return torch.cat(ys, dim=1)[:, :S], h.to(x.dtype)
+
+
+def phase_ssd() -> None:
+    """Every case is read before any verdict. The kernel must stay within
+    ssd_f32 / ssd_bf16_kernel of ssd_kernel_ref (y and the final state)
+    and within ssd_bf16_reference of ssd_ref; at the served shape each
+    planted control must exceed ssd_bf16_kernel."""
+    g = torch.Generator("cuda").manual_seed(7)
+    cases, failures = 0, []
+    worst: dict[str, dict] = {}
+    tight_bf16, loose = (TOLERANCES["ssd_bf16_kernel"],
+                         TOLERANCES["ssd_bf16_reference"])
+    for dtype in (torch.float32, torch.bfloat16):
+        cls = str(dtype)[6:]
+        for (b, S, H, P, G, N, chunk) in SSD_CASES:
+            if dtype == torch.float32 and S > 100:
+                continue            # f32 tiles of mamba2's heads exceed smem
+            x, dt, A, B, C, D = ssd_inputs((b, S, H, P, G, N), dtype, g)
+            got = ssd_ops.ssd(x, dt, A, B, C, D, chunk=chunk)
+            ref = ssd_kernel_ref(x, dt, A, B, C, D, chunk=chunk)
+            refs = {"kernel_ref": (ref, TOLERANCES["ssd_f32"]
+                                   if dtype == torch.float32 else tight_bf16)}
+            if dtype == torch.bfloat16:
+                refs["ssd_ref"] = (ssd_ref(x, dt, A, B, C, D, chunk), loose)
+            torch.cuda.synchronize()
+            for rname, ((ry, rh), tol) in refs.items():
+                for out, r, got_t in (("y", ry, got[0]), ("h", rh, got[1])):
+                    excess = tol.excess(got_t.float(), r.float())
+                    row = worst.setdefault(f"{cls} {out} vs {rname}",
+                                           {"excess": 0.0, "max_abs_err": 0.0})
+                    row["excess"] = max(row["excess"], excess)
+                    row["max_abs_err"] = max(row["max_abs_err"], float(
+                        (got_t.double() - r.double()).abs().max()))
+                    if not bool(torch.isfinite(got_t.float()).all()) or \
+                            not excess <= 1.0:
+                        failures.append(f"{cls} {(b, S, H, P, G, N, chunk)} "
+                                        f"{out} vs {rname}: excess {excess}")
+            cases += 1
+    served = ssd_served_shape(g)
+    for name, e in served["excess"].items():
+        if not e <= 1.0:
+            failures.append(f"served shape {name}: excess {e}")
+    for fault, e in served["controls"].items():
+        # a control fails when y or h does; NaN (mask after exp) fails
+        if all(v <= 1.0 for v in e.values()):
+            failures.append(f"control {fault} passes ssd_bf16_kernel: {e}")
+    emit("ssd", cases=cases + 1, worst=worst, served_shape=served,
+         tolerances={k: [t.rtol, t.atol] for k, t in TOLERANCES.items()
+                     if k.startswith("ssd")}, failures=failures)
+    check(not failures, f"{len(failures)} ssd checks failed")
+
+
+def ssd_served_shape(g) -> dict:
+    """The kernel at mamba2's served prefill, [4, 2048, 32, 64], N = 128,
+    chunk 256, bf16, against both plain versions, and the planted
+    controls against ssd_kernel_ref. The last two controls are ssd_ref
+    itself and the state and y_inter rounded to bf16: neither may pass for
+    the kernel's f32 state."""
+    args = ssd_inputs(SSD_SERVED, torch.bfloat16, g)
+    y, h = ssd_ops.ssd(*args, chunk=256)
+    ky, kh = ssd_kernel_ref(*args, chunk=256)
+    ry, rh = ssd_ref(*args, 256)
+    # the noise floor: the same plain version on the CPU, whose f32 sums
+    # (another order) round some M entries to bf16 the other way
+    cy, ch = ssd_kernel_ref(*(t.cpu() for t in args), chunk=256)
+    tight, loose = (TOLERANCES["ssd_bf16_kernel"],
+                    TOLERANCES["ssd_bf16_reference"])
+    out = {"shape": list(SSD_SERVED) + [256],
+           "excess": {"y_vs_kernel_ref": tight.excess(y, ky),
+                      "h_vs_kernel_ref": tight.excess(h, kh),
+                      "y_vs_ssd_ref": loose.excess(y, ry),
+                      "h_vs_ssd_ref": loose.excess(h, rh)},
+           "max_abs_err_vs_kernel_ref": float((y.double() - ky.double())
+                                              .abs().max()),
+           "plain_card_vs_cpu": {"y": tight.excess(ky.cpu(), cy),
+                                 "h": tight.excess(kh.cpu(), ch)},
+           "controls": {}}
+    for fault in SSD_FAULTS:
+        py, ph = ssd_planted(*args, chunk=256, fault=fault)
+        out["controls"][fault] = {"y": tight.excess(py, ky),
+                                  "h": tight.excess(ph, kh)}
+    out["controls"]["bf16_state_ssd_ref"] = {"y": tight.excess(ry, ky),
+                                             "h": tight.excess(rh, kh)}
+    # ssd_ref also rounds M x before D x cancels it: where it fails, and
+    # the bf16 state and y_inter without that rounding
+    out["bf16_state_ssd_ref_worst_y_row"] = worst_row(ry, ky, tight, 256)
+    py, ph = ssd_planted(*args, chunk=256, fault="state_in_bf16")
+    out["controls"]["state_in_bf16"] = {"y": tight.excess(py, ky),
+                                        "h": tight.excess(ph, kh)}
+    return out
+
+
+def worst_row(got, ref, tol, chunk: int) -> dict:
+    """The row (last axis) of y [b, S, H, P] where `got` misses `ref` most
+    under a RowTol: its position in its chunk and its rms beside the
+    median row's, and how many rows miss."""
+    got, ref = got.double(), ref.double()
+    err = (got - ref).abs()
+    ratio = torch.where(err == 0, torch.zeros_like(err),
+                        err / (tol._atol(ref) + tol.rtol * ref.abs()))
+    ratio = ratio.amax(dim=-1)
+    rms = ref.square().mean(dim=-1).sqrt()
+    i = np.unravel_index(int(ratio.argmax()), tuple(ratio.shape))
+    return {"t_in_chunk": int(i[1]) % chunk, "row_rms": float(rms[i]),
+            "median_row_rms": float(rms.median()),
+            "rows_over_1": int((ratio > 1).sum())}
+
+
+# --------------------------------------------------------------------------
 # 4. serve and 5. oracle
 # --------------------------------------------------------------------------
 
@@ -449,7 +687,7 @@ def phase_serve(model, params):
     reqs = make_requests(cfg.vocab)
     eng = ServeEngine(model, params, slots=SLOTS, max_len=MAX_LEN,
                       decode_chunk=DECODE_CHUNK)
-    sg.systolic_gemm_cuda.launches = 0
+    reset_launch_counts()
     syncs0 = HOST_SYNCS.count
     wall = serve(eng, reqs)
     launches = sg.systolic_gemm_cuda.launches
@@ -503,7 +741,8 @@ def cut_depth(model, params, n_layers: int):
     cut = {k: v for k, v in params.items() if k != "layers"}
     cut["layers"] = {blk: {k: v[:n_layers] for k, v in sub.items()}
                      for blk, sub in params["layers"].items()}
-    return Model(cfg, attention_impl=model.impl, use_pallas=True), cut
+    return Model(cfg, attention_impl=model.impl, use_pallas=True,
+                 ssd_impl=model.ssd_impl), cut
 
 
 def phase_oracle(model, params, served: list[Request]) -> None:
@@ -570,8 +809,7 @@ def phase_serve_paged(model, params):
     torch.cuda.synchronize()
     start_bytes = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    sg.systolic_gemm_cuda.launches = 0
-    fa.flash_attention_cuda.launches = 0
+    reset_launch_counts()
     syncs0 = HOST_SYNCS.count
     peak = None
     t0 = time.perf_counter()
@@ -723,7 +961,104 @@ def phase_paged_oracle(model, params, served: list[Request]) -> None:
 
 
 # --------------------------------------------------------------------------
-# 8. kernels line
+# 10. serve_ssm and 11. ssm_oracle
+# --------------------------------------------------------------------------
+
+def reset_launch_counts() -> None:
+    for fn in (sg.systolic_gemm_cuda, sg.systolic_gemm_nt_cuda,
+               fa.flash_attention_cuda, ssd_mod.ssd_cuda):
+        fn.launches = 0
+
+
+def phase_serve_ssm(model, params):
+    """mamba2-370m through bucketed prefill (SSD kernel) and fused decode
+    (recurrent torch ops), every LM head on the NT kernel."""
+    cfg = model.cfg
+    # warm-up at the largest bucket: lazy set-up stays out of the timings
+    serve(ServeEngine(model, params, **SSM_SERVE),
+          [Request(rid=-1, prompt=np.arange(SSM_SERVE["max_len"] // 2 + 1)
+                   % cfg.vocab, max_new_tokens=2)])
+    reqs = make_paged_requests(cfg.vocab)
+    eng = ServeEngine(model, params, **SSM_SERVE)
+    reset_launch_counts()
+    syncs0 = HOST_SYNCS.count
+    wall = serve(eng, reqs)
+    launches = {"pod_gemm": sg.systolic_gemm_cuda.launches,
+                "gemm_nt": sg.systolic_gemm_nt_cuda.launches,
+                "flash": fa.flash_attention_cuda.launches,
+                "ssd": ssd_mod.ssd_cuda.launches}
+    syncs = HOST_SYNCS.count - syncs0
+    st = eng.stats
+    for r in reqs:
+        check(r.done and r.state == "done",
+              f"ssm request {r.rid} ended {r.state} ({r.reason})")
+        check(len(r.out) == MAX_NEW, f"ssm request {r.rid}: {len(r.out)} "
+                                     f"tokens")
+        check(all(0 <= t < cfg.vocab for t in r.out),
+              f"ssm request {r.rid}: token outside [0, {cfg.vocab})")
+    forwards = st["prefill_calls"] + st["decode_steps"]
+    check(launches["gemm_nt"] == forwards,
+          f"NT-GEMM launches {launches['gemm_nt']} != 1 x {forwards} "
+          f"forwards")
+    check(launches["ssd"] == cfg.n_layers * st["prefill_calls"],
+          f"SSD launches {launches['ssd']} != {cfg.n_layers} x "
+          f"{st['prefill_calls']} prefill calls (none per decode step)")
+    check(launches["pod_gemm"] == 0 and launches["flash"] == 0,
+          f"mamba2 launched another kernel: {launches}")
+    check(syncs == st["prefill_calls"] + st["chunks"],
+          f"host syncs {syncs} != prefill groups + decode chunks")
+    generated = sum(len(r.out) for r in reqs)
+    emit("serve_ssm", arch=cfg.name, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, ssd_impl=model.ssd_impl, **SSM_SERVE,
+         prompt_lens=[len(r.prompt) for r in reqs], max_new_tokens=MAX_NEW,
+         requests_done=len(reqs), tokens_generated=generated,
+         wall_s=wall, tokens_per_s=generated / wall,
+         prefill_calls=st["prefill_calls"],
+         prefill_ms_per_call=1e3 * st["prefill_s"] / st["prefill_calls"],
+         decode_chunks=st["chunks"], decode_steps=st["decode_steps"],
+         decode_ms_per_step=1e3 * st["decode_s"] / st["decode_steps"],
+         host_syncs=syncs, launches=launches,
+         largest_bucket=max(eng._bucket(len(r.prompt)) for r in reqs),
+         ssm_state_bytes_per_lane=eng.cache["layers"]["ssm"].lane_bytes())
+    return reqs, launches
+
+
+def phase_ssm_oracle(model, params, served: list[Request]) -> None:
+    """Engine vs per-token oracle on mamba2: agreement reported at full
+    depth, the margin rule held on ORACLE_LAYERS layers of the same
+    weights (as phase_oracle)."""
+    tol = TOLERANCES["token_margin"]
+    cfg = model.cfg
+    oracle_kw = dict(slots=SSM_SERVE["slots"], max_len=SSM_SERVE["max_len"])
+    reqs = make_paged_requests(cfg.vocab)
+    ref = ReferenceEngine(model, params, **oracle_kw)
+    wall = serve(ref, reqs)
+    full = first_differences(served, reqs, ref)
+    cut_model, cut_params = cut_depth(model, params, ORACLE_LAYERS)
+    cut_served = make_paged_requests(cfg.vocab)
+    serve(ServeEngine(cut_model, cut_params, **SSM_SERVE), cut_served)
+    cut_reqs = make_paged_requests(cfg.vocab)
+    cut_ref = ReferenceEngine(cut_model, cut_params, **oracle_kw)
+    serve(cut_ref, cut_reqs)
+    cut = first_differences(cut_served, cut_reqs, cut_ref)
+    emit("ssm_oracle", requests=len(reqs), oracle_wall_s=wall,
+         full_depth={"n_layers": cfg.n_layers,
+                     "token_exact": len(reqs) - len(full),
+                     "first_differences": full},
+         cut_depth={"n_layers": ORACLE_LAYERS,
+                    "token_exact": len(reqs) - len(cut),
+                    "first_differences": cut},
+         margin_tolerance=f"{tol.atol} x max|logit|")
+    for d in cut:
+        check(d["margin"] <= tol.atol * d["max_abs_logit"],
+              f"{ORACLE_LAYERS}-layer mamba2 cut: request {d['rid']} "
+              f"differs at token {d['step']} with oracle margin "
+              f"{d['margin']} > {tol.atol} x max|logit| "
+              f"{d['max_abs_logit']}")
+
+
+# --------------------------------------------------------------------------
+# 12. kernels line
 # --------------------------------------------------------------------------
 
 def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
@@ -875,6 +1210,115 @@ def flash_line(cfg, launches: int) -> dict:
     }
 
 
+def gemm_nt_line(cfg, launches: int) -> dict:
+    """The tied LM head of cfg (x [M, d] @ tok [vocab, d]^T, bf16 out) at
+    decode (M = SLOTS) and at a [SLOTS, 256] prefill; one launch per
+    forward."""
+    K, N = cfg.d_model, cfg.vocab
+    g = torch.Generator("cuda").manual_seed(8)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    rows, worst = [], 0.0
+    for phase, M, iters in (("decode", SLOTS, 20), ("prefill", SLOTS * 256,
+                                                     5)):
+        x, w = gemm_inputs(M, K, N, torch.bfloat16, g, transposed=True)
+        got = sg.systolic_gemm_nt_cuda(x, w, out_dtype=torch.bfloat16)
+        ref = systolic_gemm_t_ref(x, w, out_dtype=torch.bfloat16)
+        err = float((got.double() - ref.double()).abs().max())
+        check(TOLERANCES["gemm_bf16out"].ok(got, ref),
+              f"NT {phase}: kernel disagrees (max_abs_err {err})")
+        worst = max(worst, err)
+        row = {
+            "phase": phase, "M": M, "K": K, "N": N,
+            "ms": time_ms(lambda: sg.systolic_gemm_nt_cuda(
+                x, w, out_dtype=torch.bfloat16), iters, flush),
+            "plain_ms": time_ms(lambda: systolic_gemm_t_ref(
+                x, w, out_dtype=torch.bfloat16), iters, flush),
+            "library_ms": time_ms(lambda: torch.matmul(x, w.t()), iters,
+                                  flush),
+            "max_abs_err": err,
+        }
+        row["bound_ms"], row["bound_by"] = bound(
+            2 * M * N * K, 2 * (M * K + K * N + M * N))
+        rows.append(row)
+    dec = rows[0]
+    return {
+        "name": "systolic_gemm_nt", "route": "cuda",
+        "source": "src/repro_torch/kernels/systolic_gemm/csrc/systolic_gemm.cu",
+        "replaces": "src/repro/kernels/systolic_gemm/systolic_gemm.py:249",
+        "launches": launches, "max_abs_err": worst,
+        "ms": dec["ms"], "plain_ms": dec["plain_ms"],
+        "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+        "library_ms": dec["library_ms"],
+        "ms_are": (f"one {cfg.name} LM head at decode, M={SLOTS} (one "
+                   f"launch per forward; per-shape rows below, L2 flushed)"),
+        "shapes": rows,
+    }
+
+
+def ssd_bound(b, S, H, P, G, N, chunk) -> tuple[float, str]:
+    """The least time for one SSD call: x, dt, B, C read once and y and the
+    final state written once (bf16, dt f32) at the HBM rate, against the
+    operations this causal chunk scan needs at the rate of their type:
+    C B^T and M x over the lower triangle of each chunk on the bf16 tensor
+    cores, C h^T and x^T B in f32 (as the Pallas kernel's dots) on the
+    CUDA cores. The larger of the three."""
+    nc = -(-S // chunk)
+    pairs = b * H * nc * chunk * (chunk + 1) // 2
+    bf16_ops = 2 * (N + P) * pairs
+    f32_ops = 4 * b * H * nc * chunk * N * P
+    nbytes = (2 * 2 * b * S * H * P + 2 * 2 * b * S * G * N + 4 * b * S * H
+              + 2 * 4 * H + 2 * b * H * P * N)
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": max(bf16_ops / BF16_FLOP_PER_S,
+                               f32_ops / F32_FLOP_PER_S) * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def ssd_line(cfg, launches: int) -> dict:
+    s = cfg.ssm
+    H, P, N, chunk = s.n_heads(cfg.d_model), s.head_dim, s.d_state, \
+        s.chunk_size
+    g = torch.Generator("cuda").manual_seed(9)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    rows, worst = [], 0.0
+    for S, iters in ((256, 20), (2048, 10)):
+        shape = (SLOTS, S, H, P, s.n_groups, N)
+        args = ssd_inputs(shape, torch.bfloat16, g)
+        y, h = ssd_mod.ssd_cuda(*args, chunk=chunk)
+        ky, kh = ssd_kernel_ref(*args, chunk=chunk)
+        tol = TOLERANCES["ssd_bf16_kernel"]
+        err = float((y.double() - ky.double()).abs().max())
+        check(tol.ok(y, ky) and tol.ok(h, kh),
+              f"ssd S={S}: kernel disagrees (max_abs_err {err})")
+        worst = max(worst, err)
+        row = {"b": SLOTS, "S": S, "H": H, "P": P, "G": s.n_groups, "N": N,
+               "chunk": chunk,
+               "ms": time_ms(lambda: ssd_mod.ssd_cuda(*args, chunk=chunk),
+                             iters, flush),
+               "plain_ms": time_ms(lambda: ssd_kernel_ref(*args,
+                                                          chunk=chunk),
+                                   2, flush),
+               "library_ms": None, "max_abs_err": err}
+        row["bound_ms"], row["bound_by"] = ssd_bound(*shape, chunk)
+        rows.append(row)
+    top, L = rows[-1], cfg.n_layers
+    return {
+        "name": "ssd", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/ssd.py:70",
+        "launches": launches, "max_abs_err": worst,
+        "ms": L * top["ms"], "plain_ms": L * top["plain_ms"],
+        "bound_ms": L * top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": None,
+        "ms_are": (f"sums over the {L} launches of one {cfg.name} prefill "
+                   f"forward at bucket {top['S']} (b={SLOTS}, bf16; per-shape "
+                   f"rows below, L2 flushed; no single PyTorch call computes "
+                   f"the chunk scan)"),
+        "shapes": rows,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -883,7 +1327,11 @@ def main() -> int:
         phase_build()
         phase_kernel()
         torch.cuda.synchronize()
+        phase_gemm_nt()
+        torch.cuda.synchronize()
         phase_flash()
+        torch.cuda.synchronize()
+        phase_ssd()
         torch.cuda.synchronize()
 
         cfg = get_arch(ARCH)
@@ -906,8 +1354,26 @@ def main() -> int:
         torch.cuda.synchronize()
         del params
         torch.cuda.empty_cache()
+
+        ssm_cfg = get_arch(SSM_ARCH)
+        t0 = time.perf_counter()
+        ssm_model = Model(ssm_cfg, ssd_impl="pallas", use_pallas=True)
+        ssm_params = ssm_model.init(torch.Generator("cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        emit("init", arch=ssm_cfg.name, params=ssm_model.param_count(),
+             seconds=time.perf_counter() - t0,
+             gib_allocated=torch.cuda.memory_allocated() / 2 ** 30)
+        ssm_served, ssm_launches = phase_serve_ssm(ssm_model, ssm_params)
+        torch.cuda.synchronize()
+        phase_ssm_oracle(ssm_model, ssm_params, ssm_served)
+        torch.cuda.synchronize()
+        del ssm_params
+        torch.cuda.empty_cache()
+
         kernels = {"kernels": [gemm_line(cfg, launches),
-                               flash_line(cfg, flash_launches)]}
+                               flash_line(cfg, flash_launches),
+                               gemm_nt_line(ssm_cfg, ssm_launches["gemm_nt"]),
+                               ssd_line(ssm_cfg, ssm_launches["ssd"])]}
         torch.cuda.synchronize()
         gpu = gpu_name_and_power()
     except Exception:  # every phase failure ends the run non-zero

@@ -1,8 +1,16 @@
-// Pod GEMM for Hopper (sm_90a):
-//   out[M, N] = act((x[M, K] @ w[K, N]) * scale[N] + bias[N]), cast to out.
+// Pod GEMM for Hopper (sm_90a), in two weight layouts:
+//   out[M, N] = act((x[M, K] @ w[K, N]) * scale[N] + bias[N])     (NN)
+//   out[M, N] = act((x[M, K] @ w[N, K]^T) * scale[N] + bias[N])   (NT)
+// each cast to out.
 //
-// Replaces the TPU kernel repro/kernels/systolic_gemm/systolic_gemm.py::
-// systolic_gemm_pallas (_gemm_kernel, _accumulate, _epilogue_math). What it
+// NN replaces the TPU kernel repro/kernels/systolic_gemm/systolic_gemm.py::
+// systolic_gemm_pallas (_gemm_kernel, _accumulate, _epilogue_math); NT
+// replaces systolic_gemm_nt_pallas (_gemm_nt_kernel, _accumulate_nt), the
+// tied-embedding LM head that reads the [vocab, d] token table in its
+// stored layout. NT's w tile is [BN, BK] cut from row-major [N, K], so it
+// is contiguous along K: exactly a column-major K x N operand, which the
+// tensor cores take as a col_major matrix_b fragment. No transpose copy
+// exists in device memory, which is the point of the TPU kernel. What it
 // computes is the same; how is not carried over block by block. The TPU
 // grid walks K as its minor sequential axis and carries the accumulator in
 // VMEM scratch from one grid step to the next. Here each thread block owns
@@ -32,13 +40,16 @@
 // mbarrier ring, persistent blocks and split-K for skinny M are a later
 // change's work.
 //
-// C interface (bound with ctypes): systolic_gemm_launch returns
-// cudaGetLastError() after the launch; the caller raises when it is not 0.
+// C interface (bound with ctypes): systolic_gemm_launch (NN) and
+// systolic_gemm_nt_launch (NT) return cudaGetLastError() after the launch;
+// the caller raises when it is not 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 using namespace nvcuda;
 
@@ -90,7 +101,8 @@ constexpr int BN = 64;
 constexpr int BK = 32;
 constexpr int THREADS = 128;   // 4 warps
 constexpr int A_LD = BK + 8;   // 80-byte rows: 16-byte aligned, fewer bank conflicts
-constexpr int B_LD = BN + 8;   // 144-byte rows
+constexpr int B_LD = BN + 8;   // 144-byte rows (NN: w tile [BK][BN])
+constexpr int BT_LD = BK + 8;  // 80-byte rows (NT: w tile [BN][BK])
 constexpr int C_LD = BN + 4;   // 272-byte rows
 
 // 8 consecutive bf16 of row `row` from column `col`, zero outside the matrix.
@@ -112,7 +124,8 @@ __device__ __forceinline__ uint4 load8(const __nv_bfloat16* __restrict__ p,
   return out;
 }
 
-template <int BM, typename OutT>
+// TW: w is [N, K] (NT) instead of [K, N] (NN).
+template <int BM, bool TW, typename OutT>
 __global__ void __launch_bounds__(THREADS)
 gemm_bf16_wmma(const __nv_bfloat16* __restrict__ x,
                const __nv_bfloat16* __restrict__ w,
@@ -131,7 +144,7 @@ gemm_bf16_wmma(const __nv_bfloat16* __restrict__ x,
   static_assert(B_VEC % THREADS == 0, "B tile must split evenly");
 
   __shared__ __align__(128) __nv_bfloat16 As[BM * A_LD];
-  __shared__ __align__(128) __nv_bfloat16 Bs[BK * B_LD];
+  __shared__ __align__(128) __nv_bfloat16 Bs[TW ? BN * BT_LD : BK * B_LD];
   __shared__ __align__(128) float Cs[BM * C_LD];
 
   const int tid = threadIdx.x;
@@ -141,7 +154,7 @@ gemm_bf16_wmma(const __nv_bfloat16* __restrict__ x,
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
   const bool vec_a = (K % 8 == 0) && ((reinterpret_cast<uintptr_t>(x) & 15) == 0);
-  const bool vec_b = (N % 8 == 0) && ((reinterpret_cast<uintptr_t>(w) & 15) == 0);
+  const bool vec_b = ((TW ? K : N) % 8 == 0) && ((reinterpret_cast<uintptr_t>(w) & 15) == 0);
 
   uint4 ra[A_PER];
   uint4 rb[B_PER];
@@ -157,8 +170,13 @@ gemm_bf16_wmma(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int i = 0; i < B_PER; ++i) {
       const int v = tid + i * THREADS;
-      const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
-      rb[i] = load8(w, k0 + r, n0 + c, K, N, vec_b);
+      if constexpr (TW) {  // row n of w, 8 consecutive k
+        const int r = v / (BK / 8), c = (v % (BK / 8)) * 8;
+        rb[i] = load8(w, n0 + r, k0 + c, N, K, vec_b);
+      } else {             // row k of w, 8 consecutive n
+        const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
+        rb[i] = load8(w, k0 + r, n0 + c, K, N, vec_b);
+      }
     }
   };
   auto stage = [&]() {
@@ -173,8 +191,13 @@ gemm_bf16_wmma(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int i = 0; i < B_PER; ++i) {
       const int v = tid + i * THREADS;
-      const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
-      *reinterpret_cast<uint4*>(&Bs[r * B_LD + c]) = rb[i];
+      if constexpr (TW) {
+        const int r = v / (BK / 8), c = (v % (BK / 8)) * 8;
+        *reinterpret_cast<uint4*>(&Bs[r * BT_LD + c]) = rb[i];
+      } else {
+        const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
+        *reinterpret_cast<uint4*>(&Bs[r * B_LD + c]) = rb[i];
+      }
     }
   };
 
@@ -192,13 +215,19 @@ gemm_bf16_wmma(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[FN];
+      // NT: the [n][k] tile read as column-major (k, n), no transpose
+      using BLayout = std::conditional_t<TW, wmma::col_major, wmma::row_major>;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> b[FN];
 #pragma unroll
       for (int i = 0; i < FM; ++i)
         wmma::load_matrix_sync(a[i], &As[(wm * TM + i * 16) * A_LD + kk], A_LD);
 #pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[kk * B_LD + wn * TN + j * 16], B_LD);
+      for (int j = 0; j < FN; ++j) {
+        if constexpr (TW)
+          wmma::load_matrix_sync(b[j], &Bs[(wn * TN + j * 16) * BT_LD + kk], BT_LD);
+        else
+          wmma::load_matrix_sync(b[j], &Bs[kk * B_LD + wn * TN + j * 16], B_LD);
+      }
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -232,7 +261,7 @@ constexpr int S_BN = 64;
 constexpr int S_BK = 16;
 constexpr int S_THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 
-template <typename InT, typename AccT, typename OutT>
+template <bool TW, typename InT, typename AccT, typename OutT>
 __global__ void __launch_bounds__(S_THREADS)
 gemm_simt(const InT* __restrict__ x, const InT* __restrict__ w,
           const float* __restrict__ scale, const float* __restrict__ bias,
@@ -256,9 +285,15 @@ gemm_simt(const InT* __restrict__ x, const InT* __restrict__ w,
       As[c][r] = (gr < M && gc < K) ? x[(size_t)gr * K + gc] : InT(0);
     }
     for (int e = tid; e < S_BK * S_BN; e += S_THREADS) {
-      const int r = e / S_BN, c = e % S_BN;
-      const int gr = k0 + r, gc = n0 + c;
-      Bs[r][c] = (gr < K && gc < N) ? w[(size_t)gr * N + gc] : InT(0);
+      if constexpr (TW) {  // consecutive threads read consecutive k of row n
+        const int c = e / S_BK, r = e % S_BK;
+        const int gr = k0 + r, gc = n0 + c;
+        Bs[r][c] = (gr < K && gc < N) ? w[(size_t)gc * K + gr] : InT(0);
+      } else {
+        const int r = e / S_BN, c = e % S_BN;
+        const int gr = k0 + r, gc = n0 + c;
+        Bs[r][c] = (gr < K && gc < N) ? w[(size_t)gr * N + gc] : InT(0);
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -286,7 +321,7 @@ gemm_simt(const InT* __restrict__ x, const InT* __restrict__ w,
     }
 }
 
-template <typename OutT>
+template <bool TW, typename OutT>
 void dispatch(const void* x, const void* w, const float* scale, const float* bias,
               void* out, int M, int N, int K, int in_dtype, int act,
               cudaStream_t stream) {
@@ -296,37 +331,53 @@ void dispatch(const void* x, const void* w, const float* scale, const float* bia
     const auto* wb = static_cast<const __nv_bfloat16*>(w);
     if (M <= 16) {
       dim3 grid((N + BN - 1) / BN, (M + 15) / 16);
-      gemm_bf16_wmma<16, OutT><<<grid, THREADS, 0, stream>>>(xb, wb, scale, bias, o, M, N, K, act);
+      gemm_bf16_wmma<16, TW, OutT><<<grid, THREADS, 0, stream>>>(xb, wb, scale, bias, o, M, N, K, act);
     } else {
       dim3 grid((N + BN - 1) / BN, (M + 63) / 64);
-      gemm_bf16_wmma<64, OutT><<<grid, THREADS, 0, stream>>>(xb, wb, scale, bias, o, M, N, K, act);
+      gemm_bf16_wmma<64, TW, OutT><<<grid, THREADS, 0, stream>>>(xb, wb, scale, bias, o, M, N, K, act);
     }
     return;
   }
   dim3 grid((N + S_BN - 1) / S_BN, (M + S_BM - 1) / S_BM);
   if (in_dtype == IN_F32) {
-    gemm_simt<float, float, OutT><<<grid, S_THREADS, 0, stream>>>(
+    gemm_simt<TW, float, float, OutT><<<grid, S_THREADS, 0, stream>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), scale, bias, o, M, N, K, act);
   } else {
-    gemm_simt<int8_t, int, OutT><<<grid, S_THREADS, 0, stream>>>(
+    gemm_simt<TW, int8_t, int, OutT><<<grid, S_THREADS, 0, stream>>>(
         static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), scale, bias, o, M, N, K, act);
   }
 }
 
-}  // namespace
-
-extern "C" int systolic_gemm_launch(const void* x, const void* w,
-                                    const float* scale, const float* bias,
-                                    void* out, int M, int N, int K,
-                                    int in_dtype, int out_dtype, int act,
-                                    void* stream) {
+template <bool TW>
+int launch(const void* x, const void* w, const float* scale, const float* bias, void* out,
+           int M, int N, int K, int in_dtype, int out_dtype, int act, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || in_dtype < IN_F32 || in_dtype > IN_INT8 ||
       out_dtype < OUT_F32 || out_dtype > OUT_BF16 || act < ACT_NONE || act > ACT_RELU2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_dtype == OUT_F32)
-    dispatch<float>(x, w, scale, bias, out, M, N, K, in_dtype, act, s);
+    dispatch<TW, float>(x, w, scale, bias, out, M, N, K, in_dtype, act, s);
   else
-    dispatch<__nv_bfloat16>(x, w, scale, bias, out, M, N, K, in_dtype, act, s);
+    dispatch<TW, __nv_bfloat16>(x, w, scale, bias, out, M, N, K, in_dtype, act, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// w [K, N]
+extern "C" int systolic_gemm_launch(const void* x, const void* w,
+                                    const float* scale, const float* bias,
+                                    void* out, int M, int N, int K,
+                                    int in_dtype, int out_dtype, int act,
+                                    void* stream) {
+  return launch<false>(x, w, scale, bias, out, M, N, K, in_dtype, out_dtype, act, stream);
+}
+
+// w [N, K], read in that layout
+extern "C" int systolic_gemm_nt_launch(const void* x, const void* w,
+                                       const float* scale, const float* bias,
+                                       void* out, int M, int N, int K,
+                                       int in_dtype, int out_dtype, int act,
+                                       void* stream) {
+  return launch<true>(x, w, scale, bias, out, M, N, K, in_dtype, out_dtype, act, stream);
 }

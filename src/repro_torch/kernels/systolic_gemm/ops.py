@@ -1,6 +1,8 @@
 """Public pod-GEMM entry points (counterpart of
 repro/kernels/systolic_gemm/ops.py): `systolic_gemm` and the serving
-hot-loop form `fused_lane_gemm`, with the same signatures and contract.
+hot-loop form `fused_lane_gemm`, and their transposed-weight forms
+`systolic_gemm_t` / `fused_lane_gemm_t` (w [N, K], the tied LM head), with
+the same signatures and contract.
 
 A CPU tensor runs the plain version (ref.py); a CUDA tensor launches the
 Hopper kernel, which raises if it cannot run. There is no other path.
@@ -8,9 +10,10 @@ Hopper kernel, which raises if it cannot run. There is no other path.
 The JAX wrappers pad to block multiples, call the kernel and slice back.
 The Hopper kernel masks ragged M/N/K edges itself, so nothing is padded
 here and the result has the same [M, N] contract. Its tile is fixed
-(csrc/systolic_gemm.cu): explicit `block_m/n/k` are accepted and checked,
-and, as on the TPU, the geometry does not change the result. The TPU's
-autotuner (parallel/autoshard.py::choose_blocks) is not ported.
+(csrc/systolic_gemm.cu): the NN form accepts and checks explicit
+`block_m/n/k`, and, as on the TPU, the geometry does not change the
+result. The transposed forms take no blocks. The TPU's autotuner
+(parallel/autoshard.py::choose_blocks) is not ported.
 """
 
 from __future__ import annotations
@@ -19,8 +22,18 @@ import math
 
 import torch
 
-from .ref import systolic_gemm_ref
-from .systolic_gemm import systolic_gemm_cuda
+from .ref import systolic_gemm_ref, systolic_gemm_t_ref
+from .systolic_gemm import systolic_gemm_cuda, systolic_gemm_nt_cuda
+
+
+def _gemm(plain, kernel, x, w, scale, bias, activation, out_dtype):
+    if x.device.type == "cpu":
+        return plain(x, w, scale, bias, activation=activation,
+                     out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"systolic_gemm runs on cuda or cpu, not {x.device}")
+    return kernel(x.contiguous(), w.contiguous(), scale, bias,
+                  activation=activation, out_dtype=out_dtype)
 
 
 def systolic_gemm(x, w, scale=None, bias=None, *, activation=None,
@@ -32,13 +45,19 @@ def systolic_gemm(x, w, scale=None, bias=None, *, activation=None,
     for b in (block_m, block_n, block_k):
         if b is not None and b <= 0:
             raise ValueError(f"block sizes must be positive, got {b}")
-    if x.device.type == "cpu":
-        return systolic_gemm_ref(x, w, scale, bias, activation=activation,
-                                 out_dtype=out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"systolic_gemm runs on cuda or cpu, not {x.device}")
-    return systolic_gemm_cuda(x.contiguous(), w.contiguous(), scale, bias,
-                              activation=activation, out_dtype=out_dtype)
+    return _gemm(systolic_gemm_ref, systolic_gemm_cuda, x, w, scale, bias,
+                 activation, out_dtype)
+
+
+def systolic_gemm_t(x, w, scale=None, bias=None, *, activation=None,
+                    out_dtype=torch.float32):
+    """out = epilogue((x @ w.T) * scale + bias). x [M,K], w [N,K].
+
+    The transposed-weight pod GEMM: w is read in its stored layout (no
+    [K,N] transpose copy), so the tied-embedding unembed runs the [vocab, d]
+    token table as the LM head directly. Same contract as systolic_gemm."""
+    return _gemm(systolic_gemm_t_ref, systolic_gemm_nt_cuda, x, w, scale,
+                 bias, activation, out_dtype)
 
 
 def fused_lane_gemm(x, w, scale=None, bias=None, *, activation=None,
@@ -57,3 +76,16 @@ def fused_lane_gemm(x, w, scale=None, bias=None, *, activation=None,
                         block_n=block_n, block_k=block_k,
                         out_dtype=out_dtype)
     return out.reshape(*lead, w.shape[1])
+
+
+def fused_lane_gemm_t(x, w, scale=None, bias=None, *, activation=None,
+                      out_dtype=None):
+    """Fused-lane transposed GEMM: x [..., K] @ w [N, K]^T -> [..., N].
+    The LM-head entry point: every decode lane and sequence position folds
+    into M of ONE GEMM against the stored [vocab, d] table."""
+    lead = x.shape[:-1]
+    m = math.prod(lead)
+    out_dtype = torch.float32 if out_dtype is None else out_dtype
+    out = systolic_gemm_t(x.reshape(m, x.shape[-1]), w, scale, bias,
+                          activation=activation, out_dtype=out_dtype)
+    return out.reshape(*lead, w.shape[0])

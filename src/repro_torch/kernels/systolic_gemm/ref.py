@@ -48,3 +48,10 @@ def systolic_gemm_ref(x, w, scale=None, bias=None, *, activation=None,
             acc = x.float() @ w.float()
     return epilogue_ref(acc, scale, bias,
                         activation=activation).to(out_dtype)
+
+
+def systolic_gemm_t_ref(x, w, scale=None, bias=None, *, activation=None,
+                        out_dtype=torch.float32):
+    """The transposed-weight variant: x [M, K] @ w [N, K]^T."""
+    return systolic_gemm_ref(x, w.t(), scale, bias, activation=activation,
+                             out_dtype=out_dtype)

@@ -19,7 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..kernels.systolic_gemm.ops import fused_lane_gemm
+from ..kernels.systolic_gemm.ops import fused_lane_gemm, fused_lane_gemm_t
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,14 +174,13 @@ def embed(p: dict, tokens):
 
 def unembed(p: dict, x, use_pallas: bool = False):
     """Hidden states -> logits, the largest GEMM of a decode step. Under
-    use_pallas the untied [d, vocab] head runs on the fused-lane pod GEMM;
-    the tied head needs the transposed-weight kernel, not yet ported."""
+    use_pallas the untied [d, vocab] head runs on the fused-lane pod GEMM,
+    tied embeddings on its transposed-weight form, which reads the stored
+    [vocab, d] token table directly (no transpose copy)."""
     if use_pallas:
-        if "unembed" not in p:
-            raise NotImplementedError(
-                "tied-embedding LM head needs the transposed pod GEMM "
-                "(systolic_gemm_nt), which is not ported yet")
-        return fused_lane_gemm(x, p["unembed"], out_dtype=x.dtype)
+        if "unembed" in p:
+            return fused_lane_gemm(x, p["unembed"], out_dtype=x.dtype)
+        return fused_lane_gemm_t(x, p["tok"], out_dtype=x.dtype)
     if "unembed" in p:
         return torch.einsum("...d,dv->...v", x, p["unembed"])
     return torch.einsum("...d,vd->...v", x, p["tok"])

@@ -3,6 +3,7 @@ repro/models/model.py).
 
     model = Model(get_arch("granite-8b"), attention_impl="pallas",
                   use_pallas=True)                             # on the card
+    # or Model(get_arch("mamba2-370m"), ssd_impl="pallas", use_pallas=True)
     params = model.init(torch.Generator("cuda").manual_seed(0))
     logits, cache = model.prefill(params, batch, model.init_cache(4, 512))
     logits, cache = model.decode_step(params, tok, cache, position)
@@ -23,6 +24,7 @@ from ..runtime import resolve_device
 from .attention import KVCache, PagedKVCache
 from .layers import (apply_norm, embed, embed_schema, init_from_schema,
                      norm_schema, param_count, unembed)
+from .ssm import SSMCache
 from .transformer import Segment, apply_block, block_schema, segments
 
 
@@ -30,25 +32,31 @@ def _index(tree, i: int):
     """Layer i of a stacked parameter or cache tree (views, no copies)."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
-    if isinstance(tree, (KVCache, PagedKVCache)):
+    if isinstance(tree, (KVCache, PagedKVCache, SSMCache)):
         return tree.layer(i)
     return tree[i]
 
 
 class Model:
     def __init__(self, cfg: ArchConfig, attention_impl: str = "chunked",
-                 use_pallas: bool = False, device=None):
+                 use_pallas: bool = False, ssd_impl: str = "jnp",
+                 device=None):
         """device None means the card (raises without one); tests pass
         device="cpu". attention_impl picks the prefill attention: "chunked"
         (torch ops) or "pallas" (the flash-attention kernel on the card,
-        its plain version on the CPU). use_pallas routes every
-        dense projection, the MLP and the LM head through the pod GEMM (a
-        kernel on the card, its plain version on the CPU); off, they are
-        plain torch einsums."""
+        its plain version on the CPU). ssd_impl picks the SSM prefill's
+        chunk scan: "jnp" (the reference's arithmetic in torch ops) or
+        "pallas" (the SSD kernel on the card, its plain version on the
+        CPU). use_pallas routes every dense projection, the MLP and the LM
+        head (tied or not) through the pod GEMM (a kernel on the card, its
+        plain version on the CPU); off, they are plain torch einsums."""
         if attention_impl not in ("chunked", "pallas"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}")
+        if ssd_impl not in ("jnp", "pallas"):
+            raise ValueError(f"unknown ssd_impl {ssd_impl!r}")
         self.cfg = cfg
         self.impl = attention_impl
+        self.ssd_impl = ssd_impl
         self.use_pallas = use_pallas
         self.device = resolve_device(device)
         self.segs = segments(cfg)
@@ -73,9 +81,11 @@ class Model:
         return param_count(self.schema())
 
     # -- forward -----------------------------------------------------------
-    def _run_segment(self, seg: Segment, p_seg, x, positions, cache_seg):
+    def _run_segment(self, seg: Segment, p_seg, x, positions, cache_seg,
+                     true_lens=None):
         kw = dict(positions=positions, impl=self.impl,
-                  use_pallas=self.use_pallas)
+                  ssd_impl=self.ssd_impl, use_pallas=self.use_pallas,
+                  true_lens=true_lens)
         for i in range(seg.n):
             x = apply_block(_index(p_seg, i), x, self.cfg, seg.kind,
                             cache=None if cache_seg is None
@@ -83,9 +93,12 @@ class Model:
         return x
 
     def forward(self, params, batch, cache: dict | None = None,
-                positions=None):
+                positions=None, true_lens=None):
         """Returns (logits, cache). With a cache, prefill (S > 1) or decode
-        (S == 1) writes into it in place and the same object comes back."""
+        (S == 1) writes into it in place and the same object comes back.
+        true_lens [B]: per-lane valid lengths of a right-padded (bucketed)
+        prefill; the SSM blocks mask their state updates with it, so the
+        padding is inert (models/ssm.py::apply_ssm)."""
         tokens = batch["tokens"]
         S = tokens.shape[1]
         if positions is None:
@@ -93,7 +106,8 @@ class Model:
         x = embed(params["embed"], tokens)
         for seg in self.segs:
             cseg = cache.get(seg.name) if cache is not None else None
-            x = self._run_segment(seg, params[seg.name], x, positions, cseg)
+            x = self._run_segment(seg, params[seg.name], x, positions, cseg,
+                                  true_lens)
         x = apply_norm(params["ln_f"], x, self.cfg.norm)
         return unembed(params["embed"], x, use_pallas=self.use_pallas), cache
 
@@ -103,10 +117,16 @@ class Model:
                    kv_pages: int | None = None) -> dict:
         """page_size/kv_pages set builds a *paged* cache: every KVCache
         becomes a PagedKVCache over a shared kv_pages-page pool
-        (serve/paging.PagePool owns the host-side allocation)."""
+        (serve/paging.PagePool owns the host-side allocation). SSM state is
+        fixed-size per lane, so it stays lane-resident either way."""
         cfg = self.cfg
         if (page_size is None) != (kv_pages is None):
             raise ValueError("page_size and kv_pages must be set together")
+        if cfg.family == "ssm":
+            return {seg.name: {"ssm": SSMCache.zeros(
+                        cfg, batch, layers=seg.n, dtype=dtype,
+                        device=self.device)}
+                    for seg in self.segs}
         hd = cfg.resolved_head_dim
         if page_size is not None:
             return {seg.name: {"attn": PagedKVCache.zeros(

@@ -1,11 +1,12 @@
-"""Model assembly for the dense family (counterpart of
+"""Model assembly for the dense and SSM families (counterpart of
 repro/models/transformer.py).
 
 A model is a list of segments; a segment is a homogeneous stack of layers
 whose parameters carry a leading `layers` axis. The reference scans the
-stack with lax.scan; here a Python loop walks it (model.py). Only the
-dense family is ported so far: GQA attention with a dense or paged KV
-cache and the (gated) MLP. Other families raise NotImplementedError.
+stack with lax.scan; here a Python loop walks it (model.py). Ported so
+far: the dense family (GQA attention with a dense or paged KV cache and
+the (gated) MLP) and the SSM family (one Mamba-2 mixer per layer,
+models/ssm.py). Other families raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -18,21 +19,22 @@ from ..configs.base import ArchConfig
 from .attention import KVCache, PagedKVCache, attention, decode_attention
 from .layers import (ParamSpec, apply_mlp, apply_norm, apply_rope,
                      mlp_schema, norm_schema, pod_dense)
+from .ssm import apply_ssm, ssm_schema
 
 
 @dataclasses.dataclass(frozen=True)
 class Segment:
     name: str
-    kind: str                  # dense (the only kind ported so far)
+    kind: str                  # dense | ssm (the kinds ported so far)
     n: int                     # number of layers
 
 
 def segments(cfg: ArchConfig) -> list[Segment]:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; repro_torch serves "
-            f"the dense family")
-    return [Segment("layers", "dense", cfg.n_layers)]
+            f"the dense and ssm families")
+    return [Segment("layers", cfg.family, cfg.n_layers)]
 
 
 def attn_schema(cfg: ArchConfig, layers: int | None) -> dict:
@@ -100,6 +102,9 @@ def apply_gqa(p, x, cfg: ArchConfig, *, positions, window: int | None = None,
 
 
 def block_schema(cfg: ArchConfig, kind: str, layers: int | None) -> dict:
+    if kind == "ssm":
+        return {"ln_ssm": _norms(cfg, cfg.d_model, layers),
+                "ssm": ssm_schema(cfg, layers)}
     if kind != "dense":
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     return {"ln_attn": _norms(cfg, cfg.d_model, layers),
@@ -117,11 +122,18 @@ def _norms(cfg: ArchConfig, d: int, layers: int | None) -> dict:
 
 
 def apply_block(p, x, cfg: ArchConfig, kind: str, *, positions,
-                impl: str = "chunked", cache: dict | None = None,
-                use_pallas: bool = False):
-    """One dense layer: pre-norm GQA attention and pre-norm MLP, both
-    residual. `cache` is {"attn": KVCache | PagedKVCache} or None, updated
-    in place."""
+                impl: str = "chunked", ssd_impl: str = "jnp",
+                cache: dict | None = None, use_pallas: bool = False,
+                true_lens=None):
+    """One layer, residual. dense: pre-norm GQA attention and pre-norm
+    MLP, `cache` {"attn": KVCache | PagedKVCache} or None. ssm: a pre-norm
+    Mamba-2 mixer, `cache` {"ssm": SSMCache} or None, `true_lens` the
+    per-lane lengths of a right-padded prefill. Caches update in place."""
+    if kind == "ssm":
+        h = apply_norm(p["ln_ssm"], x, cfg.norm)
+        return x + apply_ssm(p["ssm"], h, cfg,
+                             cache=cache["ssm"] if cache else None,
+                             impl=ssd_impl, true_lens=true_lens)
     if kind != "dense":
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     h = apply_norm(p["ln_attn"], x, cfg.norm)

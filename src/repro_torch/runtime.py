@@ -95,6 +95,16 @@ class RowTol(Tol):
         return self.atol * ref.square().mean(dim=-1, keepdim=True).sqrt()
 
 
+@dataclasses.dataclass(frozen=True)
+class RmsTol(Tol):
+    """atol is relative to the rms of the whole of `ref`: for a reference
+    that rounds terms to bf16 before they cancel, so a row's own rms sets
+    no floor under its error (the terms' scale is the output's)."""
+
+    def _atol(self, ref: torch.Tensor):
+        return self.atol * ref.square().mean().sqrt()
+
+
 TOLERANCES: dict[str, Tol] = {
     # pod GEMM, kernel or port against its plain version / the JAX one
     "gemm_f32": Tol(1e-5, 1e-4,
@@ -134,6 +144,11 @@ TOLERANCES: dict[str, Tol] = {
     "attention_bf16": Tol(2e-2, 2e-2,
                           "bf16 scores and probabilities round at other "
                           "places: a few bf16 ulps"),
+    "mixer_bf16": Tol(2e-2, 2e-2,
+                      "a whole SSM mixer in bf16 (in_proj, conv, SSD, gated "
+                      "norm, out_proj): XLA keeps fused bf16 intermediates "
+                      "in f32 inside one jit where torch rounds each op, a "
+                      "few bf16 ulps in all (seen: 1.1x elementwise_bf16)"),
     # flash attention, kernel against its plain version on the card and
     # plain version against the JAX Pallas kernel (interpret mode) on the
     # CPU; the gross planted controls of chip_smoke.py (a causal mask off
@@ -166,6 +181,38 @@ TOLERANCES: dict[str, Tol] = {
         "only, so the sum order moves about half of the p across a bf16 "
         "rounding, each by 2**-8 relative; near-tied keys carry that into "
         "the output (readings in PERF.md)"),
+    # SSD chunk scan: the Hopper kernel (card) or the port's plain versions
+    # (CPU, against the JAX reference and the Pallas kernel in interpret
+    # mode). The planted controls of chip_smoke.py (no state carried
+    # across chunks, the mask applied after exp, y_inter from the updated
+    # state, ssd_ref, and the state and y_inter rounded to bf16) must fail
+    # ssd_bf16_kernel at mamba2's [4, 2048, 32, 64]
+    "ssd_f32": Tol(2e-4, 2e-4,
+                   "f32 sums in another order and another exp "
+                   "(tests/test_kernels.py holds Pallas to the reference at "
+                   "2e-4)"),
+    "ssd_bf16_kernel": RowTol(2 ** -7, 2 ** -5,
+                              "against ssd_kernel_ref, the Pallas kernel's "
+                              "arithmetic: one bf16 ulp (at most 2**-7 "
+                              "relative) where y rounds the other way, and "
+                              "M entries that round to bf16 the other way "
+                              "from f32 values summed in another order: a "
+                              "flipped M_ts moves y_t by ulp(M_ts) |x_s|, "
+                              "2**-5 of the row's rms at most. The same "
+                              "plain version on the card and on the CPU "
+                              "differs by as much; a bf16 state and y_inter "
+                              "do not pass at mamba2's served shape "
+                              "(readings in PERF.md)"),
+    "ssd_bf16_reference": RmsTol(2 ** -5, 2 ** -4,
+                                 "against ssd_ref (repro/models/ssm.py::"
+                                 "ssd_reference), which keeps its state and "
+                                 "inter-chunk output in bf16 where the "
+                                 "kernels keep f32, and rounds M x to bf16 "
+                                 "before D x cancels it: a few bf16 ulps of "
+                                 "y, and 2**-4 of the output's rms (excess "
+                                 "at most 0.46 for y, 0.28 for the state on "
+                                 "mamba2-like inputs up to [2, 2048, 32, "
+                                 "64]: `python tests/test_torch_ssd.py`)"),
     # model logits, port against the JAX Model (both on the CPU)
     "logits_bf16": Tol(0.1, 0.05,
                        "atol is relative to max|ref|: bf16 rounds at other "

@@ -8,7 +8,9 @@ prefill into free slots, and decode step-locked with the rest of the batch.
     queued requests of the head request's bucket share ONE prefill over a
     fixed [slots, bucket] batch. Padding is inert for the dense KV cache:
     causal masking keeps padded keys out of real rows, and the length
-    fixup masks the padded cache slots until decode overwrites them.
+    fixup masks the padded cache slots until decode overwrites them. The
+    SSM state takes the per-lane true lengths (dt-masked updates, a conv
+    window gathered at the true length), so padding is inert there too.
   * Fused decode: a chunk of n decode steps runs as a Python loop whose
     tokens, positions, budgets and alive masks stay on the device; nothing
     is read back inside the loop. A lane whose budget runs out keeps
@@ -29,9 +31,12 @@ prefill into free slots, and decode step-locked with the rest of the batch.
     (_release_slot). In-chunk recycling (always on when paged) re-runs
     admission at the chunk's own sync, so a lane that died mid-chunk is
     handed to queued work without an idle chunk. Paging adds no host
-    sync.
+    sync. SSM state is fixed-size per lane and stays lane-resident: nothing
+    of it is paged (paged_kv_stats reports it as resident_lane_bytes).
 
-The KV cache is updated in place.
+The caches are updated in place. A dead lane keeps decoding inertly to
+the end of its chunk; its KV or SSM state is overwritten by the lane's
+next prefill.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import torch
 
 from ..models.attention import KVCache, PagedKVCache
 from ..models.model import Model
+from ..models.ssm import SSMCache
 from ..runtime import to_host
 from .paging import PagePool
 
@@ -113,15 +119,24 @@ def _paged_nodes(cache: dict):
                 yield c
 
 
+def _lane_tensors(c) -> tuple:
+    if isinstance(c, SSMCache):
+        return c.conv, c.state
+    return c.k, c.v, c.length
+
+
+def _write_node_lane(dst, src, slot: int, g: int) -> None:
+    """Copy lane g of cache node `src` into slot `slot` of `dst`, in place
+    (the caches are stacked, lane axis second: [L, B, ...])."""
+    for dst_t, src_t in zip(_lane_tensors(dst), _lane_tensors(src)):
+        dst_t[:, slot] = src_t[:, g]
+
+
 def _write_lane(big: dict, lane: dict, slot: int, g: int = 0) -> None:
-    """Copy lane g of `lane` into slot `slot` of `big`, in place (the
-    caches are stacked, lane axis second: [L, B, ...])."""
+    """Copy lane g of every node of `lane` into slot `slot` of `big`."""
     for name, node in big.items():
         for key, c in node.items():
-            src = lane[name][key]
-            for dst_t, src_t in ((c.k, src.k), (c.v, src.v),
-                                 (c.length, src.length)):
-                dst_t[:, slot] = src_t[:, g]
+            _write_node_lane(c, lane[name][key], slot, g)
 
 
 class ServeEngine:
@@ -271,7 +286,8 @@ class ServeEngine:
             lane_cache = self.model.init_cache(
                 self.slots, dest.shape[1] * self._pool.page_size)
         logits, lane_cache = self.model.forward(
-            self.params, {"tokens": tokens}, cache=lane_cache)
+            self.params, {"tokens": tokens}, cache=lane_cache,
+            true_lens=true_lens)
         idx = torch.clamp_min(true_lens - 1, 0)
         last = logits[torch.arange(self.slots, device=self.device), idx]
         first = torch.argmax(last, dim=-1)
@@ -285,8 +301,12 @@ class ServeEngine:
             slot_t = torch.from_numpy(slot_ids).to(dev)
             for name, node in self.cache.items():
                 for key, c in node.items():
-                    c.scatter_prefill(lane_cache[name][key], dest_t, slot_t,
-                                      true_lens)
+                    src = lane_cache[name][key]
+                    if isinstance(c, PagedKVCache):
+                        c.scatter_prefill(src, dest_t, slot_t, true_lens)
+                    else:                   # SSM state: lane-resident
+                        for g, s in enumerate(slot_list):
+                            _write_node_lane(c, src, s, g)
             return first
         for g, s in enumerate(slot_list):
             _write_lane(self.cache, lane_cache, s, g)
@@ -422,13 +442,18 @@ class ServeEngine:
         """Host-side page-pool accounting (no device sync). KV bytes come
         from the paged caches' dtypes and shapes; `dense_bytes` is what the
         same caches would cost as slots x max_len dense lanes. The pool's
-        scratch page is not a page: totals count n_pages."""
+        scratch page is not a page: totals count n_pages. SSM state is
+        fixed-size and lane-resident (nothing to page): it is reported as
+        resident_lane_bytes, for all slots."""
         pool = self._pool
         if pool is None:
             raise ValueError("paged_kv_stats requires paged=True")
         per_tok = sum((c.k.nbytes + c.v.nbytes)
                       // ((pool.n_pages + 1) * pool.page_size)
                       for c in _paged_nodes(self.cache))
+        resident = sum(c.lane_bytes() * self.slots
+                       for node in self.cache.values()
+                       for c in node.values() if isinstance(c, SSMCache))
         live_tokens = sum(int(self.positions[i])
                           for i, r in enumerate(self.active)
                           if r is not None)
@@ -445,6 +470,7 @@ class ServeEngine:
             "mapped_bytes": pool.pages_in_use * pool.page_size * per_tok,
             "pool_bytes": pool.n_pages * pool.page_size * per_tok,
             "dense_bytes": self.slots * self.max_len * per_tok,
+            "resident_lane_bytes": resident,
             "recycled": self.recycled,
         }
 

@@ -40,8 +40,9 @@ def test_port_and_chip_smoke_import_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
-    # every module was imported, flash attention and paging included
-    assert int(proc.stdout.split()[1]) >= 25
+    # every module was imported: flash attention, paging, the SSD kernel
+    # package and the SSM model included
+    assert int(proc.stdout.split()[1]) >= 30
 
 
 def _leaves(tree, prefix=""):

@@ -3,9 +3,11 @@
 On the CPU `repro_torch...ops.systolic_gemm` runs its plain version; it is
 held against the JAX Pallas kernel in interpret mode and against the JAX
 oracle `systolic_gemm_ref`, over f32/bf16/int8 x every activation x ragged
-M/K/N. Tolerances come from `repro_torch.TOLERANCES` (the values of
-tests/test_kernels.py); int8 accumulation without an epilogue must be
-exact. The Hopper kernel itself runs only on the card.
+M/K/N. The transposed-weight form (`systolic_gemm_t`, w [N, K]: the tied LM
+head) is held the same way against JAX's `systolic_gemm_t`. Tolerances
+come from `repro_torch.TOLERANCES` (the values of tests/test_kernels.py);
+int8 accumulation without an epilogue must be exact. The Hopper kernels
+themselves run only on the card.
 """
 
 import jax.numpy as jnp
@@ -15,24 +17,29 @@ import torch
 
 from repro.kernels.systolic_gemm import ops as jops
 from repro.kernels.systolic_gemm.ref import systolic_gemm_ref as jax_ref
+from repro.kernels.systolic_gemm.ref import systolic_gemm_t_ref as jax_t_ref
 from repro_torch import TOLERANCES
 from repro_torch.bridge import params_from_jax
 from repro_torch.kernels.systolic_gemm import ops
-from repro_torch.kernels.systolic_gemm.ref import systolic_gemm_ref
-from repro_torch.kernels.systolic_gemm.systolic_gemm import systolic_gemm_cuda
+from repro_torch.kernels.systolic_gemm.ref import (systolic_gemm_ref,
+                                                   systolic_gemm_t_ref)
+from repro_torch.kernels.systolic_gemm.systolic_gemm import (
+    systolic_gemm_cuda, systolic_gemm_nt_cuda)
 
 SHAPES = [(1, 1, 1), (33, 57, 29), (100, 130, 70), (5, 260, 130)]
 ACTS = [None, "relu", "gelu", "silu", "relu2"]
 DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "int8": jnp.int8}
 
 
-def _inputs(rng, M, K, N, dtype):
+def _inputs(rng, M, K, N, dtype, transposed=False):
+    """w [K, N], or [N, K] when transposed."""
+    w_shape = (N, K) if transposed else (K, N)
     if dtype == "int8":
         x = rng.integers(-128, 128, (M, K))
-        w = rng.integers(-128, 128, (K, N))
+        w = rng.integers(-128, 128, w_shape)
     else:
         x = rng.standard_normal((M, K))
-        w = rng.standard_normal((K, N)) / np.sqrt(K)
+        w = rng.standard_normal(w_shape) / np.sqrt(K)
     s = (rng.random(N) + 0.5).astype(np.float32)
     b = rng.standard_normal(N).astype(np.float32)
     jx, jw = jnp.asarray(x, DTYPES[dtype]), jnp.asarray(w, DTYPES[dtype])
@@ -112,6 +119,44 @@ def test_fused_lane_gemm_folds_leading_axes():
     assert torch.equal(got32.reshape(30, 40), flat)
 
 
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_systolic_gemm_t_matches_jax(dtype, act):
+    """x @ w^T with w [N, K] in its stored layout, against JAX's oracle on
+    every shape and JAX's transposed Pallas kernel on a ragged one."""
+    rng = np.random.default_rng(3)
+    tol = _tol(dtype, act)
+    for M, K, N in SHAPES:
+        (jx, jw, js, jb), (tx, tw, ts, tb) = _inputs(rng, M, K, N, dtype,
+                                                     transposed=True)
+        sb_j = (js, jb) if act else (None, None)
+        sb_t = (ts, tb) if act else (None, None)
+        got = ops.systolic_gemm_t(tx, tw, *sb_t, activation=act)
+        assert got.dtype == torch.float32
+        _assert_close(got, jax_t_ref(jx, jw, *sb_j, activation=act), tol)
+        if (M, K, N) == (33, 57, 29):
+            pallas = jops.systolic_gemm_t(jx, jw, *sb_j, activation=act,
+                                          interpret=True)
+            _assert_close(got, pallas, tol)
+
+
+def test_fused_lane_gemm_t_folds_leading_axes():
+    """The LM-head form: [B, S, d] @ [vocab, d]^T -> [B, S, vocab] in bf16
+    (a ragged vocab), against JAX's fused_lane_gemm_t in interpret mode."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 3, 48)).astype(np.float32)
+    w = rng.standard_normal((100, 48)).astype(np.float32)
+    jx, jw = jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
+    ref = jops.fused_lane_gemm_t(jx, jw, out_dtype=jnp.bfloat16,
+                                 interpret=True)
+    tx, tw = params_from_jax(np.asarray(jx)), params_from_jax(np.asarray(jw))
+    got = ops.fused_lane_gemm_t(tx, tw, out_dtype=torch.bfloat16)
+    assert got.shape == (2, 3, 100) and got.dtype == torch.bfloat16
+    _assert_close(got, ref, TOLERANCES["gemm_bf16"])
+    flat = ops.systolic_gemm_t(tx.reshape(6, 48), tw)
+    assert torch.equal(ops.fused_lane_gemm_t(tx, tw).reshape(6, 100), flat)
+
+
 def test_int8_plain_version_is_exact_past_f32_range():
     """K * 127**2 > 2**24: an f32 accumulation would round, int64 does not."""
     K = 2048
@@ -131,6 +176,8 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     w = torch.zeros((8, 16), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         systolic_gemm_cuda(x, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        systolic_gemm_nt_cuda(x, w.t().contiguous())
 
 
 @pytest.fixture
@@ -141,22 +188,28 @@ def cuda_device():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("transposed", [False, True], ids=["nn", "nt"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
-def test_kernel_matches_plain_on_card(cuda_device, dtype):
+def test_kernel_matches_plain_on_card(cuda_device, dtype, transposed):
     g = torch.Generator(cuda_device).manual_seed(0)
-    for M, K, N in [(37, 100, 130), (4, 4096, 1024), (300, 520, 200)]:
+    kernel, plain = ((systolic_gemm_nt_cuda, systolic_gemm_t_ref)
+                     if transposed else (systolic_gemm_cuda,
+                                         systolic_gemm_ref))
+    for M, K, N in [(37, 100, 130), (4, 4096, 1024), (300, 520, 200),
+                    (4, 1024, 50280)]:
+        w_shape = (N, K) if transposed else (K, N)
         if dtype == torch.int8:
             x = torch.randint(-128, 128, (M, K), generator=g,
                               device=cuda_device, dtype=torch.int8)
-            w = torch.randint(-128, 128, (K, N), generator=g,
+            w = torch.randint(-128, 128, w_shape, generator=g,
                               device=cuda_device, dtype=torch.int8)
         else:
             x = torch.randn((M, K), generator=g, device=cuda_device).to(dtype)
-            w = (torch.randn((K, N), generator=g, device=cuda_device)
+            w = (torch.randn(w_shape, generator=g, device=cuda_device)
                  / K ** 0.5).to(dtype)
         for act in ACTS:
-            got = systolic_gemm_cuda(x, w, activation=act)
-            ref = systolic_gemm_ref(x, w, activation=act)
+            got = kernel(x, w, activation=act)
+            ref = plain(x, w, activation=act)
             torch.cuda.synchronize()
             # bf16 inputs on the card: f32 sums only (see TOLERANCES)
             tol = (TOLERANCES["gemm_bf16_f32out"] if dtype == torch.bfloat16
