@@ -5,24 +5,28 @@
 
 Phases, one JSON line each; any failure exits non-zero:
 
-  1. build   - nvcc builds the pod-GEMM, flash-attention and SSD kernels
-               from src/ for sm_90a, in parallel, and prints each ptxas
-               report.
+  1. build   - nvcc builds the pod-GEMM (NN, NT and grouped), flash-
+               attention and SSD kernels from src/ for sm_90a, in parallel,
+               and prints each ptxas report.
   2. kernel  - the pod-GEMM kernel against its plain PyTorch version on the
                card: f32/bf16/int8 x every activation x ragged shapes x
-               f32/bf16 out, each within runtime.TOLERANCES; a planted
-               control that sums in bf16 must fail.
+               f32/bf16 out, each within runtime.TOLERANCES, with
+               granite-8b's and dbrx-132b's served shapes (dbrx's q/o, k/v
+               and head at M = 4 and 1277); a planted control that sums
+               in bf16 must fail.
   3. gemm_nt - the same for the transposed-weight kernel (w [N, K], the
                tied LM head), with mamba2's head [4, 1024] x [50280, 1024]^T
                among the shapes (a 104-column ragged tail).
   4. flash   - the flash-attention kernel against its plain version:
                f32/bf16 x the cases of tests/test_kernels.py, granite-8b's
-               heads, Sq != Skv, D = 192, within runtime.TOLERANCES; bf16
-               also against the Pallas kernel's own arithmetic at about one
-               bf16 ulp. Two planted controls (causal mask off by one, GQA
-               map h % Hkv) must fail; at granite-8b's [4, 2048, 32, 128]
-               two that err on late KV tiles only (a stale K tile, PV
-               summed in bf16) must fail the one-ulp tolerance.
+               and dbrx-132b's heads (48 over 8 at its longest and
+               shortest prompts), Sq != Skv, D = 192, within
+               runtime.TOLERANCES; bf16 also against the Pallas kernel's
+               own arithmetic (flash_bf16_tiled_served: one bf16 ulp and
+               a flipped p of a heavy key). Two planted controls (causal
+               mask off by one, GQA map h % Hkv) must fail; at granite-8b's
+               [4, 2048, 32, 128] two that err on late KV tiles only (a
+               stale K tile, PV summed in bf16) must fail that tolerance.
   5. ssd     - the SSD chunk-scan kernel against the Pallas kernel's own
                arithmetic (ssd_kernel_ref) at about one bf16 ulp and
                against the reference (ssd_ref, bf16 state) at its stated
@@ -33,28 +37,36 @@ Phases, one JSON line each; any failure exits non-zero:
                exp, y_inter from the updated state, ssd_ref itself, and
                the state and y_inter rounded to bf16) must fail the
                one-ulp tolerance.
-  6. serve   - granite-8b at full width and depth (random weights from a
+  6. grouped - the grouped pod-GEMM kernel (the MoE experts) against its
+               plain version: f32/bf16/int8 x every activation x ragged
+               shapes x f32/bf16 out with per-group scale and bias, an
+               all-zero group exactly 0, G = 1 equal to the pod-GEMM kernel,
+               and dbrx-132b's served shapes ([16, 1, 6144] x [16, 6144,
+               10752], the down [16, 1, 10752] x [16, 10752, 6144], M = 320
+               and 399 rows per expert). Two planted controls (sums in bf16,
+               group g+1 reading group g's weights) must fail.
+  7. serve   - granite-8b at full width and depth (random weights from a
                seeded torch.Generator, bf16) served by ServeEngine; every
                request must finish with valid tokens, and the pod-GEMM
                launch count must be 7 x 36 + 1 = 253 per forward.
-  7. oracle  - the same requests through the per-token ReferenceEngine.
+  8. oracle  - the same requests through the per-token ReferenceEngine.
                Random weights at 36 layers turn a last-bit difference into
                different tokens, so agreement is reported there and the
                rule (tokens agree, or differ only after a near tie) is held
                on the first ORACLE_LAYERS layers of the same weights.
-  8. serve_paged  - the same weights as Model(attention_impl="pallas"),
+  9. serve_paged  - the same weights as Model(attention_impl="pallas"),
                served by a paged ServeEngine (max_len 2048, a pool of half
                the dense pages) on prompts of up to 1500 tokens: every
                request done, the pool drained, at least one lane recycled,
                36 flash launches per prefill, 253 pod-GEMM launches per
                forward, one host sync per prefill group and decode chunk.
-  9. paged_oracle - the same requests through a dense ServeEngine on the
+ 10. paged_oracle - the same requests through a dense ServeEngine on the
                same flash model: tokens must be equal. On ORACLE_LAYERS
                layers the paged flash engine is held to the margin rule
                against the per-token ReferenceEngine of the same model.
                The kernel on layer 0's real activations of the served
                prompts is held to the Pallas kernel's own arithmetic.
- 10. serve_ssm - mamba2-370m at full width and depth (48 layers, d 1024,
+ 11. serve_ssm - mamba2-370m at full width and depth (48 layers, d 1024,
                vocab 50280, tied embeddings; random bf16 weights) as
                Model(ssd_impl="pallas", use_pallas=True), served by
                ServeEngine(slots 4, max_len 2048, decode_chunk 8) on the
@@ -62,11 +74,26 @@ Phases, one JSON line each; any failure exits non-zero:
                launch per forward, 48 SSD launches per prefill and none per
                decode step, no other kernel, one host sync per prefill
                group and decode chunk.
- 11. ssm_oracle - the same requests through the per-token ReferenceEngine:
+ 12. ssm_oracle - the same requests through the per-token ReferenceEngine:
                agreement reported at 48 layers, the margin rule held on
                ORACLE_LAYERS layers of the same weights.
- 12. kernels - each kernel's time at the served shapes beside its bound,
-               its plain version and one PyTorch call (a yardstick only).
+ 13. serve_moe - dbrx-132b at full width and MOE_LAYERS of its 40 layers
+               (random bf16 weights) as Model(attention_impl="pallas",
+               use_pallas=True), served by ServeEngine(slots 4, max_len
+               2048, decode_chunk 8) on the paged phase's prompts with
+               exact-length prefill: every request done, 8 prefills of
+               [1, S], 24 grouped and 33 pod-GEMM launches per forward, 8
+               flash launches per prefill and none per decode step, no NT
+               or SSD launch, one host sync per prefill and decode chunk.
+ 14. moe_oracle - the first 4 of those requests through a fresh ServeEngine
+               and the per-token ReferenceEngine: every decode batch is
+               fully live in both, so capacity coupling through dead lanes
+               cannot tell them apart. Agreement reported at MOE_LAYERS,
+               the margin rule held at the first difference anywhere in the
+               batch on ORACLE_LAYERS layers of the same weights.
+ 15. kernels - each kernel's time at the served shapes beside its bound,
+               its plain version and one PyTorch call (a yardstick only);
+               the pod GEMM at granite-8b's and dbrx-132b's shapes.
 
 The last lines are the card's name and power limit, the kernels line, and
 {"ok": true, "device": {...}}.
@@ -101,7 +128,7 @@ from repro_torch.kernels.ssd import ssd as ssd_mod  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_kernel_ref, ssd_ref  # noqa: E402
 from repro_torch.kernels.systolic_gemm import systolic_gemm as sg  # noqa: E402
 from repro_torch.kernels.systolic_gemm.ref import (  # noqa: E402
-    systolic_gemm_ref, systolic_gemm_t_ref)
+    grouped_systolic_gemm_ref, systolic_gemm_ref, systolic_gemm_t_ref)
 from repro_torch.models.layers import (apply_norm, apply_rope, embed,  # noqa: E402
                                        pod_dense)
 from repro_torch.runtime import no_tf32  # noqa: E402
@@ -127,6 +154,12 @@ PAGED_MAX_PROMPT = 1500
 # mamba2: the paged phase's traffic on a dense lane-resident SSM cache
 SSM_ARCH = "mamba2-370m"
 SSM_SERVE = dict(slots=4, max_len=2048, decode_chunk=8)
+# dbrx-132b at full width, depth cut to 8 of 40 layers: 54.6 GB of bf16
+# weights on one 80 GB card (all 40 layers hold 264 GB: four cards and
+# expert parallelism). The paged phase's traffic, exact-length prefill.
+MOE_ARCH, MOE_LAYERS = "dbrx-132b", 8
+MOE_SERVE = dict(slots=4, max_len=2048, decode_chunk=8)
+MOE_ORACLE_REQUESTS = 4     # = slots: every decode batch fully live
 
 
 class SmokeFailure(RuntimeError):
@@ -217,8 +250,14 @@ def bf16_summed(x, w, k_step: int = 16) -> torch.Tensor:
 
 
 def phase_kernel() -> None:
+    """A ragged small case, granite-8b's shapes, and dbrx-132b's q/o, k/v
+    and untied head at decode (M = 4 lanes) and at its longest served
+    exact-length prefill (M = 1277 rows, a prime)."""
     gemm_phase("kernel", sg.systolic_gemm_cuda, systolic_gemm_ref,
-               [(37, 100, 130), (1, 4096, 14336), (5, 4096, 49152)],
+               [(37, 100, 130), (1, 4096, 14336), (5, 4096, 49152),
+                (4, 6144, 6144), (4, 6144, 1024), (4, 6144, 100352),
+                (1277, 6144, 6144), (1277, 6144, 1024),
+                (1277, 6144, 100352)],
                transposed=False, seed=1)
 
 
@@ -306,6 +345,10 @@ FLASH_CASES = [
     (2, 300, 200, 8, 2, 64, True, None, None),
     (2, 100, 300, 8, 2, 64, False, None, 250),
     (1, 200, 200, 8, 8, 192, True, None, None),
+    # dbrx-132b's exact-length prefills: 48 q heads over 8 KV heads (6 per
+    # group), D 128, its longest (prime) and shortest served prompts
+    (1, 1277, 1277, 48, 8, 128, True, None, None),
+    (1, 29, 29, 48, 8, 128, True, None, None),
 ]
 
 
@@ -349,11 +392,14 @@ def pv_summed_in_bf16(q, k, v, block_k: int) -> torch.Tensor:
 def flash_served_shape(g) -> dict:
     """The kernel at granite-8b's served prefill shape, [4, 2048, 32, 128]
     bf16 causal, on randn inputs, against the Pallas kernel's arithmetic
-    (flash_bf16_tiled) and the naive version (flash_bf16). Two controls err
-    on late KV tiles only, which a causal row sees among ~1000 others: the
-    last K tile read stale (the one before it, as a cp.async race would
-    leave it) and PV summed in bf16. Both must fail flash_bf16_tiled; their
-    excess at flash_bf16 is reported."""
+    (flash_bf16_tiled_served) and the naive version (flash_bf16). Two
+    controls err on late KV tiles only, which a causal row sees among ~1000
+    others: the last K tile read stale (the one before it, as a cp.async
+    race would leave it) and PV summed in bf16. Both must fail
+    flash_bf16_tiled_served; their excess at flash_bf16 is reported, and
+    the tiled version's own against its scores summed in f64 (the floor
+    that two right kernels share) at flash_bf16_tiled and the served
+    tolerance."""
     B, S, Hq, Hkv, D = 4, 2048, 32, 8, 128
     bk = kernel_block_k(D)
     q, k, v = (torch.randn((B, S, h, D), generator=g, device="cuda")
@@ -368,9 +414,19 @@ def flash_served_shape(g) -> dict:
                                                        causal=True,
                                                        block_k=bk),
         "pv_summed_in_bf16": pv_summed_in_bf16(q, k, v, bk)}
-    tight, loose = TOLERANCES["flash_bf16_tiled"], TOLERANCES["flash_bf16"]
+    other_order = flash_attention_tiled_ref(q, k, v, causal=True,
+                                            block_k=bk,
+                                            score_dtype=torch.float64)
+    tight, loose = (TOLERANCES["flash_bf16_tiled_served"],
+                    TOLERANCES["flash_bf16"])
+    one_ulp = TOLERANCES["flash_bf16_tiled"]
     out = {"shape": [B, S, Hq, D],
            "excess_vs_tiled": tight.excess(got, tiled),
+           "excess_vs_tiled_at_flash_bf16_tiled": one_ulp.excess(got, tiled),
+           "plain_vs_itself_f64_scores": {
+               "at_flash_bf16_tiled": one_ulp.excess(tiled, other_order),
+               "at_flash_bf16_tiled_served": tight.excess(tiled,
+                                                          other_order)},
            "excess_vs_naive": loose.excess(got, naive),
            "max_abs_err_vs_tiled": float((got.double() - tiled.double())
                                          .abs().max()),
@@ -429,7 +485,8 @@ def phase_flash() -> None:
                 tiled = flash_attention_tiled_ref(
                     q, k, v, causal=causal, window=window, kv_len=kv_len,
                     block_k=kernel_block_k(D))
-                te = TOLERANCES["flash_bf16_tiled"].excess(got, tiled)
+                te = TOLERANCES["flash_bf16_tiled_served"].excess(got,
+                                                                  tiled)
                 row = worst.setdefault("bfloat16 vs tiled", {"excess": 0.0})
                 row["excess"] = max(row["excess"], te)
                 if not te <= 1.0:
@@ -464,7 +521,7 @@ def phase_flash() -> None:
     for name, c in served["controls"].items():
         if not c["excess_vs_tiled"] > 1.0:
             failures.append(f"late-tile control {name} passes "
-                            f"flash_bf16_tiled: {c}")
+                            f"flash_bf16_tiled_served: {c}")
     emit("flash", cases=cases + 1, worst=worst, control=control,
          served_shape=served,
          tolerances={k: [t.rtol, t.atol] for k, t in TOLERANCES.items()
@@ -659,7 +716,127 @@ def worst_row(got, ref, tol, chunk: int) -> dict:
 
 
 # --------------------------------------------------------------------------
-# 4. serve and 5. oracle
+# 6. grouped pod GEMM vs plain
+# --------------------------------------------------------------------------
+
+# G, M, K, N: ragged, decode-like (M = 1), and G = 1
+GROUPED_CASES = [(3, 37, 100, 130), (5, 1, 260, 70), (1, 33, 64, 65)]
+# dbrx-132b's expert GEMMs: decode (M = 1 row per expert), the down
+# projection, a 1024-token prefill (8 groups x capacity 40 = 320 rows per
+# expert) and the 1277-token prompt (prime: one group of capacity 399)
+GROUPED_SERVED = [(16, 1, 6144, 10752, "silu"), (16, 1, 10752, 6144, None),
+                  (16, 320, 6144, 10752, "silu"), (16, 399, 6144, 10752,
+                                                   None)]
+
+
+def grouped_inputs(G, M, K, N, dtype, g):
+    x, w = zip(*(gemm_inputs(M, K, N, dtype, g) for _ in range(G)))
+    return torch.stack(x), torch.stack(w)
+
+
+def wrong_group_stride(x, w, *args, **kw) -> torch.Tensor:
+    """Planted control: group g + 1 reads group g's weights, as a kernel
+    whose group stride is one group short would."""
+    return grouped_systolic_gemm_ref(x, torch.cat([w[:1], w[:-1]]), *args,
+                                     **kw)
+
+
+def phase_grouped() -> None:
+    """Every case is read before any verdict. The kernel's excess must stay
+    at or below 1; both controls' must exceed it where they differ from the
+    plain version (bf16 sums: every f32/bf16 case without an epilogue; the
+    group stride: every case with G > 1). The middle group of each case
+    with G > 1 is all zero with a zero bias and must come out exactly 0."""
+    g = torch.Generator("cuda").manual_seed(11)
+    cases, failures = 0, []
+    worst: dict[str, dict] = {}
+    control: dict[str, float] = {}
+
+    def record(key, got, ref, tol, case):
+        err = float((got.double() - ref.double()).abs().max())
+        excess = tol.excess(got, ref)
+        row = worst.setdefault(key, {"max_abs_err": 0.0, "excess": 0.0})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["excess"] = max(row["excess"], excess)
+        if not bool(torch.isfinite(got.float()).all()):
+            failures.append(f"non-finite kernel output {case}")
+        elif not excess <= 1.0:
+            failures.append(f"kernel disagrees with plain {case} "
+                            f"excess={excess} ({tol})")
+
+    def planted(name, c, case):
+        control[name] = min(control.get(name, math.inf), c)
+        if not c > 1.0:
+            failures.append(f"{name} control passes {case} excess={c}")
+
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for (G, M, K, N) in GROUPED_CASES:
+            x, w = grouped_inputs(G, M, K, N, dtype, g)
+            scale = torch.rand((G, N), generator=g, device="cuda") + 0.5
+            bias = torch.randn((G, N), generator=g, device="cuda")
+            if G > 1:                            # an expert with no token
+                x[G // 2] = 0
+                bias[G // 2] = 0
+            for act in sg.ACTIVATIONS:
+                for out_dtype in (torch.float32, torch.bfloat16):
+                    sb = (scale, bias) if act is not None else (None, None)
+                    got = sg.grouped_systolic_gemm_cuda(
+                        x, w, *sb, activation=act, out_dtype=out_dtype)
+                    ref = grouped_systolic_gemm_ref(
+                        x, w, *sb, activation=act, out_dtype=out_dtype)
+                    torch.cuda.synchronize()
+                    tol = tolerance(dtype, out_dtype, act)
+                    key = f"{str(dtype)[6:]}->{str(out_dtype)[6:]}"
+                    case = f"{key} {G}x{M}x{K}x{N} act={act}"
+                    record(key, got, ref, tol, case)
+                    if G > 1 and not bool((got[G // 2] == 0).all()):
+                        failures.append(f"empty group not exactly 0 {case}")
+                    if G > 1:
+                        planted("group_stride", tol.excess(
+                            wrong_group_stride(x, w, *sb, activation=act,
+                                               out_dtype=out_dtype), ref),
+                            case)
+                    if act is None and dtype != torch.int8:
+                        summed = torch.stack([bf16_summed(x[i], w[i])
+                                              for i in range(G)])
+                        planted("bf16_summed",
+                                tol.excess(summed.to(out_dtype), ref), case)
+                    if G == 1:
+                        one = sg.systolic_gemm_cuda(
+                            x[0], w[0], *(t if t is None else t[0]
+                                          for t in sb),
+                            activation=act, out_dtype=out_dtype)
+                        if not torch.equal(got[0], one):
+                            failures.append(f"G = 1 differs from the pod "
+                                            f"GEMM kernel {case}")
+                    cases += 1
+    served = []
+    for (G, M, K, N, act) in GROUPED_SERVED:
+        x, w = grouped_inputs(G, M, K, N, torch.bfloat16, g)
+        got = sg.grouped_systolic_gemm_cuda(x, w, activation=act,
+                                            out_dtype=torch.bfloat16)
+        ref = grouped_systolic_gemm_ref(x, w, activation=act,
+                                        out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        tol = TOLERANCES["gemm_bf16out"]
+        case = f"served {G}x{M}x{K}x{N} act={act}"
+        record("served bf16->bf16", got, ref, tol, case)
+        planted("group_stride", tol.excess(wrong_group_stride(
+            x, w, activation=act, out_dtype=torch.bfloat16), ref), case)
+        if act is None:
+            summed = torch.stack([bf16_summed(x[i], w[i]) for i in range(G)])
+            planted("bf16_summed", tol.excess(summed.to(torch.bfloat16), ref),
+                    case)
+        served.append([G, M, K, N, act, tol.excess(got, ref)])
+        cases += 1
+        del x, w, got, ref
+    emit("grouped", cases=cases, worst=worst, control_min_excess=control,
+         served=served, failures=failures)
+    check(not failures, f"{len(failures)} grouped checks failed")
+
+
+# --------------------------------------------------------------------------
+# 7. serve and 8. oracle
 # --------------------------------------------------------------------------
 
 def make_requests(vocab: int) -> list[Request]:
@@ -735,12 +912,20 @@ def first_differences(served, oracle, ref: ReferenceEngine) -> list[dict]:
     return diffs
 
 
+def first_layers(tree, n: int):
+    """Every stacked leaf of a segment's tree cut to its first n layers."""
+    if isinstance(tree, dict):
+        return {k: first_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
 def cut_depth(model, params, n_layers: int):
-    """The same full-width weights, first n_layers layers only (views)."""
+    """The same full-width weights, first n_layers layers only (views). The
+    served models have one segment ("layers", or "moe" for dbrx)."""
+    (seg,) = model.segs
     cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
-    cut = {k: v for k, v in params.items() if k != "layers"}
-    cut["layers"] = {blk: {k: v[:n_layers] for k, v in sub.items()}
-                     for blk, sub in params["layers"].items()}
+    cut = {k: v for k, v in params.items() if k != seg.name}
+    cut[seg.name] = first_layers(params[seg.name], n_layers)
     return Model(cfg, attention_impl=model.impl, use_pallas=True,
                  ssd_impl=model.ssd_impl), cut
 
@@ -781,7 +966,7 @@ def phase_oracle(model, params, served: list[Request]) -> None:
 
 
 # --------------------------------------------------------------------------
-# 6. serve_paged and 7. paged_oracle
+# 9. serve_paged and 10. paged_oracle
 # --------------------------------------------------------------------------
 
 def make_paged_requests(vocab: int) -> list[Request]:
@@ -961,13 +1146,22 @@ def phase_paged_oracle(model, params, served: list[Request]) -> None:
 
 
 # --------------------------------------------------------------------------
-# 10. serve_ssm and 11. ssm_oracle
+# 11. serve_ssm and 12. ssm_oracle
 # --------------------------------------------------------------------------
 
 def reset_launch_counts() -> None:
     for fn in (sg.systolic_gemm_cuda, sg.systolic_gemm_nt_cuda,
-               fa.flash_attention_cuda, ssd_mod.ssd_cuda):
+               sg.grouped_systolic_gemm_cuda, fa.flash_attention_cuda,
+               ssd_mod.ssd_cuda):
         fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {"pod_gemm": sg.systolic_gemm_cuda.launches,
+            "gemm_nt": sg.systolic_gemm_nt_cuda.launches,
+            "grouped": sg.grouped_systolic_gemm_cuda.launches,
+            "flash": fa.flash_attention_cuda.launches,
+            "ssd": ssd_mod.ssd_cuda.launches}
 
 
 def phase_serve_ssm(model, params):
@@ -1058,7 +1252,135 @@ def phase_ssm_oracle(model, params, served: list[Request]) -> None:
 
 
 # --------------------------------------------------------------------------
-# 12. kernels line
+# 13. serve_moe and 14. moe_oracle
+# --------------------------------------------------------------------------
+
+def phase_serve_moe(model, params):
+    """dbrx through exact-length prefill (flash, grouped and pod GEMMs) and
+    fused decode; every MoE layer's experts on the grouped kernel."""
+    cfg = model.cfg
+    # warm-up: lazy set-up stays out of the timings
+    serve(ServeEngine(model, params, **MOE_SERVE),
+          [Request(rid=-1, prompt=np.arange(64), max_new_tokens=2)])
+    reqs = make_paged_requests(cfg.vocab)
+    eng = ServeEngine(model, params, **MOE_SERVE)
+    shapes = []
+    real_prefill = model.prefill
+
+    def prefill(params, batch, cache):
+        shapes.append(list(batch["tokens"].shape))
+        return real_prefill(params, batch, cache)
+    model.prefill = prefill
+    torch.cuda.synchronize()
+    start_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    syncs0 = HOST_SYNCS.count
+    try:
+        wall = serve(eng, reqs)
+    finally:
+        del model.prefill
+    launches = launch_counts()
+    syncs = HOST_SYNCS.count - syncs0
+    peak = torch.cuda.max_memory_allocated()
+    st = eng.stats
+    for r in reqs:
+        check(r.done and r.state == "done",
+              f"moe request {r.rid} ended {r.state} ({r.reason})")
+        check(len(r.out) == MAX_NEW, f"moe request {r.rid}: {len(r.out)} "
+                                     f"tokens")
+        check(all(0 <= t < cfg.vocab for t in r.out),
+              f"moe request {r.rid}: token outside [0, {cfg.vocab})")
+    check(st["bucketed"] is False and eng.bucketed is False,
+          "the moe engine took the bucketed prefill path")
+    check(shapes == [[1, len(r.prompt)] for r in reqs],
+          f"prefills {shapes} are not one [1, S] per request")
+    check(st["prefill_calls"] == len(reqs),
+          f"{st['prefill_calls']} prefill calls for {len(reqs)} requests")
+    L = cfg.n_layers
+    forwards = st["prefill_calls"] + st["decode_steps"]
+    per_forward = {"grouped": 3 * L, "pod_gemm": 4 * L + 1}
+    for name, n in per_forward.items():
+        check(launches[name] == n * forwards,
+              f"{name} launches {launches[name]} != {n} x {forwards} "
+              f"forwards")
+    check(launches["flash"] == L * st["prefill_calls"],
+          f"flash launches {launches['flash']} != {L} x "
+          f"{st['prefill_calls']} prefill calls (none per decode step)")
+    check(launches["gemm_nt"] == 0 and launches["ssd"] == 0,
+          f"dbrx launched an NT-GEMM or SSD kernel: {launches}")
+    check(syncs == st["prefill_calls"] + st["chunks"],
+          f"host syncs {syncs} != prefills + decode chunks")
+    generated = sum(len(r.out) for r in reqs)
+    emit("serve_moe", arch=cfg.name, n_layers=L, d_model=cfg.d_model,
+         experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+         attention_impl=model.impl, **MOE_SERVE,
+         prompt_lens=[len(r.prompt) for r in reqs], max_new_tokens=MAX_NEW,
+         requests_done=len(reqs), tokens_generated=generated,
+         wall_s=wall, tokens_per_s=generated / wall,
+         bucketed=eng.bucketed, prefill_shapes=shapes,
+         prefill_calls=st["prefill_calls"],
+         prefill_ms_per_call=1e3 * st["prefill_s"] / st["prefill_calls"],
+         decode_chunks=st["chunks"], decode_steps=st["decode_steps"],
+         decode_ms_per_step=1e3 * st["decode_s"] / st["decode_steps"],
+         host_syncs=syncs, launches=launches,
+         launches_per_forward=per_forward,
+         gib_allocated_at_start=start_bytes / 2 ** 30,
+         gib_peak=peak / 2 ** 30)
+    return reqs, launches
+
+
+def batch_first_differences(served, oracle, ref: ReferenceEngine):
+    """first_differences, and those at the earliest differing step of the
+    whole batch: at decode the batch is one routing group, so after one
+    lane's token differs the others' expert capacity may differ too."""
+    diffs = first_differences(served, oracle, ref)
+    first = min((d["step"] for d in diffs), default=None)
+    return diffs, [d for d in diffs if d["step"] == first]
+
+
+def phase_moe_oracle(model, params) -> None:
+    """ServeEngine vs the per-token oracle on MOE_ORACLE_REQUESTS = slots
+    requests of equal budget, so every decode batch is fully live in both
+    engines and no dead lane takes expert capacity. Agreement reported at
+    MOE_LAYERS; the margin rule held at the batch's first difference on
+    ORACLE_LAYERS layers of the same weights."""
+    tol = TOLERANCES["token_margin"]
+    cfg = model.cfg
+    oracle_kw = dict(slots=MOE_SERVE["slots"], max_len=MOE_SERVE["max_len"])
+
+    def requests():
+        return make_paged_requests(cfg.vocab)[:MOE_ORACLE_REQUESTS]
+
+    out = {}
+    for label, (m, p) in (("full_depth", (model, params)),
+                          ("cut_depth", cut_depth(model, params,
+                                                  ORACLE_LAYERS))):
+        served, oracle = requests(), requests()
+        check(len({r.max_new_tokens for r in served}) == 1 and
+              len(served) == MOE_SERVE["slots"],
+              "the oracle batch must fill every slot with equal budgets")
+        serve(ServeEngine(m, p, **MOE_SERVE), served)
+        ref = ReferenceEngine(m, p, **oracle_kw)
+        wall = serve(ref, oracle)
+        diffs, earliest = batch_first_differences(served, oracle, ref)
+        out[label] = {"n_layers": m.cfg.n_layers,
+                      "token_exact": len(served) - len(diffs),
+                      "first_differences": diffs,
+                      "earliest_in_batch": earliest, "oracle_wall_s": wall}
+    emit("moe_oracle", requests=MOE_ORACLE_REQUESTS, **out,
+         margin_tolerance=f"{tol.atol} x max|logit| at the batch's first "
+                          f"difference")
+    for d in out["cut_depth"]["earliest_in_batch"]:
+        check(d["margin"] <= tol.atol * d["max_abs_logit"],
+              f"{ORACLE_LAYERS}-layer dbrx cut: request {d['rid']} differs "
+              f"at token {d['step']} (the batch's first difference) with "
+              f"oracle margin {d['margin']} > {tol.atol} x max|logit| "
+              f"{d['max_abs_logit']}")
+
+
+# --------------------------------------------------------------------------
+# 15. kernels line
 # --------------------------------------------------------------------------
 
 def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
@@ -1085,21 +1407,26 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def gemm_line(cfg, launches: int) -> dict:
-    d, ff, vocab = cfg.d_model, cfg.d_ff, cfg.vocab
+def pod_gemm_rows(cfg, phases, seed: int):
+    """The pod GEMMs of one cfg forward (bf16, bf16 out) at each (phase, M,
+    iters): per-shape rows, and per phase the sums over one forward (each
+    projection once per layer, the head once). A MoE config's FFNs are
+    the grouped kernel's, so it has no gate/up/down here."""
+    d, vocab = cfg.d_model, cfg.vocab
     kv = cfg.n_kv_heads * cfg.resolved_head_dim
     q = cfg.n_heads * cfg.resolved_head_dim
     shapes = {"q": (d, q, None), "k": (d, kv, None), "v": (d, kv, None),
-              "o": (q, d, None), "gate": (d, ff, "silu"),
-              "up": (d, ff, None), "down": (ff, d, None),
-              "head": (d, vocab, None)}
-    g = torch.Generator("cuda").manual_seed(2)
+              "o": (q, d, None)}
+    if cfg.moe is None:
+        shapes.update(gate=(d, cfg.d_ff, "silu"), up=(d, cfg.d_ff, None),
+                      down=(cfg.d_ff, d, None))
+    shapes["head"] = (d, vocab, None)
+    g = torch.Generator("cuda").manual_seed(seed)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
     rows, worst = [], 0.0
     totals = {ph: dict.fromkeys(("ms", "plain_ms", "bound_ms", "library_ms"),
-                                0.0) for ph in ("decode", "prefill")}
-    for phase, M, iters in (("decode", SLOTS, 20),
-                            ("prefill", SLOTS * 256, 5)):
+                                0.0) for ph, _, _ in phases}
+    for phase, M, iters in phases:
         for name, (K, N, act) in shapes.items():
             x, w = gemm_inputs(M, K, N, torch.bfloat16, g)
             got = sg.systolic_gemm_cuda(x, w, activation=act,
@@ -1108,8 +1435,10 @@ def gemm_line(cfg, launches: int) -> dict:
                                     out_dtype=torch.bfloat16)
             err = float((got.double() - ref.double()).abs().max())
             check(TOLERANCES["gemm_bf16out"].ok(got, ref),
-                  f"{phase} {name}: kernel disagrees (max_abs_err {err})")
+                  f"{cfg.name} {phase} {name}: kernel disagrees "
+                  f"(max_abs_err {err})")
             worst = max(worst, err)
+            del got, ref
 
             def library(x=x, w=w, act=act):
                 y = torch.matmul(x, w)
@@ -1131,20 +1460,39 @@ def gemm_line(cfg, launches: int) -> dict:
             per_forward = 1 if name == "head" else cfg.n_layers
             for key in totals[phase]:
                 totals[phase][key] += per_forward * row[key]
+            del x, w
+    return rows, totals, worst, (len(shapes) - 1) * cfg.n_layers + 1
+
+
+def gemm_line(cfg, launches: int, moe_cfg, moe_launches: int) -> dict:
+    """granite-8b's pod GEMMs at decode (M = SLOTS) and a [SLOTS, 256]
+    prefill, the line's own numbers; dbrx-132b's q/k/v/o and untied head
+    at decode and at its longest exact-length prefill (M = 1277) under
+    "moe"."""
+    rows, totals, worst, per_fwd = pod_gemm_rows(
+        cfg, (("decode", SLOTS, 20), ("prefill", SLOTS * 256, 5)), seed=2)
+    moe_rows, moe_totals, moe_worst, moe_per_fwd = pod_gemm_rows(
+        moe_cfg, (("decode", SLOTS, 20), ("prefill", 1277, 3)), seed=13)
     dec = totals["decode"]
     return {
         "name": "systolic_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/systolic_gemm/csrc/systolic_gemm.cu",
         "replaces": "src/repro/kernels/systolic_gemm/systolic_gemm.py:121",
-        "launches": launches, "max_abs_err": worst,
+        "launches": launches, "max_abs_err": max(worst, moe_worst),
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": "bytes",
         "library_ms": dec["library_ms"],
-        "ms_are": (f"sums over the {len(GEMMS_PER_LAYER) * cfg.n_layers + 1} "
-                   f"pod GEMMs of one {cfg.name} decode step at M={SLOTS} "
-                   f"(per-shape rows below, L2 flushed)"),
+        "ms_are": (f"sums over the {per_fwd} pod GEMMs of one {cfg.name} "
+                   f"decode step at M={SLOTS} (per-shape rows below, L2 "
+                   f"flushed); launches are its dense serve run's"),
         "prefill_forward": totals["prefill"],
         "shapes": rows,
+        "moe": {"arch": moe_cfg.name, "n_layers": moe_cfg.n_layers,
+                "launches": moe_launches,
+                "per_forward": moe_per_fwd,
+                "decode_forward": moe_totals["decode"],
+                "prefill_forward_1277": moe_totals["prefill"],
+                "shapes": moe_rows},
     }
 
 
@@ -1167,7 +1515,7 @@ def flash_line(cfg, launches: int) -> dict:
                                           block_k=kernel_block_k(D))
         err = float((got.double() - ref.double()).abs().max())
         check(TOLERANCES["flash_bf16"].ok(got, ref)
-              and TOLERANCES["flash_bf16_tiled"].ok(got, tiled),
+              and TOLERANCES["flash_bf16_tiled_served"].ok(got, tiled),
               f"flash S={S}: kernel disagrees (max_abs_err {err})")
         worst = max(worst, err)
         del got, ref, tiled
@@ -1319,6 +1667,68 @@ def ssd_line(cfg, launches: int) -> dict:
     }
 
 
+def grouped_line(cfg, launches: int) -> dict:
+    """dbrx's expert GEMMs (bf16, bf16 out): one decode step's three
+    projections at M = 1 row per expert (x MOE_LAYERS layers = 24
+    launches), and the up projection of a 1024-token prefill at M = 320.
+    The library yardstick is torch.bmm of the same G GEMMs, plus SiLU for
+    the gate."""
+    E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+    shapes = [("decode", "up", 1, d, f, None), ("decode", "gate", 1, d, f,
+                                                "silu"),
+              ("decode", "down", 1, f, d, None),
+              ("prefill", "up", 320, d, f, None)]
+    g = torch.Generator("cuda").manual_seed(12)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    rows, worst = [], 0.0
+    for phase, name, M, K, N, act in shapes:
+        x, w = grouped_inputs(E, M, K, N, torch.bfloat16, g)
+        got = sg.grouped_systolic_gemm_cuda(x, w, activation=act,
+                                            out_dtype=torch.bfloat16)
+        ref = grouped_systolic_gemm_ref(x, w, activation=act,
+                                        out_dtype=torch.bfloat16)
+        err = float((got.double() - ref.double()).abs().max())
+        check(TOLERANCES["gemm_bf16out"].ok(got, ref),
+              f"grouped {phase} {name}: kernel disagrees (max_abs_err {err})")
+        worst = max(worst, err)
+        del got, ref
+
+        def library(x=x, w=w, act=act):
+            y = torch.bmm(x, w)
+            return F.silu(y) if act == "silu" else y
+        iters = 20 if phase == "decode" else 5
+        row = {"gemm": name, "phase": phase, "G": E, "M": M, "K": K, "N": N,
+               "ms": time_ms(lambda: sg.grouped_systolic_gemm_cuda(
+                   x, w, activation=act, out_dtype=torch.bfloat16),
+                   iters, flush),
+               "plain_ms": time_ms(lambda: grouped_systolic_gemm_ref(
+                   x, w, activation=act, out_dtype=torch.bfloat16), 3,
+                   flush),
+               "library_ms": time_ms(library, iters, flush),
+               "max_abs_err": err}
+        row["bound_ms"], row["bound_by"] = bound(
+            2 * E * M * N * K, 2 * E * (M * K + K * N + M * N))
+        rows.append(row)
+        del x, w
+    L = cfg.n_layers
+    dec = {k: L * sum(r[k] for r in rows if r["phase"] == "decode")
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    return {
+        "name": "grouped_systolic_gemm", "route": "cuda",
+        "source": "src/repro_torch/kernels/systolic_gemm/csrc/systolic_gemm.cu",
+        "replaces": "src/repro/kernels/systolic_gemm/systolic_gemm.py:182",
+        "launches": launches, "max_abs_err": worst,
+        "ms": dec["ms"], "plain_ms": dec["plain_ms"],
+        "bound_ms": dec["bound_ms"], "bound_by": "bytes",
+        "library_ms": dec["library_ms"],
+        "ms_are": (f"sums over the {3 * L} grouped launches of one "
+                   f"{cfg.name} ({L} layers) decode step, M = 1 row per "
+                   f"expert (per-shape rows below, the M = 320 prefill row "
+                   f"per launch; L2 flushed)"),
+        "shapes": rows,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1332,6 +1742,8 @@ def main() -> int:
         phase_flash()
         torch.cuda.synchronize()
         phase_ssd()
+        torch.cuda.synchronize()
+        phase_grouped()
         torch.cuda.synchronize()
 
         cfg = get_arch(ARCH)
@@ -1370,10 +1782,32 @@ def main() -> int:
         del ssm_params
         torch.cuda.empty_cache()
 
-        kernels = {"kernels": [gemm_line(cfg, launches),
+        moe_cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_LAYERS)
+        t0 = time.perf_counter()
+        moe_model = Model(moe_cfg, attention_impl="pallas", use_pallas=True)
+        moe_params = moe_model.init(torch.Generator("cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        emit("init", arch=moe_cfg.name, n_layers=MOE_LAYERS,
+             of_layers=get_arch(MOE_ARCH).n_layers,
+             params=moe_model.param_count(),
+             seconds=time.perf_counter() - t0,
+             gib_allocated=torch.cuda.memory_allocated() / 2 ** 30)
+        _, moe_launches = phase_serve_moe(moe_model, moe_params)
+        torch.cuda.synchronize()
+        phase_moe_oracle(moe_model, moe_params)
+        torch.cuda.synchronize()
+        emit("moe_memory",
+             gib_peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del moe_params
+        torch.cuda.empty_cache()
+
+        kernels = {"kernels": [gemm_line(cfg, launches, moe_cfg,
+                                         moe_launches["pod_gemm"]),
                                flash_line(cfg, flash_launches),
                                gemm_nt_line(ssm_cfg, ssm_launches["gemm_nt"]),
-                               ssd_line(ssm_cfg, ssm_launches["ssd"])]}
+                               ssd_line(ssm_cfg, ssm_launches["ssd"]),
+                               grouped_line(moe_cfg,
+                                            moe_launches["grouped"])]}
         torch.cuda.synchronize()
         gpu = gpu_name_and_power()
     except Exception:  # every phase failure ends the run non-zero

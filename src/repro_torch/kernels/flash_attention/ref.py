@@ -28,13 +28,17 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None,
 
 def flash_attention_tiled_ref(q, k, v, *, causal=True, window=None,
                               softmax_scale=None, kv_len=None,
-                              block_k: int = 64):
+                              block_k: int = 64,
+                              score_dtype: torch.dtype = torch.float32):
     """q scaled in its own dtype, f32 scores, an online softmax over
     block_k-key blocks (running max m, denominator l and accumulator in
     f32), p = exp(s - m) cast unnormalised to v's dtype before PV,
     acc / max(l, 1e-30) cast to q's dtype. Every block is visited; one
     that a row may not see adds nothing, as in the Pallas kernel. With the
-    Hopper kernel's key tile as block_k it rounds p where the kernel does."""
+    Hopper kernel's key tile as block_k it rounds p where the kernel does.
+    score_dtype=torch.float64 sums each score exactly enough to round it to
+    f32 once: the same arithmetic with the f32 sums in another order, which
+    is all that separates two right kernels."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -50,7 +54,8 @@ def flash_attention_tiled_ref(q, k, v, *, causal=True, window=None,
         for k0 in range(0, Skv, block_k):
             kb = k[:, k0:k0 + block_k].float()
             k_pos = k0 + torch.arange(kb.shape[1], device=q.device)[None, :]
-            s = torch.einsum("bqhgd,bkhd->bhgqk", qs, kb)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qs.to(score_dtype),
+                             kb.to(score_dtype)).float()
             ok = k_pos < kv_len
             if causal:
                 ok = ok & (k_pos <= q_pos)

@@ -1,15 +1,26 @@
-// Pod GEMM for Hopper (sm_90a), in two weight layouts:
+// Pod GEMM for Hopper (sm_90a), in two weight layouts and a grouped form:
 //   out[M, N] = act((x[M, K] @ w[K, N]) * scale[N] + bias[N])     (NN)
 //   out[M, N] = act((x[M, K] @ w[N, K]^T) * scale[N] + bias[N])   (NT)
+//   out[g] = act((x[g] @ w[g]) * scale[g] + bias[g]), g < G        (grouped)
 // each cast to out.
 //
 // NN replaces the TPU kernel repro/kernels/systolic_gemm/systolic_gemm.py::
 // systolic_gemm_pallas (_gemm_kernel, _accumulate, _epilogue_math); NT
 // replaces systolic_gemm_nt_pallas (_gemm_nt_kernel, _accumulate_nt), the
 // tied-embedding LM head that reads the [vocab, d] token table in its
-// stored layout. NT's w tile is [BN, BK] cut from row-major [N, K], so it
-// is contiguous along K: exactly a column-major K x N operand, which the
-// tensor cores take as a col_major matrix_b fragment. No transpose copy
+// stored layout; grouped replaces grouped_systolic_gemm_pallas
+// (_grouped_gemm_kernel), the MoE expert FFNs: G independent NN GEMMs
+// (one per expert) in one launch, x [G, M, K], w [G, K, N], scale and
+// bias [G, N], out [G, M, N]. The TPU grid grows a leading group axis
+// and reuses one accumulator scratch group after group; here the group
+// is blockIdx.z, each block moves its pointers to its group's matrices
+// and then runs the NN kernel unchanged, so a group's rows, ragged edges
+// and epilogue are exactly a plain launch's. A group of zero rows with a
+// zero bias (an expert no token reached) comes out exactly 0.
+//
+// NT's w tile is [BN, BK] cut from row-major [N, K], so it is contiguous
+// along K: exactly a column-major K x N operand, which the tensor cores
+// take as a col_major matrix_b fragment. No transpose copy
 // exists in device memory, which is the point of the TPU kernel. What it
 // computes is the same; how is not carried over block by block. The TPU
 // grid walks K as its minor sequential axis and carries the accumulator in
@@ -40,9 +51,20 @@
 // mbarrier ring, persistent blocks and split-K for skinny M are a later
 // change's work.
 //
-// C interface (bound with ctypes): systolic_gemm_launch (NN) and
-// systolic_gemm_nt_launch (NT) return cudaGetLastError() after the launch;
-// the caller raises when it is not 0.
+// The grouped form at dbrx-132b's served shapes (16 experts, d 6144,
+// d_ff 10752): at decode each expert holds M = 1 row, so a launch reads
+// 16 x 6144 x 10752 bf16 weights (2.11 GB) for 2 GFLOP and is bound by
+// bytes (0.631 ms at 3.35 TB/s); the 16-row tile wastes 15/16 of each
+// mma, which costs nothing against that bound. At a 1024-token prefill
+// M = 320 rows per expert and the launch is bound by operations
+// (6.76e11 FLOP, 0.684 ms at 989 TFLOP/s) about as much as by bytes
+// (0.683 ms). The same limits as the NN kernel keep it from both.
+//
+// C interface (bound with ctypes): systolic_gemm_launch (NN),
+// systolic_gemm_nt_launch (NT) and grouped_systolic_gemm_launch return
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// arguments the kernels do not take (G > 65535, the grid's z limit); the
+// caller raises when it is not 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,6 +109,18 @@ __device__ __forceinline__ float epilogue(float acc, const float* scale,
   }
   return acc;
 }
+
+// Group g = blockIdx.z of a grouped launch (0 in a plain one): move x,
+// w, out, scale and bias to group g's matrices, which lie back to back.
+#define GROUP_OFFSETS()                                \
+  do {                                                 \
+    const size_t g_ = blockIdx.z;                      \
+    x += g_ * M * K;                                   \
+    w += g_ * K * N;                                   \
+    out += g_ * M * N;                                 \
+    if (scale != nullptr) scale += g_ * N;             \
+    if (bias != nullptr) bias += g_ * N;               \
+  } while (0)
 
 __device__ __forceinline__ void store_out(float* o, float v) { *o = v; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* o, float v) {
@@ -147,6 +181,7 @@ gemm_bf16_wmma(const __nv_bfloat16* __restrict__ x,
   __shared__ __align__(128) __nv_bfloat16 Bs[TW ? BN * BT_LD : BK * B_LD];
   __shared__ __align__(128) float Cs[BM * C_LD];
 
+  GROUP_OFFSETS();
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int wm = warp / WN;
@@ -269,6 +304,7 @@ gemm_simt(const InT* __restrict__ x, const InT* __restrict__ w,
   __shared__ InT As[S_BK][S_BM + 1];  // k-major, so a row of A is a column here
   __shared__ InT Bs[S_BK][S_BN];
 
+  GROUP_OFFSETS();
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * S_BM, n0 = blockIdx.x * S_BN;
@@ -323,22 +359,22 @@ gemm_simt(const InT* __restrict__ x, const InT* __restrict__ w,
 
 template <bool TW, typename OutT>
 void dispatch(const void* x, const void* w, const float* scale, const float* bias,
-              void* out, int M, int N, int K, int in_dtype, int act,
+              void* out, int G, int M, int N, int K, int in_dtype, int act,
               cudaStream_t stream) {
   OutT* o = static_cast<OutT*>(out);
   if (in_dtype == IN_BF16) {
     const auto* xb = static_cast<const __nv_bfloat16*>(x);
     const auto* wb = static_cast<const __nv_bfloat16*>(w);
     if (M <= 16) {
-      dim3 grid((N + BN - 1) / BN, (M + 15) / 16);
+      dim3 grid((N + BN - 1) / BN, (M + 15) / 16, G);
       gemm_bf16_wmma<16, TW, OutT><<<grid, THREADS, 0, stream>>>(xb, wb, scale, bias, o, M, N, K, act);
     } else {
-      dim3 grid((N + BN - 1) / BN, (M + 63) / 64);
+      dim3 grid((N + BN - 1) / BN, (M + 63) / 64, G);
       gemm_bf16_wmma<64, TW, OutT><<<grid, THREADS, 0, stream>>>(xb, wb, scale, bias, o, M, N, K, act);
     }
     return;
   }
-  dim3 grid((N + S_BN - 1) / S_BN, (M + S_BM - 1) / S_BM);
+  dim3 grid((N + S_BN - 1) / S_BN, (M + S_BM - 1) / S_BM, G);
   if (in_dtype == IN_F32) {
     gemm_simt<TW, float, float, OutT><<<grid, S_THREADS, 0, stream>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), scale, bias, o, M, N, K, act);
@@ -350,15 +386,18 @@ void dispatch(const void* x, const void* w, const float* scale, const float* bia
 
 template <bool TW>
 int launch(const void* x, const void* w, const float* scale, const float* bias, void* out,
-           int M, int N, int K, int in_dtype, int out_dtype, int act, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || in_dtype < IN_F32 || in_dtype > IN_INT8 ||
-      out_dtype < OUT_F32 || out_dtype > OUT_BF16 || act < ACT_NONE || act > ACT_RELU2)
+           int G, int M, int N, int K, int in_dtype, int out_dtype, int act, void* stream) {
+  // grid: x over N tiles, y over M tiles (64 rows each where M > 16), z over
+  // groups; y and z stop at 65535
+  if (G <= 0 || G > 65535 || M <= 0 || N <= 0 || K <= 0 || (M + 63) / 64 > 65535 ||
+      in_dtype < IN_F32 || in_dtype > IN_INT8 || out_dtype < OUT_F32 ||
+      out_dtype > OUT_BF16 || act < ACT_NONE || act > ACT_RELU2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_dtype == OUT_F32)
-    dispatch<TW, float>(x, w, scale, bias, out, M, N, K, in_dtype, act, s);
+    dispatch<TW, float>(x, w, scale, bias, out, G, M, N, K, in_dtype, act, s);
   else
-    dispatch<TW, __nv_bfloat16>(x, w, scale, bias, out, M, N, K, in_dtype, act, s);
+    dispatch<TW, __nv_bfloat16>(x, w, scale, bias, out, G, M, N, K, in_dtype, act, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -370,7 +409,7 @@ extern "C" int systolic_gemm_launch(const void* x, const void* w,
                                     void* out, int M, int N, int K,
                                     int in_dtype, int out_dtype, int act,
                                     void* stream) {
-  return launch<false>(x, w, scale, bias, out, M, N, K, in_dtype, out_dtype, act, stream);
+  return launch<false>(x, w, scale, bias, out, 1, M, N, K, in_dtype, out_dtype, act, stream);
 }
 
 // w [N, K], read in that layout
@@ -379,5 +418,14 @@ extern "C" int systolic_gemm_nt_launch(const void* x, const void* w,
                                        void* out, int M, int N, int K,
                                        int in_dtype, int out_dtype, int act,
                                        void* stream) {
-  return launch<true>(x, w, scale, bias, out, M, N, K, in_dtype, out_dtype, act, stream);
+  return launch<true>(x, w, scale, bias, out, 1, M, N, K, in_dtype, out_dtype, act, stream);
+}
+
+// x [G, M, K], w [G, K, N], scale and bias [G, N] (or null), out [G, M, N]
+extern "C" int grouped_systolic_gemm_launch(const void* x, const void* w,
+                                            const float* scale, const float* bias,
+                                            void* out, int G, int M, int N, int K,
+                                            int in_dtype, int out_dtype, int act,
+                                            void* stream) {
+  return launch<false>(x, w, scale, bias, out, G, M, N, K, in_dtype, out_dtype, act, stream);
 }

@@ -1,7 +1,8 @@
 """Public pod-GEMM entry points (counterpart of
 repro/kernels/systolic_gemm/ops.py): `systolic_gemm` and the serving
-hot-loop form `fused_lane_gemm`, and their transposed-weight forms
-`systolic_gemm_t` / `fused_lane_gemm_t` (w [N, K], the tied LM head), with
+hot-loop form `fused_lane_gemm`, their transposed-weight forms
+`systolic_gemm_t` / `fused_lane_gemm_t` (w [N, K], the tied LM head), and
+`grouped_gemm` (G independent GEMMs in one launch, the MoE experts), with
 the same signatures and contract.
 
 A CPU tensor runs the plain version (ref.py); a CUDA tensor launches the
@@ -10,9 +11,9 @@ Hopper kernel, which raises if it cannot run. There is no other path.
 The JAX wrappers pad to block multiples, call the kernel and slice back.
 The Hopper kernel masks ragged M/N/K edges itself, so nothing is padded
 here and the result has the same [M, N] contract. Its tile is fixed
-(csrc/systolic_gemm.cu): the NN form accepts and checks explicit
-`block_m/n/k`, and, as on the TPU, the geometry does not change the
-result. The transposed forms take no blocks. The TPU's autotuner
+(csrc/systolic_gemm.cu): the NN and grouped forms accept and check
+explicit `block_m/n/k`, and, as on the TPU, the geometry does not change
+the result. The transposed forms take no blocks. The TPU's autotuner
 (parallel/autoshard.py::choose_blocks) is not ported.
 """
 
@@ -22,8 +23,10 @@ import math
 
 import torch
 
-from .ref import systolic_gemm_ref, systolic_gemm_t_ref
-from .systolic_gemm import systolic_gemm_cuda, systolic_gemm_nt_cuda
+from .ref import (grouped_systolic_gemm_ref, systolic_gemm_ref,
+                  systolic_gemm_t_ref)
+from .systolic_gemm import (grouped_systolic_gemm_cuda, systolic_gemm_cuda,
+                            systolic_gemm_nt_cuda)
 
 
 def _gemm(plain, kernel, x, w, scale, bias, activation, out_dtype):
@@ -36,15 +39,19 @@ def _gemm(plain, kernel, x, w, scale, bias, activation, out_dtype):
                   activation=activation, out_dtype=out_dtype)
 
 
+def _check_blocks(*blocks) -> None:
+    for b in blocks:
+        if b is not None and b <= 0:
+            raise ValueError(f"block sizes must be positive, got {b}")
+
+
 def systolic_gemm(x, w, scale=None, bias=None, *, activation=None,
                   block_m: int | None = None, block_n: int | None = None,
                   block_k: int | None = None, out_dtype=torch.float32):
     """out = epilogue((x @ w) * scale + bias). x [M,K], w [K,N].
 
     int8 x int8 -> int32 accumulate; bf16/f32 -> f32 accumulate."""
-    for b in (block_m, block_n, block_k):
-        if b is not None and b <= 0:
-            raise ValueError(f"block sizes must be positive, got {b}")
+    _check_blocks(block_m, block_n, block_k)
     return _gemm(systolic_gemm_ref, systolic_gemm_cuda, x, w, scale, bias,
                  activation, out_dtype)
 
@@ -58,6 +65,17 @@ def systolic_gemm_t(x, w, scale=None, bias=None, *, activation=None,
     token table as the LM head directly. Same contract as systolic_gemm."""
     return _gemm(systolic_gemm_t_ref, systolic_gemm_nt_cuda, x, w, scale,
                  bias, activation, out_dtype)
+
+
+def grouped_gemm(x, w, scale=None, bias=None, *, activation=None,
+                 block_m: int | None = None, block_n: int | None = None,
+                 block_k: int | None = None, out_dtype=torch.float32):
+    """G independent GEMMs in ONE kernel launch: x [G,M,K] @ w [G,K,N]
+    -> [G,M,N], with a per-group (scale, bias) [G,N] and a shared
+    activation in the epilogue. Same contract as `systolic_gemm`."""
+    _check_blocks(block_m, block_n, block_k)
+    return _gemm(grouped_systolic_gemm_ref, grouped_systolic_gemm_cuda, x,
+                 w, scale, bias, activation, out_dtype)
 
 
 def fused_lane_gemm(x, w, scale=None, bias=None, *, activation=None,

@@ -55,3 +55,16 @@ def systolic_gemm_t_ref(x, w, scale=None, bias=None, *, activation=None,
     """The transposed-weight variant: x [M, K] @ w [N, K]^T."""
     return systolic_gemm_ref(x, w.t(), scale, bias, activation=activation,
                              out_dtype=out_dtype)
+
+
+def grouped_systolic_gemm_ref(x, w, scale=None, bias=None, *,
+                              activation=None, out_dtype=torch.float32):
+    """G independent GEMMs: x [G, M, K] @ w [G, K, N], scale/bias [G, N].
+    Per group exactly systolic_gemm_ref (the JAX package's tests loop its
+    ref over groups the same way)."""
+    return torch.stack([
+        systolic_gemm_ref(x[g], w[g],
+                          None if scale is None else scale[g],
+                          None if bias is None else bias[g],
+                          activation=activation, out_dtype=out_dtype)
+        for g in range(x.shape[0])])

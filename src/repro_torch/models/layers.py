@@ -39,9 +39,14 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator, device):
     if scale is None:
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
         scale = 1.0 / math.sqrt(max(1, fan_in))
-    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return (x.mul_(scale)).to(spec.dtype)
+    # one matrix (the last two axes) at a time, so the f32 staging is one
+    # matrix: dbrx-132b's stacked experts hold 8.5 G elements per
+    # projection at 8 layers, 34 GB in f32 drawn whole
+    out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+    for m in out.view(-1, *spec.shape[-2:]):
+        m.copy_(torch.randn(m.shape, generator=generator, dtype=torch.float32,
+                            device=device).mul_(scale))
+    return out
 
 
 def init_from_schema(schema: dict, generator: torch.Generator, device):

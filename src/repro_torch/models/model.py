@@ -4,6 +4,7 @@ repro/models/model.py).
     model = Model(get_arch("granite-8b"), attention_impl="pallas",
                   use_pallas=True)                             # on the card
     # or Model(get_arch("mamba2-370m"), ssd_impl="pallas", use_pallas=True)
+    # or Model(get_arch("dbrx-132b"), attention_impl="pallas", use_pallas=True)
     params = model.init(torch.Generator("cuda").manual_seed(0))
     logits, cache = model.prefill(params, batch, model.init_cache(4, 512))
     logits, cache = model.decode_step(params, tok, cache, position)
@@ -48,8 +49,9 @@ class Model:
         chunk scan: "jnp" (the reference's arithmetic in torch ops) or
         "pallas" (the SSD kernel on the card, its plain version on the
         CPU). use_pallas routes every dense projection, the MLP and the LM
-        head (tied or not) through the pod GEMM (a kernel on the card, its
-        plain version on the CPU); off, they are plain torch einsums."""
+        head (tied or not) through the pod GEMM and the MoE experts through
+        the grouped pod GEMM (kernels on the card, their plain versions on
+        the CPU); off, they are plain torch einsums."""
         if attention_impl not in ("chunked", "pallas"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}")
         if ssd_impl not in ("jnp", "pallas"):
@@ -112,16 +114,33 @@ class Model:
         return unembed(params["embed"], x, use_pallas=self.use_pallas), cache
 
     # -- serving -----------------------------------------------------------
+    @property
+    def bucketed_prefill_ok(self) -> bool:
+        """True when prefill lanes can be right-padded to a bucket length
+        without corrupting serving state: KV caches are inert under padding
+        (causal masking and the engine's length fixup) and SSM state takes
+        masked updates driven by per-lane true lengths. MoE capacity lets
+        padding tokens displace real ones, and encoder-decoder prompts
+        carry non-token inputs: those families prefill exact-length."""
+        return (self.cfg.family in ("dense", "ssm", "hybrid")
+                and not self.cfg.encoder_decoder)
+
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    page_size: int | None = None,
                    kv_pages: int | None = None) -> dict:
         """page_size/kv_pages set builds a *paged* cache: every KVCache
         becomes a PagedKVCache over a shared kv_pages-page pool
         (serve/paging.PagePool owns the host-side allocation). SSM state is
-        fixed-size per lane, so it stays lane-resident either way."""
+        fixed-size per lane, so it stays lane-resident either way. Only the
+        bucketed-prefill families page: their prefill scatters whole pages
+        of a padded bucket into the pool."""
         cfg = self.cfg
         if (page_size is None) != (kv_pages is None):
             raise ValueError("page_size and kv_pages must be set together")
+        if page_size is not None and not self.bucketed_prefill_ok:
+            raise ValueError(
+                f"paged KV cache requires a bucketed-prefill family "
+                f"(dense/ssm/hybrid), not {cfg.family}")
         if cfg.family == "ssm":
             return {seg.name: {"ssm": SSMCache.zeros(
                         cfg, batch, layers=seg.n, dtype=dtype,

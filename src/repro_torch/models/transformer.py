@@ -1,12 +1,14 @@
-"""Model assembly for the dense and SSM families (counterpart of
+"""Model assembly for the dense, SSM and MoE families (counterpart of
 repro/models/transformer.py).
 
 A model is a list of segments; a segment is a homogeneous stack of layers
 whose parameters carry a leading `layers` axis. The reference scans the
 stack with lax.scan; here a Python loop walks it (model.py). Ported so
 far: the dense family (GQA attention with a dense or paged KV cache and
-the (gated) MLP) and the SSM family (one Mamba-2 mixer per layer,
-models/ssm.py). Other families raise NotImplementedError.
+the (gated) MLP), the SSM family (one Mamba-2 mixer per layer,
+models/ssm.py) and the MoE family with GQA attention (dbrx; the MoE FFN
+of models/moe.py after a first `first_dense_layers` dense layers). MLA
+attention (deepseek-v2) and the other families raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -19,21 +21,30 @@ from ..configs.base import ArchConfig
 from .attention import KVCache, PagedKVCache, attention, decode_attention
 from .layers import (ParamSpec, apply_mlp, apply_norm, apply_rope,
                      mlp_schema, norm_schema, pod_dense)
+from .moe import apply_moe, moe_schema
 from .ssm import apply_ssm, ssm_schema
 
 
 @dataclasses.dataclass(frozen=True)
 class Segment:
     name: str
-    kind: str                  # dense | ssm (the kinds ported so far)
+    kind: str                  # dense | ssm | moe (the kinds ported so far)
     n: int                     # number of layers
 
 
 def segments(cfg: ArchConfig) -> list[Segment]:
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA attention (deepseek-v2) is not ported yet; "
+            f"repro_torch serves MoE models with GQA attention (dbrx)")
+    if cfg.family == "moe":
+        fd = cfg.moe.first_dense_layers
+        segs = [Segment("dense0", "dense", fd)] if fd else []
+        return segs + [Segment("moe", "moe", cfg.n_layers - fd)]
     if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; repro_torch serves "
-            f"the dense and ssm families")
+            f"the dense, ssm and moe families")
     return [Segment("layers", cfg.family, cfg.n_layers)]
 
 
@@ -105,12 +116,17 @@ def block_schema(cfg: ArchConfig, kind: str, layers: int | None) -> dict:
     if kind == "ssm":
         return {"ln_ssm": _norms(cfg, cfg.d_model, layers),
                 "ssm": ssm_schema(cfg, layers)}
-    if kind != "dense":
+    if kind not in ("dense", "moe"):
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    return {"ln_attn": _norms(cfg, cfg.d_model, layers),
-            "attn": attn_schema(cfg, layers),
-            "ln_mlp": _norms(cfg, cfg.d_model, layers),
-            "mlp": mlp_schema(cfg.d_model, cfg.d_ff, cfg.activation, layers)}
+    sch = {"ln_attn": _norms(cfg, cfg.d_model, layers),
+           "attn": attn_schema(cfg, layers),
+           "ln_mlp": _norms(cfg, cfg.d_model, layers)}
+    if kind == "moe":
+        sch["moe"] = moe_schema(cfg, layers)
+    else:
+        sch["mlp"] = mlp_schema(cfg.d_model, cfg.d_ff, cfg.activation,
+                                layers)
+    return sch
 
 
 def _norms(cfg: ArchConfig, d: int, layers: int | None) -> dict:
@@ -126,15 +142,17 @@ def apply_block(p, x, cfg: ArchConfig, kind: str, *, positions,
                 cache: dict | None = None, use_pallas: bool = False,
                 true_lens=None):
     """One layer, residual. dense: pre-norm GQA attention and pre-norm
-    MLP, `cache` {"attn": KVCache | PagedKVCache} or None. ssm: a pre-norm
-    Mamba-2 mixer, `cache` {"ssm": SSMCache} or None, `true_lens` the
-    per-lane lengths of a right-padded prefill. Caches update in place."""
+    MLP, `cache` {"attn": KVCache | PagedKVCache} or None. moe: the same
+    with the MoE FFN (models/moe.py) in place of the MLP (GQA attention:
+    `segments` refuses MLA). ssm: a pre-norm Mamba-2 mixer, `cache`
+    {"ssm": SSMCache} or None, `true_lens` the per-lane lengths of a
+    right-padded prefill. Caches update in place."""
     if kind == "ssm":
         h = apply_norm(p["ln_ssm"], x, cfg.norm)
         return x + apply_ssm(p["ssm"], h, cfg,
                              cache=cache["ssm"] if cache else None,
                              impl=ssd_impl, true_lens=true_lens)
-    if kind != "dense":
+    if kind not in ("dense", "moe"):
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     h = apply_norm(p["ln_attn"], x, cfg.norm)
     a = apply_gqa(p["attn"], h, cfg, positions=positions, impl=impl,
@@ -142,4 +160,6 @@ def apply_block(p, x, cfg: ArchConfig, kind: str, *, positions,
                   use_pallas=use_pallas)
     x = x + a
     h = apply_norm(p["ln_mlp"], x, cfg.norm)
+    if kind == "moe":
+        return x + apply_moe(p["moe"], h, cfg, use_pallas=use_pallas)
     return x + apply_mlp(p["mlp"], h, cfg.activation, use_pallas=use_pallas)

@@ -11,13 +11,18 @@ prefill into free slots, and decode step-locked with the rest of the batch.
     fixup masks the padded cache slots until decode overwrites them. The
     SSM state takes the per-lane true lengths (dt-masked updates, a conv
     window gathered at the true length), so padding is inert there too.
+  * Exact-length prefill, for the families whose prefill padding is not
+    inert (`Model.bucketed_prefill_ok` False: MoE, where padding tokens
+    would take expert capacity from real ones): one request per prefill,
+    [1, S], into a fresh 1-lane cache that is then copied into its slot.
+    `bucketed` says which path an engine takes.
   * Fused decode: a chunk of n decode steps runs as a Python loop whose
     tokens, positions, budgets and alive masks stay on the device; nothing
     is read back inside the loop. A lane whose budget runs out keeps
     decoding inertly until the chunk ends. Chunk lengths are floored to
     powers of two.
   * Host syncs: exactly one counted read (runtime.to_host) per prefill
-    group and one per decode chunk.
+    group (one request, exact-length) and one per decode chunk.
   * Paging (paged=True): the KV cache is a PagedKVCache over a shared pool
     of kv_pages pages, allocated host-side by serve/paging.PagePool at the
     syncs the engine already has. A request is admitted only when its
@@ -151,8 +156,10 @@ class ServeEngine:
         self.eos_id = eos_id
         self.decode_chunk = max(1, decode_chunk)
         self.device = model.device
+        self.bucketed = model.bucketed_prefill_ok
         # paged=True swaps every KVCache for a PagedKVCache over a shared
-        # kv_pages-page pool; paged=False keeps the engine as it was
+        # kv_pages-page pool (init_cache refuses it for the families that
+        # prefill exact-length); paged=False keeps the engine as it was
         self._pool: Optional[PagePool] = None
         if paged:
             if kv_pages is None:
@@ -174,8 +181,9 @@ class ServeEngine:
         self.queue: list[Request] = []
         # host-side tallies: device calls, forwards and their wall seconds
         # (each call ends in its host sync, so the wall covers the device)
-        self.stats = {"prefill_calls": 0, "prefill_s": 0.0, "chunks": 0,
-                      "decode_steps": 0, "decode_s": 0.0}
+        self.stats = {"bucketed": self.bucketed, "prefill_calls": 0,
+                      "prefill_s": 0.0, "chunks": 0, "decode_steps": 0,
+                      "decode_s": 0.0}
 
     # -- request flow --------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -203,6 +211,9 @@ class ServeEngine:
             free = self._free_slots()
             if not free:
                 return
+            if not self.bucketed:
+                self._prefill_into(free[0], self.queue.pop(0))
+                continue
             # group the head-of-queue bucket: every queued request of the
             # same bucket rides the same prefill call (up to free slots)
             b = self._bucket(len(self.queue[0].prompt))
@@ -311,6 +322,36 @@ class ServeEngine:
         for g, s in enumerate(slot_list):
             _write_lane(self.cache, lane_cache, s, g)
         return first
+
+    # -- exact-length prefill -------------------------------------------
+    def _prefill_into(self, slot: int, req: Request) -> None:
+        """Prefill one request, [1, S], into a fresh 1-lane cache, then copy
+        that lane into `slot`. The first token and its finiteness come back
+        in one host read; a non-finite one rejects the request and leaves
+        the slot untouched."""
+        t_start = time.perf_counter()
+        lane_cache = self.model.init_cache(1, self.max_len)
+        tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
+                                 device=self.device)[None, :]
+        logits, lane_cache = self.model.prefill(self.params,
+                                                {"tokens": tokens},
+                                                lane_cache)
+        last = logits[0]
+        first = torch.where(torch.isfinite(last).all(), torch.argmax(last),
+                            -1)
+        first = int(to_host(first))                      # the ONE host sync
+        self.stats["prefill_calls"] += 1
+        self.stats["prefill_s"] += time.perf_counter() - t_start
+        if first < 0:
+            reject(req, "non-finite-logits")
+            return
+        _write_lane(self.cache, lane_cache, slot)
+        req.out.append(first)
+        req.state = "running"
+        self.active[slot] = req
+        self.positions[slot] = len(req.prompt)
+        self.budgets[slot] = self._clamped_budget(req)
+        self._retire_if_full(slot)
 
     def _clamped_budget(self, req: Request) -> int:
         """Decode steps this request may take, clamped so that the lane

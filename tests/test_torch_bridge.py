@@ -41,8 +41,8 @@ def test_port_and_chip_smoke_import_without_jax():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
     # every module was imported: flash attention, paging, the SSD kernel
-    # package and the SSM model included
-    assert int(proc.stdout.split()[1]) >= 30
+    # package, the SSM model and the MoE model included
+    assert int(proc.stdout.split()[1]) >= 31
 
 
 def _leaves(tree, prefix=""):
@@ -53,11 +53,13 @@ def _leaves(tree, prefix=""):
         yield prefix, tree
 
 
-def test_bridge_is_bit_exact_name_for_name():
-    cfg = reduced(get_arch("granite-8b"))
+def _bridge_bit_exact(arch: str):
+    """Convert reduced(arch)'s reference parameters; every leaf must keep
+    its name, shape, dtype and bits. Returns the port's tree."""
+    cfg = reduced(get_arch(arch))
     jp = JaxModel(cfg).init(jax.random.PRNGKey(0))
     tp = params_from_jax(jax.tree.map(np.asarray, jp))
-    model = Model(t_reduced(t_get_arch("granite-8b")), device="cpu")
+    model = Model(t_reduced(t_get_arch(arch)), device="cpu")
     schema = dict(_leaves(model.schema()))
     jleaves = dict(_leaves(jax.tree.map(np.asarray, jp)))
     tleaves = dict(_leaves(tp))
@@ -69,6 +71,18 @@ def test_bridge_is_bit_exact_name_for_name():
         bits = np.int16 if a.dtype.itemsize == 2 else np.int32
         got = t.view(torch.int16 if bits is np.int16 else torch.int32)
         assert np.array_equal(got.numpy(), a.view(bits)), name
+    return tp
+
+
+def test_bridge_is_bit_exact_name_for_name():
+    _bridge_bit_exact("granite-8b")
+
+
+def test_bridge_keeps_the_moe_router_in_f32():
+    """dbrx's tree: the router stays f32 (its ParamSpec's dtype) beside
+    bf16 experts, bit for bit."""
+    tp = _bridge_bit_exact("dbrx-132b")
+    assert tp["moe"]["moe"]["router"].dtype == torch.float32
 
 
 def test_port_init_follows_the_schema():

@@ -128,6 +128,60 @@ def test_tiled_tolerance_rejects_late_tile_faults():
     assert tol.excess(chip_smoke.pv_summed_in_bf16(q, k, v, bk), tiled) > 1
 
 
+def _served_case(seed, shape=(1, 1277, 48, 8, 128)):
+    """dbrx-132b's longest exact-length prefill: the tiled plain version,
+    the same with its scores summed in f64, and the two late-tile
+    controls of chip_smoke.py."""
+    import chip_smoke
+    B, S, Hq, Hkv, D = shape
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((B, S, h, D), generator=g).to(torch.bfloat16)
+               for h in (Hq, Hkv, Hkv))
+    tiled = flash_attention_tiled_ref(q, k, v, causal=True, block_k=64)
+    other = flash_attention_tiled_ref(q, k, v, causal=True, block_k=64,
+                                      score_dtype=torch.float64)
+    stale = k.clone()
+    stale[:, S - 64:] = k[:, S - 128:S - 64]
+    controls = {"stale_last_k_tile": flash_attention_tiled_ref(
+                    q, stale, v, causal=True, block_k=64),
+                "pv_summed_in_bf16": chip_smoke.pv_summed_in_bf16(q, k, v,
+                                                                  64)}
+    return tiled, other, controls
+
+
+def test_served_tolerance_holds_sum_order_and_rejects_late_tile_faults():
+    """flash_bf16_tiled_served, the card's gate at served sizes: the tiled
+    plain version against itself with its scores summed in f64 (another
+    order of the f32 sums, all that separates two right kernels) stays
+    within it; a stale last K tile and PV summed in bf16 fail it."""
+    tol = TOLERANCES["flash_bf16_tiled_served"]
+    tiled, other, controls = _served_case(1)
+    assert tol.ok(tiled, other), tol.excess(tiled, other)
+    assert tol.excess(controls["stale_last_k_tile"], tiled) > 10
+    assert tol.excess(controls["pv_summed_in_bf16"], tiled) > 1
+
+
+def order_readings(seeds=(0, 1, 2, 3)) -> list[dict]:
+    """The CPU readings behind flash_bf16_tiled_served: the tiled plain
+    version against itself with f64-summed scores, and each late-tile
+    control against it, at flash_bf16_tiled and at the served tolerance,
+    on granite-8b's heads ([1, 2048, 32 over 8, 128]) and dbrx-132b's."""
+    one_ulp = TOLERANCES["flash_bf16_tiled"]
+    served = TOLERANCES["flash_bf16_tiled_served"]
+    out = []
+    for shape in [(1, 2048, 32, 8, 128), (1, 1277, 48, 8, 128)]:
+        for seed in seeds:
+            tiled, other, controls = _served_case(seed, shape)
+            out.append({"shape": list(shape), "seed": seed,
+                        "plain_vs_itself": {
+                            "flash_bf16_tiled": one_ulp.excess(other, tiled),
+                            "served": served.excess(other, tiled)},
+                        "controls_at_served": {
+                            n: served.excess(c, tiled)
+                            for n, c in controls.items()}})
+    return out
+
+
 def test_attention_dispatch_by_impl():
     """attention(impl=...) reaches chunked attention or the flash entry
     point; on the CPU both compute the same function."""
@@ -295,3 +349,9 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype):
                 q, k, v, causal=causal, window=win,
                 block_k=64 if D <= 128 else 32)
             assert tight.ok(got, tiled), (B, Sq, Skv, Hq, Hkv, D, causal, win)
+
+
+if __name__ == "__main__":
+    import json
+    for r in order_readings():
+        print(json.dumps(r))

@@ -280,9 +280,10 @@ def test_paged_engine_keeps_ssm_state_lane_resident(bf16_params):
 
 def test_segments_and_bucketing_cover_the_ported_families():
     assert segments(t_reduced(t_get_arch(ARCH)))[0].kind == "ssm"
-    moe = t_reduced(t_get_arch("dbrx-132b"))
+    assert segments(t_reduced(t_get_arch("dbrx-132b")))[0].kind == "moe"
+    audio = t_reduced(t_get_arch("whisper-small"))
     with pytest.raises(NotImplementedError, match="not ported"):
-        segments(moe)
+        segments(audio)
     with pytest.raises(ValueError, match="ssd_impl"):
         Model(t_reduced(t_get_arch(ARCH)), device="cpu", ssd_impl="cuda")
     # a cut of the same config keeps its schema
