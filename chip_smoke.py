@@ -12,8 +12,15 @@ Phases, one JSON line each; any failure exits non-zero:
                card: f32/bf16/int8 x every activation x ragged shapes x
                f32/bf16 out, each within runtime.TOLERANCES, with
                granite-8b's and dbrx-132b's served shapes (dbrx's q/o, k/v
-               and head at M = 4 and 1277); a planted control that sums
-               in bf16 must fail.
+               and head at M = 4 and 1277) and shapes that reach each bf16
+               mainloop's edges (wgmma at M = 65, 129, 1000, 1277, N =
+               1032, K = 4104; splitk with splits that do not divide the
+               k-steps evenly); a planted control that sums in bf16 must
+               fail, and at granite-8b's q and head (M = 4) two split-K
+               controls (the last split's partial left out; each k-step's
+               products taken with the previous step's w tile) must fail.
+               A row's result must be bit-equal at M = 256, 65, 57, 4 and
+               1 (wgmma and splitk sum K in one order).
   3. gemm_nt - the same for the transposed-weight kernel (w [N, K], the
                tied LM head), with mamba2's head [4, 1024] x [50280, 1024]^T
                among the shapes (a 104-column ragged tail).
@@ -32,7 +39,8 @@ Phases, one JSON line each; any failure exits non-zero:
                against the reference (ssd_ref, bf16 state) at its stated
                drift, y and final state: the cases of tests/test_kernels.py
                in f32 and bf16, mamba2's [4, 2048, 32, 64] (N 128, chunk
-               256), a ragged S and G > 1. At the served shape five planted
+               256; in bf16 and in f32, where the kernel runs 128-token
+               sub-chunks), a ragged S and G > 1. At the served shape five planted
                controls (no state carried across chunks, the mask after
                exp, y_inter from the updated state, ssd_ref itself, and
                the state and y_inter rounded to bf16) must fail the
@@ -40,7 +48,9 @@ Phases, one JSON line each; any failure exits non-zero:
   6. grouped - the grouped pod-GEMM kernel (the MoE experts) against its
                plain version: f32/bf16/int8 x every activation x ragged
                shapes x f32/bf16 out with per-group scale and bias, an
-               all-zero group exactly 0, G = 1 equal to the pod-GEMM kernel,
+               all-zero group exactly 0, G = 1 equal to the pod-GEMM kernel
+               where both run wmma (within tolerance of it where the NN
+               launch runs splitk or wgmma),
                and dbrx-132b's served shapes ([16, 1, 6144] x [16, 6144,
                10752], the down [16, 1, 10752] x [16, 10752, 6144], M = 320
                and 399 rows per expert). Two planted controls (sums in bf16,
@@ -48,7 +58,10 @@ Phases, one JSON line each; any failure exits non-zero:
   7. serve   - granite-8b at full width and depth (random weights from a
                seeded torch.Generator, bf16) served by ServeEngine; every
                request must finish with valid tokens, and the pod-GEMM
-               launch count must be 7 x 36 + 1 = 253 per forward.
+               launch count must be 7 x 36 + 1 = 253 per forward, each on
+               splitk (M <= 64) or wgmma (M > 64), none on wmma. The
+               paged and moe phases hold their pod-GEMM launches to the
+               same rule.
   8. oracle  - the same requests through the per-token ReferenceEngine.
                Random weights at 36 layers turn a last-bit difference into
                different tokens, so agreement is reported there and the
@@ -128,7 +141,8 @@ from repro_torch.kernels.ssd import ssd as ssd_mod  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_kernel_ref, ssd_ref  # noqa: E402
 from repro_torch.kernels.systolic_gemm import systolic_gemm as sg  # noqa: E402
 from repro_torch.kernels.systolic_gemm.ref import (  # noqa: E402
-    grouped_systolic_gemm_ref, systolic_gemm_ref, systolic_gemm_t_ref)
+    epilogue_ref, grouped_systolic_gemm_ref, splitk_partials, systolic_gemm_ref,
+    systolic_gemm_t_ref)
 from repro_torch.models.layers import (apply_norm, apply_rope, embed,  # noqa: E402
                                        pod_dense)
 from repro_torch.runtime import no_tf32  # noqa: E402
@@ -249,16 +263,110 @@ def bf16_summed(x, w, k_step: int = 16) -> torch.Tensor:
     return acc
 
 
+# (M, K, N) at the bf16 mainloops' edges: wgmma one row past a 64-row
+# half (65) and a 128-row tile (129), at dbrx's prime M = 1277, with N =
+# 1032 (TMA-aligned, not a tile multiple) and K = 4104 (not a multiple of
+# 64); at M = 1000, N = K = 4104 (6 split ranges, the last short);
+# splitk where the 129 k-steps of K = 4104 do not split evenly (13
+# splits of 10, the last of 9), at M = 4 and 29 rows
+KERNEL_EDGES = [(65, 1024, 1032), (129, 4104, 4096), (1277, 4104, 1032),
+                (1000, 4104, 4104), (4, 4104, 4096), (29, 4104, 1032)]
+# granite-8b's q and head at decode: where the split-K controls must fail
+SPLITK_CONTROL_SHAPES = [(4, 4096, 4096), (4, 4096, 49152)]
+
+
 def phase_kernel() -> None:
     """A ragged small case, granite-8b's shapes, and dbrx-132b's q/o, k/v
     and untied head at decode (M = 4 lanes) and at its longest served
-    exact-length prefill (M = 1277 rows, a prime)."""
+    exact-length prefill (M = 1277 rows, a prime); the mainloop edges of
+    KERNEL_EDGES; then the split-K controls."""
     gemm_phase("kernel", sg.systolic_gemm_cuda, systolic_gemm_ref,
                [(37, 100, 130), (1, 4096, 14336), (5, 4096, 49152),
                 (4, 6144, 6144), (4, 6144, 1024), (4, 6144, 100352),
                 (1277, 6144, 6144), (1277, 6144, 1024),
-                (1277, 6144, 100352)],
+                (1277, 6144, 100352)] + KERNEL_EDGES,
                transposed=False, seed=1)
+    splitk_controls(seed=14)
+    rows_independent_of_m(seed=15)
+
+
+def last_split_dropped(x, w, splits: int) -> torch.Tensor:
+    """Planted control: the splitk mainloop's partials summed in split
+    order, the last split's left out (a reduction that misses one
+    arrival)."""
+    parts = splitk_partials(x, w, splits)[:-1]
+    acc = torch.zeros((x.shape[0], w.shape[1]), device=x.device)
+    for p in parts:
+        acc = acc + p
+    return acc
+
+
+def stale_w_tile(x, w, k_step: int) -> torch.Tensor:
+    """Planted control: k-step i's products taken with k-step i - 1's w
+    tile (a ring slot read before its load landed); step 0 keeps its own."""
+    shifted = torch.cat([w[:k_step], w[:-k_step]])
+    with no_tf32():
+        return x.float() @ shifted.float()
+
+
+# (K, N): granite-8b's q and dbrx-132b's k projections; rows M of x
+ROW_CHECK_SHAPES = [(4096, 4096), (6144, 1024)]
+ROW_CHECK_MS = (256, 65, 57, 4, 1)
+
+
+def rows_independent_of_m(seed: int) -> None:
+    """A row's result must not depend on M, across mainloops: the first M
+    rows of x at M = 256 and 65 (wgmma) and 57, 4 and 1 (splitk) give
+    bit-equal outputs, as the engine (bucketed prefill, M = 4 x bucket;
+    decode, M = 4) and the per-token oracle (M = S; M = 1) need."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    rows, failures = [], []
+    for K, N in ROW_CHECK_SHAPES:
+        x, w = gemm_inputs(max(ROW_CHECK_MS), K, N, torch.bfloat16, g)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            full = sg.systolic_gemm_cuda(x, w, out_dtype=out_dtype)
+            for M in ROW_CHECK_MS[1:]:
+                part = sg.systolic_gemm_cuda(x[:M].contiguous(), w,
+                                             out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                row = {"K": K, "N": N, "M": M, "out": str(out_dtype)[6:],
+                       "mainloops": [sg.nn_plan(m, N, K, torch.bfloat16,
+                                                True).mainloop
+                                     for m in (max(ROW_CHECK_MS), M)],
+                       "bit_equal": torch.equal(part, full[:M])}
+                if not row["bit_equal"]:
+                    failures.append(f"rows depend on M: {row}")
+                rows.append(row)
+    emit("kernel_rows", rows=rows, failures=failures)
+    check(not failures, f"{len(failures)} row-independence checks failed")
+
+
+def splitk_controls(seed: int) -> None:
+    """At granite's q and head (M = 4, bf16, both output types): the
+    kernel within tolerance, both split-K controls outside it."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    rows, failures = [], []
+    for (M, K, N) in SPLITK_CONTROL_SHAPES:
+        x, w = gemm_inputs(M, K, N, torch.bfloat16, g)
+        plan = sg.nn_plan(M, N, K, torch.bfloat16, True)
+        planted = {"last_split_dropped": last_split_dropped(x, w, plan.splits),
+                   "stale_w_tile": stale_w_tile(x, w, sg.SPLITK_K_STEP)}
+        for out_dtype in (torch.float32, torch.bfloat16):
+            tol = tolerance(torch.bfloat16, out_dtype, None)
+            got = sg.systolic_gemm_cuda(x, w, out_dtype=out_dtype)
+            ref = systolic_gemm_ref(x, w, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            row = {"shape": [M, K, N], "plan": list(plan),
+                   "out": str(out_dtype)[6:], "kernel": tol.excess(got, ref)}
+            if not row["kernel"] <= 1.0:
+                failures.append(f"kernel disagrees with plain {row}")
+            for name, acc in planted.items():
+                row[name] = tol.excess(epilogue_ref(acc).to(out_dtype), ref)
+                if not row[name] > 1.0:
+                    failures.append(f"{name} control passes {row}")
+            rows.append(row)
+    emit("kernel_controls", rows=rows, failures=failures)
+    check(not failures, f"{len(failures)} split-K control checks failed")
 
 
 def phase_gemm_nt() -> None:
@@ -278,9 +386,13 @@ def gemm_phase(phase: str, kernel, plain, shapes, *, transposed: bool,
     cases, failures = 0, []
     worst: dict[str, dict] = {}
     control: dict[str, dict] = {}
+    mainloops = {}
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
         for (M, K, N) in shapes:
             x, w = gemm_inputs(M, K, N, dtype, g, transposed)
+            if not transposed:
+                plan = sg.nn_plan(M, N, K, dtype, True)
+                mainloops[f"{str(dtype)[6:]} {M}x{K}x{N}"] = list(plan)
             scale = torch.rand(N, generator=g, device="cuda") + 0.5
             bias = torch.randn(N, generator=g, device="cuda")
             for act in sg.ACTIVATIONS:
@@ -321,7 +433,8 @@ def gemm_phase(phase: str, kernel, plain, shapes, *, transposed: bool,
                     cases += 1
     emit(phase, cases=cases, worst=worst, control=control,
          tolerances={k: [t.rtol, t.atol] for k, t in TOLERANCES.items()
-                     if k.startswith("gemm")}, failures=failures)
+                     if k.startswith("gemm")}, mainloops=mainloops,
+         failures=failures)
     check(not failures, f"{len(failures)} {phase} checks failed")
 
 
@@ -609,6 +722,12 @@ def ssd_planted(x, dt, A, B, C, D, *, chunk: int, fault):
     return torch.cat(ys, dim=1)[:, :S], h.to(x.dtype)
 
 
+def ssd_f32_tol(chunk: int):
+    """f32 at mamba2-sized chunks sums terms far larger than y's small
+    entries: ssd_f32_rows there (its reason), ssd_f32 below."""
+    return TOLERANCES["ssd_f32_rows" if chunk >= 128 else "ssd_f32"]
+
+
 def phase_ssd() -> None:
     """Every case is read before any verdict. The kernel must stay within
     ssd_f32 / ssd_bf16_kernel of ssd_kernel_ref (y and the final state)
@@ -622,12 +741,13 @@ def phase_ssd() -> None:
     for dtype in (torch.float32, torch.bfloat16):
         cls = str(dtype)[6:]
         for (b, S, H, P, G, N, chunk) in SSD_CASES:
-            if dtype == torch.float32 and S > 100:
-                continue            # f32 tiles of mamba2's heads exceed smem
             x, dt, A, B, C, D = ssd_inputs((b, S, H, P, G, N), dtype, g)
             got = ssd_ops.ssd(x, dt, A, B, C, D, chunk=chunk)
-            ref = ssd_kernel_ref(x, dt, A, B, C, D, chunk=chunk)
-            refs = {"kernel_ref": (ref, TOLERANCES["ssd_f32"]
+            # the plain version at the chunk the kernel runs (in f32 at
+            # mamba2's tiles: 128-token sub-chunks of the 256 asked for)
+            ref = ssd_kernel_ref(x, dt, A, B, C, D, chunk=ssd_mod.run_chunk(
+                chunk, P, N, dtype))
+            refs = {"kernel_ref": (ref, ssd_f32_tol(chunk)
                                    if dtype == torch.float32 else tight_bf16)}
             if dtype == torch.bfloat16:
                 refs["ssd_ref"] = (ssd_ref(x, dt, A, B, C, D, chunk), loose)
@@ -645,6 +765,34 @@ def phase_ssd() -> None:
                         failures.append(f"{cls} {(b, S, H, P, G, N, chunk)} "
                                         f"{out} vs {rname}: excess {excess}")
             cases += 1
+    # mamba2's served prefill in f32: the kernel runs 128-token sub-chunks
+    # and is held to the plain version at that chunk; beside it, how far
+    # the plain version at 128 and at 256 drift apart in f32 (reported)
+    args = ssd_inputs(SSD_SERVED, torch.float32, g)
+    sub = ssd_mod.run_chunk(256, SSD_SERVED[3], SSD_SERVED[5], torch.float32)
+    got = ssd_ops.ssd(*args, chunk=256)
+    ref = ssd_kernel_ref(*args, chunk=sub)
+    whole = ssd_kernel_ref(*args, chunk=256)
+    torch.cuda.synchronize()
+    tol = ssd_f32_tol(256)
+    f32_served = {"run_chunk": sub, "tolerance": str(tol), "controls": {}}
+    for out, i in (("y", 0), ("h", 1)):
+        excess = tol.excess(got[i], ref[i])
+        f32_served[out] = {
+            "excess": excess, "max_abs_err": float(
+                (got[i].double() - ref[i].double()).abs().max()),
+            "plain_sub_vs_whole_chunk": tol.excess(ref[i], whole[i]),
+            "excess_at_ssd_f32": TOLERANCES["ssd_f32"].excess(got[i], ref[i])}
+        if not bool(torch.isfinite(got[i]).all()) or not excess <= 1.0:
+            failures.append(f"float32 served {SSD_SERVED} {out}: excess "
+                            f"{excess}")
+    for fault in ("state_not_carried", "y_inter_from_updated_state"):
+        py, _ = ssd_planted(*args, chunk=sub, fault=fault)
+        f32_served["controls"][fault] = e = tol.excess(py, ref[0])
+        if not e > 1.0:
+            failures.append(f"f32 control {fault} passes {tol}: {e}")
+    cases += 1
+    del args, got, ref, whole
     served = ssd_served_shape(g)
     for name, e in served["excess"].items():
         if not e <= 1.0:
@@ -654,6 +802,7 @@ def phase_ssd() -> None:
         if all(v <= 1.0 for v in e.values()):
             failures.append(f"control {fault} passes ssd_bf16_kernel: {e}")
     emit("ssd", cases=cases + 1, worst=worst, served_shape=served,
+         f32_served_shape=f32_served,
          tolerances={k: [t.rtol, t.atol] for k, t in TOLERANCES.items()
                      if k.startswith("ssd")}, failures=failures)
     check(not failures, f"{len(failures)} ssd checks failed")
@@ -719,8 +868,11 @@ def worst_row(got, ref, tol, chunk: int) -> dict:
 # 6. grouped pod GEMM vs plain
 # --------------------------------------------------------------------------
 
-# G, M, K, N: ragged, decode-like (M = 1), and G = 1
-GROUPED_CASES = [(3, 37, 100, 130), (5, 1, 260, 70), (1, 33, 64, 65)]
+# G, M, K, N: ragged, decode-like (M = 1), and G = 1: ragged (both
+# launches on wmma), and TMA-aligned at M = 4 and 96, where the NN launch
+# runs splitk and wgmma
+GROUPED_CASES = [(3, 37, 100, 130), (5, 1, 260, 70), (1, 33, 64, 65),
+                 (1, 4, 512, 136), (1, 96, 256, 136)]
 # dbrx-132b's expert GEMMs: decode (M = 1 row per expert), the down
 # projection, a 1024-token prefill (8 groups x capacity 40 = 320 rows per
 # expert) and the 1277-token prompt (prime: one group of capacity 399)
@@ -802,13 +954,21 @@ def phase_grouped() -> None:
                         planted("bf16_summed",
                                 tol.excess(summed.to(out_dtype), ref), case)
                     if G == 1:
+                        # bit-equal where both launches run the wmma (or
+                        # simt) mainloop; splitk and wgmma sum in another
+                        # order, so there within the case's tolerance
                         one = sg.systolic_gemm_cuda(
                             x[0], w[0], *(t if t is None else t[0]
                                           for t in sb),
                             activation=act, out_dtype=out_dtype)
-                        if not torch.equal(got[0], one):
-                            failures.append(f"G = 1 differs from the pod "
-                                            f"GEMM kernel {case}")
+                        nn = sg.nn_plan(M, N, K, dtype, True).mainloop
+                        if nn in ("wmma", "simt"):
+                            if not torch.equal(got[0], one):
+                                failures.append(f"G = 1 differs from the "
+                                                f"pod GEMM kernel {case}")
+                        elif not tol.ok(got[0], one):
+                            failures.append(f"G = 1 beyond {tol} of the pod "
+                                            f"GEMM kernel ({nn}) {case}")
                     cases += 1
     served = []
     for (G, M, K, N, act) in GROUPED_SERVED:
@@ -868,6 +1028,7 @@ def phase_serve(model, params):
     syncs0 = HOST_SYNCS.count
     wall = serve(eng, reqs)
     launches = sg.systolic_gemm_cuda.launches
+    by_mainloop = nn_mainloops("serve")
     syncs = HOST_SYNCS.count - syncs0
     st = eng.stats
     for r in reqs:
@@ -893,8 +1054,9 @@ def phase_serve(model, params):
          decode_chunks=st["chunks"], decode_steps=st["decode_steps"],
          decode_ms_per_step=1e3 * st["decode_s"] / st["decode_steps"],
          host_syncs=syncs, pod_gemm_launches=launches,
+         pod_gemm_by_mainloop=by_mainloop,
          launches_per_forward=per_forward)
-    return reqs, launches
+    return reqs, launches, by_mainloop
 
 
 def first_differences(served, oracle, ref: ReferenceEngine) -> list[dict]:
@@ -1010,6 +1172,7 @@ def phase_serve_paged(model, params):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     gemm_launches = sg.systolic_gemm_cuda.launches
+    by_mainloop = nn_mainloops("serve_paged")
     flash_launches = fa.flash_attention_cuda.launches
     syncs = HOST_SYNCS.count - syncs0
     st = eng.stats
@@ -1050,6 +1213,7 @@ def phase_serve_paged(model, params):
          decode_chunks=st["chunks"], decode_steps=st["decode_steps"],
          decode_ms_per_step=1e3 * st["decode_s"] / st["decode_steps"],
          host_syncs=syncs, pod_gemm_launches=gemm_launches,
+         pod_gemm_by_mainloop=by_mainloop,
          flash_launches=flash_launches, recycled=eng.recycled,
          peak_paged_kv_stats=peak, largest_bucket=bucket,
          prefill_transient_kv_bytes=transient,
@@ -1154,6 +1318,18 @@ def reset_launch_counts() -> None:
                sg.grouped_systolic_gemm_cuda, fa.flash_attention_cuda,
                ssd_mod.ssd_cuda):
         fn.launches = 0
+    sg.systolic_gemm_cuda.mainloop_launches = dict.fromkeys(sg.MAINLOOPS, 0)
+
+
+def nn_mainloops(phase: str) -> dict:
+    """The pod-GEMM launches of a served run by mainloop: every one on
+    splitk or wgmma (bf16, TMA-aligned shapes), none on wmma or simt."""
+    by = dict(sg.systolic_gemm_cuda.mainloop_launches)
+    check(by["wmma"] == 0 and by["simt"] == 0 and
+          sum(by.values()) == sg.systolic_gemm_cuda.launches,
+          f"{phase}: pod-GEMM launches by mainloop {by}, total "
+          f"{sg.systolic_gemm_cuda.launches}")
+    return by
 
 
 def launch_counts() -> dict:
@@ -1281,6 +1457,7 @@ def phase_serve_moe(model, params):
     finally:
         del model.prefill
     launches = launch_counts()
+    launches["pod_gemm_by_mainloop"] = nn_mainloops("serve_moe")
     syncs = HOST_SYNCS.count - syncs0
     peak = torch.cuda.max_memory_allocated()
     st = eng.stats
@@ -1445,6 +1622,7 @@ def pod_gemm_rows(cfg, phases, seed: int):
                 return F.silu(y) if act == "silu" else y
             row = {
                 "gemm": name, "phase": phase, "M": M, "K": K, "N": N,
+                "plan": list(sg.nn_plan(M, N, K, torch.bfloat16, True)),
                 "ms": time_ms(lambda: sg.systolic_gemm_cuda(
                     x, w, activation=act, out_dtype=torch.bfloat16),
                     iters, flush),
@@ -1464,11 +1642,12 @@ def pod_gemm_rows(cfg, phases, seed: int):
     return rows, totals, worst, (len(shapes) - 1) * cfg.n_layers + 1
 
 
-def gemm_line(cfg, launches: int, moe_cfg, moe_launches: int) -> dict:
+def gemm_line(cfg, launches: int, by_mainloop: dict, moe_cfg,
+              moe_launches: int, moe_by_mainloop: dict) -> dict:
     """granite-8b's pod GEMMs at decode (M = SLOTS) and a [SLOTS, 256]
     prefill, the line's own numbers; dbrx-132b's q/k/v/o and untied head
     at decode and at its longest exact-length prefill (M = 1277) under
-    "moe"."""
+    "moe". Launches by mainloop are the served runs'."""
     rows, totals, worst, per_fwd = pod_gemm_rows(
         cfg, (("decode", SLOTS, 20), ("prefill", SLOTS * 256, 5)), seed=2)
     moe_rows, moe_totals, moe_worst, moe_per_fwd = pod_gemm_rows(
@@ -1478,7 +1657,8 @@ def gemm_line(cfg, launches: int, moe_cfg, moe_launches: int) -> dict:
         "name": "systolic_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/systolic_gemm/csrc/systolic_gemm.cu",
         "replaces": "src/repro/kernels/systolic_gemm/systolic_gemm.py:121",
-        "launches": launches, "max_abs_err": max(worst, moe_worst),
+        "launches": launches, "launches_by_mainloop": by_mainloop,
+        "max_abs_err": max(worst, moe_worst),
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": "bytes",
         "library_ms": dec["library_ms"],
@@ -1489,6 +1669,7 @@ def gemm_line(cfg, launches: int, moe_cfg, moe_launches: int) -> dict:
         "shapes": rows,
         "moe": {"arch": moe_cfg.name, "n_layers": moe_cfg.n_layers,
                 "launches": moe_launches,
+                "launches_by_mainloop": moe_by_mainloop,
                 "per_forward": moe_per_fwd,
                 "decode_forward": moe_totals["decode"],
                 "prefill_forward_1277": moe_totals["prefill"],
@@ -1756,7 +1937,7 @@ def main() -> int:
              seconds=time.perf_counter() - t0,
              gib_allocated=torch.cuda.memory_allocated() / 2 ** 30)
 
-        served, launches = phase_serve(model, params)
+        served, launches, by_mainloop = phase_serve(model, params)
         torch.cuda.synchronize()
         phase_oracle(model, params, served)
         torch.cuda.synchronize()
@@ -1801,8 +1982,9 @@ def main() -> int:
         del moe_params
         torch.cuda.empty_cache()
 
-        kernels = {"kernels": [gemm_line(cfg, launches, moe_cfg,
-                                         moe_launches["pod_gemm"]),
+        kernels = {"kernels": [gemm_line(
+            cfg, launches, by_mainloop, moe_cfg, moe_launches["pod_gemm"],
+            moe_launches["pod_gemm_by_mainloop"]),
                                flash_line(cfg, flash_launches),
                                gemm_nt_line(ssm_cfg, ssm_launches["gemm_nt"]),
                                ssd_line(ssm_cfg, ssm_launches["ssd"]),

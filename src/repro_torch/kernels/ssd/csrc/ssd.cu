@@ -26,7 +26,9 @@
 // reference rounds M) and its inter-chunk output. At mamba2's C = 256,
 // N = 128, P = 64 in bf16 that is 211,200 bytes of the 232,448 a block may
 // have; the f32 score tile alone (256 KB) would not fit, so it never
-// exists whole. Per row block:
+// exists whole. In f32 the same chunk needs 358,656 bytes, so an f32
+// launch runs each chunk as sub-chunks (f32_chunk: 128 at mamba2's tiles,
+// 221,952 bytes), which in f32 is the same function. Per row block:
 //   1. y_inter = exp(cum_t) * (C h_prev^T): f32 on the CUDA cores (FMA);
 //   2. M = C B^T masked, scaled: bf16 on the tensor cores (mma.sync
 //      m16n8k16, f32 accumulate), f32 on FMA. The mask is applied before
@@ -54,6 +56,7 @@
 // take, or whose tiles need more dynamic shared memory than a block may
 // have, with cudaErrorInvalidValue, and otherwise returns
 // cudaGetLastError() after the launch; the caller raises when it is not 0.
+// ssd_run_chunk says which chunk a launch runs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -423,14 +426,28 @@ cudaError_t launch(const void* x, const float* dt, const float* A, const void* B
   return cudaGetLastError();
 }
 
+// The chunk an f32 launch runs: `chunk` if its tiles fit, else the largest
+// divisor of it that is a multiple of 16 and whose tiles fit (0 if none).
+// In f32 the scan gives the same result for any chunking: M is rounded to
+// x's dtype, f32 itself, so only the order of f32 sums changes. bf16 keeps
+// the chunk it is given, because there M's rounding depends on the chunk.
+int f32_chunk(int chunk, int P, int N) {
+  if (make_layout(chunk, P, N, 4).total <= MAX_SMEM) return chunk;
+  for (int sub = chunk / 16 * 16; sub >= 16; sub -= 16)
+    if (chunk % sub == 0 && make_layout(sub, P, N, 4).total <= MAX_SMEM) return sub;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" int ssd_launch(const void* x, const float* dt, const float* A, const void* B,
                           const void* C, const float* D, void* y, void* h_final, int b, int S,
                           int H, int P, int G, int N, int chunk, int dtype, void* stream) {
   if (b <= 0 || S <= 0 || H <= 0 || P <= 0 || P > 128 || G <= 0 || H % G != 0 || N <= 0 ||
-      chunk <= 0 || S % chunk != 0 || (dtype != DT_F32 && dtype != DT_BF16) ||
-      make_layout(chunk, P, N, dtype == DT_BF16 ? 2 : 4).total > MAX_SMEM)
+      chunk <= 0 || S % chunk != 0 || (dtype != DT_F32 && dtype != DT_BF16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == DT_F32) chunk = f32_chunk(chunk, P, N);  // sub-chunks of the chunk
+  if (chunk <= 0 || make_layout(chunk, P, N, dtype == DT_BF16 ? 2 : 4).total > MAX_SMEM)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -439,4 +456,14 @@ extern "C" int ssd_launch(const void* x, const float* dt, const float* A, const 
   else
     err = launch<float>(x, dt, A, B, C, D, y, h_final, b, S, H, P, G, N, chunk, s);
   return static_cast<int>(err);
+}
+
+// The chunk ssd_launch runs for these arguments (0: refused), so that a
+// caller can hold the kernel to a plain version of the same chunking.
+extern "C" int ssd_run_chunk(int chunk, int P, int N, int dtype) {
+  if (chunk <= 0 || P <= 0 || N <= 0 || (dtype != DT_F32 && dtype != DT_BF16)) return 0;
+  if (dtype == DT_F32) chunk = f32_chunk(chunk, P, N);
+  return chunk > 0 && make_layout(chunk, P, N, dtype == DT_BF16 ? 2 : 4).total <= MAX_SMEM
+             ? chunk
+             : 0;
 }

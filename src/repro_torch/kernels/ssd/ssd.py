@@ -24,7 +24,16 @@ def _lib() -> ctypes.CDLL:
     lib.ssd_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + \
         [ctypes.c_void_p]
     lib.ssd_launch.restype = ctypes.c_int
+    lib.ssd_run_chunk.argtypes = [ctypes.c_int] * 4
+    lib.ssd_run_chunk.restype = ctypes.c_int
     return lib
+
+
+def run_chunk(chunk: int, P: int, N: int, dtype: torch.dtype) -> int:
+    """The chunk the kernel runs for `chunk`: itself, or in f32 where its
+    tiles pass a block's shared memory the largest divisor that is a
+    multiple of 16 and fits (128 at mamba2's P 64, N 128). 0 if none."""
+    return _lib().ssd_run_chunk(chunk, P, N, _DTYPES[dtype])
 
 
 def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

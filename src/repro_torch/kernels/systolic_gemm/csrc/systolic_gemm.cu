@@ -14,58 +14,91 @@
 // bias [G, N], out [G, M, N]. The TPU grid grows a leading group axis
 // and reuses one accumulator scratch group after group; here the group
 // is blockIdx.z, each block moves its pointers to its group's matrices
-// and then runs the NN kernel unchanged, so a group's rows, ragged edges
-// and epilogue are exactly a plain launch's. A group of zero rows with a
-// zero bias (an expert no token reached) comes out exactly 0.
+// and then runs the wmma kernel unchanged, so a group's rows, ragged
+// edges and epilogue are exactly a plain wmma launch's. A group of zero
+// rows with a zero bias (an expert no token reached) comes out exactly 0.
 //
-// NT's w tile is [BN, BK] cut from row-major [N, K], so it is contiguous
-// along K: exactly a column-major K x N operand, which the tensor cores
-// take as a col_major matrix_b fragment. No transpose copy
-// exists in device memory, which is the point of the TPU kernel. What it
-// computes is the same; how is not carried over block by block. The TPU
-// grid walks K as its minor sequential axis and carries the accumulator in
-// VMEM scratch from one grid step to the next. Here each thread block owns
-// one output tile, walks K in a loop of its own, keeps the accumulator in
-// registers (wmma fragments) and runs the epilogue once at the end, so
-// [M, N] is written exactly once.
+// What it computes is the same as on the TPU; how is not carried over
+// block by block. The TPU grid walks K as its minor sequential axis and
+// carries the accumulator in VMEM scratch from one grid step to the next.
+// Here a block walks K in a loop of its own with the accumulator in
+// registers, and the epilogue (scale, bias, activation in f32, then one
+// rounding to out) runs once per output. Four mainloops; the caller picks
+// one by shape (systolic_gemm.py::nn_plan for NN) and passes it in:
 //
-//   * bf16 x bf16 -> f32: tensor cores through nvcuda::wmma (mma.sync,
-//     16x16x16). Tile BM x 64 (BM = 16 for decode-sized M, else 64), K in
-//     steps of 32 staged through shared memory; the next K step's global
-//     loads are issued into registers before the current step's products,
-//     so loads and tensor-core work overlap (two-stage pipeline).
-//   * f32 x f32 -> f32 and int8 x int8 -> int32: plain FMA / integer
+//   * splitk (bf16 NN, M <= 64: decode and short prefills). Bound by
+//     bytes: every weight byte is read once per call (granite-8b's 253
+//     GEMMs of a decode step move 16.1 GB, 4.8 ms at 3.35 TB/s), and the
+//     tensor cores idle. What held the wmma kernel at 0.3-0.5 TB/s was
+//     too few blocks in flight: granite's q projection made 64. Here
+//     blocks tile N in strips of 64 or 128 columns AND split K into
+//     `splits` ranges, so some 260-800 blocks stream the weights (up to
+//     five per SM at once); each streams its [K range, strip] of w
+//     through a 4-stage cp.async ring (16-byte loads into shared memory,
+//     L1 bypassed) with x's rows beside it, and multiplies on mma.sync
+//     m16n8k16 with the rows padded to 16. A split writes its f32 partial
+//     [M, strip] to a workspace and bumps the strip's arrival counter
+//     after a __threadfence; the last to arrive sums the partials in
+//     split order 0..splits-1 (eight loads in flight per thread), runs
+//     the epilogue, stores and resets the counter to 0.
+//     One launch per GEMM, and the same inputs give the same bits.
+//   * wgmma (bf16 NN, M > 64: prefill). Bound by operations (a 1024-row
+//     forward of granite-8b is 16.5 TFLOP, 16.7 ms at 989 TFLOP/s). The
+//     wmma kernel's mma.sync reached about 120 TFLOP/s. Here one block
+//     per 128 x 128 output tile: a producer warpgroup, which hands its
+//     registers to the consumers (setmaxnreg), keeps a 6-stage ring of
+//     [128 x 64] x and [64 x 128] w tiles full from one thread with TMA
+//     loads (128-byte swizzle; w as two [64 x 64] boxes), each stage
+//     signalled by an mbarrier with its byte count; two consumer
+//     warpgroups run wgmma m64n128k16 on their 64-row halves (A K-major,
+//     B MN-major with the transpose bit) and give a stage back only after
+//     wgmma.wait_group shows its products done. Six stages, not wider
+//     tiles, paid off on this card: loads in flight set the pace (128 x
+//     256 tiles with 4 stages ran slower). TMA zero-fills ragged
+//     M, N and K; the epilogue runs from the accumulator registers with
+//     guarded stores. Blocks walk M fastest, so the tiles of one weight
+//     strip run together and the strip is read from memory about once.
+//     Not persistent: a tile's epilogue does not overlap the next tile's
+//     loads, and there are no clusters or multicast.
+//
+//   Both sum K in the same order: `splits` ranges (from N and K only, one
+//   rule for both; each an even number of 32-deep steps, so a range starts
+//   with a wgmma stage), each range from zero in k16 steps, the ranges
+//   added in order; wgmma keeps a range's sum and the running total in
+//   two register sets and adds them between stages. The tensor cores round a k16 step alike under mma.sync and
+//   wgmma, so a row's result is bit-equal at every M: a decode lane alone
+//   or in a batch, a prompt prefilled alone (M = S) or in a bucket (M =
+//   4 x bucket, the other mainloop).
+//   * wmma (bf16 where TMA cannot go: K or N not a multiple of 8, or x or
+//     w not 16-byte aligned; and every NT and grouped launch): tensor
+//     cores through nvcuda::wmma (mma.sync, 16x16x16), tile BM x 64 (BM =
+//     16 for M <= 16, else 64), K in steps of 32 staged through shared
+//     memory with the next step's loads in registers during the products
+//     (two stages). Ragged edges masked in the kernel.
+//   * simt (f32 x f32 -> f32 and int8 x int8 -> int32): FMA / integer
 //     multiply-add on the CUDA cores, 64 x 64 tiles, 4 x 4 outputs per
 //     thread. f32 stays full f32 (TF32 would change the numbers); int32
 //     accumulation is exact, then the epilogue runs in f32 as on the TPU.
-//   * Ragged M/N/K edges are masked in the kernel (zero-filled loads,
-//     guarded stores), so the wrapper pads nothing.
 //
-// What bounds it on the H100: at decode (M = 4 lanes) every weight byte is
-// read once per step and the GEMM is bound by memory bytes (3.35 TB/s); at
-// prefill (M = 1024) the large projections are bound by tensor-core
-// operations (989 TFLOP/s bf16 dense). This simple kernel is far from both:
-// mma.sync through wmma reaches only part of Hopper's tensor-core rate,
-// each block streams its weight strip with ordinary loads, and at decode a
-// narrow N leaves SMs idle. Warpgroup MMA (wgmma) fed by TMA through an
-// mbarrier ring, persistent blocks and split-K for skinny M are a later
-// change's work.
-//
+// NT and grouped still run the wmma template, which is far from both
+// bounds at prefill (mma.sync, two stages, a barrier per 32-deep step).
 // The grouped form at dbrx-132b's served shapes (16 experts, d 6144,
 // d_ff 10752): at decode each expert holds M = 1 row, so a launch reads
 // 16 x 6144 x 10752 bf16 weights (2.11 GB) for 2 GFLOP and is bound by
-// bytes (0.631 ms at 3.35 TB/s); the 16-row tile wastes 15/16 of each
-// mma, which costs nothing against that bound. At a 1024-token prefill
-// M = 320 rows per expert and the launch is bound by operations
-// (6.76e11 FLOP, 0.684 ms at 989 TFLOP/s) about as much as by bytes
-// (0.683 ms). The same limits as the NN kernel keep it from both.
+// bytes (0.631 ms at 3.35 TB/s); its 2,688 blocks of 16 x 64 keep enough
+// loads in flight to read them at about 2.9 TB/s. At a 1024-token prefill
+// M = 320 rows per expert and the launch is bound by operations (6.76e11
+// FLOP, 0.684 ms at 989 TFLOP/s) about as much as by bytes (0.683 ms).
 //
-// C interface (bound with ctypes): systolic_gemm_launch (NN),
+// C interface (bound with ctypes): systolic_gemm_launch (NN, with its
+// mainloop, splits, strip width and split-K workspace and counters),
 // systolic_gemm_nt_launch (NT) and grouped_systolic_gemm_launch return
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// arguments the kernels do not take (G > 65535, the grid's z limit); the
-// caller raises when it is not 0.
+// arguments the kernels do not take (G > 65535, the grid's z limit; a
+// mainloop the dtype, shape or alignment does not allow; a tensor map
+// cuTensorMapEncodeTiled refuses); the caller raises when it is not 0.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -80,9 +113,13 @@ namespace {
 enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_SILU = 3, ACT_RELU2 = 4 };
 enum InType { IN_F32 = 0, IN_BF16 = 1, IN_INT8 = 2 };
 enum OutType { OUT_F32 = 0, OUT_BF16 = 1 };
+enum Mainloop { ML_WMMA = 0, ML_SPLITK = 1, ML_WGMMA = 2, ML_SIMT = 3 };
 
 // The TPU kernel's _epilogue_math: dequant scale, bias, activation, in f32.
-// gelu is the tanh approximation (jax.nn.gelu's default).
+// gelu is the tanh approximation (jax.nn.gelu's default). silu uses the
+// fast exp and divide (a few ulp, inside every tolerance): with expf and
+// an IEEE divide the epilogue held granite's gate projection at M = 1024
+// about 100 us behind the same GEMM without it.
 __device__ __forceinline__ float epilogue(float acc, const float* scale,
                                           const float* bias, int col, int act) {
   if (scale != nullptr) acc = acc * scale[col];
@@ -97,7 +134,7 @@ __device__ __forceinline__ float epilogue(float acc, const float* scale,
       break;
     }
     case ACT_SILU:
-      acc = acc * (1.f / (1.f + expf(-acc)));
+      acc = __fdividef(acc, 1.f + __expf(-acc));
       break;
     case ACT_RELU2: {
       const float r = fmaxf(acc, 0.f);
@@ -125,6 +162,18 @@ __device__ __forceinline__ float epilogue(float acc, const float* scale,
 __device__ __forceinline__ void store_out(float* o, float v) { *o = v; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* o, float v) {
   *o = __float2bfloat16(v);  // round to nearest even, as torch and XLA
+}
+
+// Two neighbouring columns (col even, N even: 8- or 4-byte aligned).
+__device__ __forceinline__ void store_pair(float* o, float v0, float v1) {
+  *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* o, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // ---------------------------------------------------------------------------
@@ -357,6 +406,525 @@ gemm_simt(const InT* __restrict__ x, const InT* __restrict__ w,
     }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 NN at M <= 64: split-K over a cp.async ring (decode)
+// ---------------------------------------------------------------------------
+
+constexpr int SK_BK = 32;          // k-step: rows of w in one ring stage
+constexpr int SK_STAGES = 4;       // ring depth
+constexpr int SK_THREADS = 128;    // 4 warps, each owning BN / 4 columns
+constexpr int SK_XLD = SK_BK + 8;  // 80-byte x rows: ldmatrix without bank conflicts
+
+// One ring stage: x [16 MT][SK_BK] and w [SK_BK][BN], rows padded by 16 bytes.
+template <int MT, int BN>
+struct SplitkTile {
+  static constexpr int WLD = BN + 8;                 // 272- or 144-byte w rows
+  static constexpr int X_ELEMS = MT * 16 * SK_XLD;
+  static constexpr int W_ELEMS = SK_BK * WLD;
+  static constexpr int STAGE = X_ELEMS + W_ELEMS;    // bf16 elements
+  static constexpr int SMEM = SK_STAGES * STAGE * 2; // bytes
+};
+
+// 16 bytes global -> shared through L2 only; zero-filled when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory: lane L gives the address of
+// row L % 8 of matrix L / 8; .trans delivers each transposed.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Block (strip, split) = (blockIdx.x, blockIdx.y): columns [strip * BN,
+// + BN) over k-steps [split * per, min(steps, (split + 1) * per)) with
+// per = ceil(steps / splits); the launcher makes sure the last range is
+// not empty. With one split the block runs the epilogue itself; otherwise
+// it writes its f32 partial [M, BN] to ws[strip][split] and the last
+// block of the strip to arrive sums ws[strip][0..splits-1] in that order,
+// runs the epilogue and resets counters[strip] to 0 for the next launch.
+// MT = ceil(M / 16) row tiles; rows past M are zero-filled and not stored.
+template <int MT, int BN, typename OutT>
+__global__ void __launch_bounds__(SK_THREADS)
+gemm_bf16_splitk(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                 const float* __restrict__ scale, const float* __restrict__ bias,
+                 OutT* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
+                 int M, int N, int K, int act) {
+  using Tile = SplitkTile<MT, BN>;
+  constexpr int WN = BN / 4;           // columns per warp
+  constexpr int NT = WN / 8;           // n8 tiles per warp (2 or 4)
+  constexpr int XV = MT * 16 * (SK_BK / 8);   // 16-byte vectors per stage
+  constexpr int WV = SK_BK * (BN / 8);
+  static_assert(WV % SK_THREADS == 0 && NT % 2 == 0, "stage must split evenly");
+  extern __shared__ __align__(16) __nv_bfloat16 sk_smem[];
+  __shared__ int sk_last;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int strip = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
+  const int n0 = strip * BN;
+  const int steps = (K + SK_BK - 1) / SK_BK;
+  const int per = (steps + splits - 1) / splits;
+  const int s0 = split * per;
+  const int nsteps = min(steps, s0 + per) - s0;
+
+  auto load_stage = [&](int t) {  // k-step s0 + t into slot t % SK_STAGES
+    __nv_bfloat16* xs = sk_smem + (t % SK_STAGES) * Tile::STAGE;
+    __nv_bfloat16* wt = xs + Tile::X_ELEMS;
+    const int k0 = (s0 + t) * SK_BK;
+#pragma unroll
+    for (int i = 0; i < (XV + SK_THREADS - 1) / SK_THREADS; ++i) {
+      const int v = tid + i * SK_THREADS;
+      if (v < XV) {
+        const int r = v / (SK_BK / 8), c = (v % (SK_BK / 8)) * 8;
+        const bool ok = r < M && k0 + c < K;
+        cp_async16(&xs[r * SK_XLD + c], ok ? x + (size_t)r * K + k0 + c : x, ok);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < WV / SK_THREADS; ++i) {
+      const int v = tid + i * SK_THREADS;
+      const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
+      const bool ok = k0 + r < K && n0 + c < N;
+      cp_async16(&wt[r * Tile::WLD + c], ok ? w + (size_t)(k0 + r) * N + n0 + c : w, ok);
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int t = 0; t < SK_STAGES - 1; ++t) {  // fill the ring
+    if (t < nsteps) load_stage(t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < nsteps; ++t) {
+    cp_async_wait<SK_STAGES - 2>();  // stage t has landed (this thread's part)
+    __syncthreads();                 // everyone's part; slot t - 1 is free
+    if (t + SK_STAGES - 1 < nsteps) load_stage(t + SK_STAGES - 1);
+    cp_async_commit();
+    const __nv_bfloat16* xs = sk_smem + (t % SK_STAGES) * Tile::STAGE;
+    const __nv_bfloat16* wt = xs + Tile::X_ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < SK_BK; kk += 16) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        ldmatrix_x4(a[i], &xs[(i * 16 + lane % 16) * SK_XLD + kk + (lane / 16) * 8]);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        // matrices: k 0-7 / 8-15 of n8 tile j, then of tile j + 1
+        const int q = lane / 8;
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, &wt[(kk + lane % 8 + (q & 1) * 8) * Tile::WLD + warp * WN +
+                                 (j + (q >> 1)) * 8]);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          mma_16816(acc[i][j], a[i], b[0], b[1]);
+          mma_16816(acc[i][j + 1], a[i], b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // accumulator (i, j, e): row 16 i + lane / 4 + 8 (e / 2), column
+  // warp * WN + 8 j + 2 (lane % 4) + e % 2 of the strip
+  const int r_in = lane / 4, c_in = warp * WN + (lane % 4) * 2;
+  if (splits == 1) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = i * 16 + r_in + h * 8, col = n0 + c_in + j * 8;
+          if (row < M && col < N)
+            store_pair(&out[(size_t)row * N + col],
+                       epilogue(acc[i][j][2 * h], scale, bias, col, act),
+                       epilogue(acc[i][j][2 * h + 1], scale, bias, col + 1, act));
+        }
+    return;
+  }
+
+  float* part = ws + ((size_t)strip * splits + split) * M * BN;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = i * 16 + r_in + h * 8;
+        if (row < M)
+          *reinterpret_cast<float2*>(&part[row * BN + c_in + j * 8]) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+  __threadfence();  // the partial is visible device-wide before the count
+  __syncthreads();
+  if (tid == 0) sk_last = atomicAdd(&counters[strip], 1) == splits - 1;
+  __syncthreads();
+  if (!sk_last) return;
+  __threadfence();
+  // four columns a thread, the splits' loads 8 at a time in flight, the
+  // sums in split order
+  const float4* parts = reinterpret_cast<const float4*>(ws + (size_t)strip * splits * M * BN);
+  const int quads = M * BN / 4;
+  for (int e = tid; e < quads; e += SK_THREADS) {
+    float4 s = __ldcg(&parts[e]);
+    for (int p0 = 1; p0 < splits; p0 += 8) {
+      float4 v[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (p0 + q < splits) v[q] = __ldcg(&parts[(size_t)(p0 + q) * quads + e]);
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (p0 + q < splits) {
+          s.x += v[q].x;
+          s.y += v[q].y;
+          s.z += v[q].z;
+          s.w += v[q].w;
+        }
+    }
+    const int row = e * 4 / BN, col = n0 + e * 4 % BN;
+    if (col < N) {  // N % 8 == 0: all four columns are in
+      OutT* o = &out[(size_t)row * N + col];
+      store_pair(o, epilogue(s.x, scale, bias, col, act), epilogue(s.y, scale, bias, col + 1, act));
+      store_pair(o + 2, epilogue(s.z, scale, bias, col + 2, act),
+                 epilogue(s.w, scale, bias, col + 3, act));
+    }
+  }
+  if (tid == 0) counters[strip] = 0;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 NN at M > 64: a TMA ring feeding wgmma (prefill)
+// ---------------------------------------------------------------------------
+
+constexpr int WG_BM = 128, WG_BN = 128, WG_BK = 64, WG_STAGES = 6;
+constexpr int WG_THREADS = 384;                 // producer + 2 consumer warpgroups
+constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;   // one [128 x 64] box of x: 16 KB
+constexpr int WG_B_BOX = WG_BK * 64 * 2;        // one [64 k x 64 n] box of w: 8 KB
+constexpr int WG_STAGE_BYTES = WG_A_BYTES + 2 * WG_B_BOX;   // 32 KB
+// 6 slots (192 KB: the loads in flight, not the products, set the pace),
+// + room to align to 1 KB
+constexpr int WG_SMEM = WG_STAGES * WG_STAGE_BYTES + 1024;
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// One box of a 2-D tensor map at (c0 inner, c1 outer) into shared memory;
+// `bar` counts its bytes. Out-of-bounds elements arrive as zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
+// address, leading and stride byte offsets (16-byte units), layout 1.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// d[64 x 128] = A[64 x 16] (K-major) * B[16 x 128] (MN-major: transpose
+// bit set) + (scale_d ? d : 0), bf16 in, f32 accumulate; d in the
+// warpgroup's fragment layout.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d)
+      : "memory");
+}
+
+// Block (blockIdx.x, blockIdx.y) = output tile [128 m, 128 n]; M tiles
+// run fastest. Warpgroup 0 is the producer: it hands its registers to the
+// consumers (setmaxnreg), and one thread issues the TMA loads of step kt
+// into slot kt % 6 once the consumers have given the slot back.
+// Warpgroups 1 and 2 multiply rows [0, 64) and [64, 128) of the tile.
+// Shared memory per slot: x [128 rows][128 B], then w's two [64 k][128 B]
+// boxes (n 0-63, then 64-127), each row 128-byte swizzled by TMA.
+//
+// The sum over K runs in the splitk mainloop's order: K cut into `splits`
+// ranges of per = ceil(ceil(K / 32) / splits) 32-deep steps (even, so
+// whole stages), each range summed from zero in k16 steps (r), the ranges
+// added in order between stages (t), outside the wgmma pipeline. The
+// tensor cores round a k16 step alike under mma.sync and wgmma, so a row
+// comes out bit-equal whichever mainloop its M picks.
+template <typename OutT>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+gemm_bf16_wgmma(const __grid_constant__ CUtensorMap tmap_x,
+                const __grid_constant__ CUtensorMap tmap_w, const float* __restrict__ scale,
+                const float* __restrict__ bias, OutT* __restrict__ out, int M, int N, int K,
+                int act, int splits) {
+  extern __shared__ uint8_t wg_smem_raw[];
+  __shared__ __align__(8) uint64_t full[WG_STAGES];
+  __shared__ __align__(8) uint64_t empty[WG_STAGES];
+  // the swizzle pattern repeats every 1024 bytes: tiles start on one
+  uint8_t* smem = wg_smem_raw + ((1024 - (smem_u32(wg_smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int m0 = blockIdx.x * WG_BM, n0 = blockIdx.y * WG_BN;
+  const int ksteps = (K + WG_BK - 1) / WG_BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrive, plus the bytes
+      mbar_init(&empty[s], 2);  // one arrive per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      for (int kt = 0; kt < ksteps; ++kt) {
+        const int s = kt % WG_STAGES;
+        if (kt >= WG_STAGES) mbar_wait(&empty[s], (kt / WG_STAGES - 1) & 1);
+        uint8_t* a = smem + s * WG_STAGE_BYTES;
+        mbar_expect_tx(&full[s], WG_STAGE_BYTES);
+        tma_load_2d(a, &tmap_x, &full[s], kt * WG_BK, m0);
+        tma_load_2d(a + WG_A_BYTES, &tmap_w, &full[s], n0, kt * WG_BK);
+        tma_load_2d(a + WG_A_BYTES + WG_B_BOX, &tmap_w, &full[s], n0 + 64, kt * WG_BK);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int c = wg - 1;  // this warpgroup's 64-row half of the tile
+    // 64-deep steps per split range: whole, as the launcher makes sure
+    // (an even number of 32-deep steps), so a range starts with a stage
+    const int range = splits == 1 ? ksteps
+                                  : (((K + SK_BK - 1) / SK_BK + splits - 1) / splits) / 2;
+    float t[64], r[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) t[i] = 0.f;
+    for (int k0 = 0; k0 < ksteps; k0 += range) {
+      // one range: a pipelined run of stages into r, the first overwriting it
+      for (int kt = k0; kt < min(k0 + range, ksteps); ++kt) {
+        const int s = kt % WG_STAGES;
+        mbar_wait(&full[s], (kt / WG_STAGES) & 1);
+        const uint8_t* a = smem + s * WG_STAGE_BYTES + c * (64 * 128);
+        const uint8_t* b = smem + s * WG_STAGE_BYTES + WG_A_BYTES;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < WG_BK / 16; ++kk)
+          // A: k16 is 32 bytes along the swizzled row, 8-row groups 1024 B
+          // apart; B: k16 is two 8-row groups of 1024 B, columns 64-127
+          // one box (8 KB) on
+          wgmma_m64n128k16(r, sw128_desc(a + kk * 32, 16, 1024),
+                           sw128_desc(b + kk * 2048, WG_B_BOX, 1024), kk > 0 || kt > k0);
+        wgmma_commit();
+        wgmma_wait<1>();  // the products of step kt - 1 are done: give its slot back
+        if (kt > 0 && tid % 128 == 0) mbar_arrive(&empty[(kt - 1) % WG_STAGES]);
+      }
+      wgmma_wait<0>();  // t += r (t = r for the first range)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) t[i] = k0 == 0 ? r[i] : t[i] + r[i];
+    }
+
+    // t[4 i + 2 h + e]: row 16 warp + lane / 4 + 8 h, column 8 i + 2 (lane % 4) + e
+    const int u = tid % 128;
+    const int row0 = m0 + c * 64 + (u / 32) * 16 + (u % 32) / 4;
+    const int col0 = n0 + (u % 4) * 2;
+#pragma unroll
+    for (int i = 0; i < WG_BN / 8; ++i) {
+      const int col = col0 + i * 8;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + h * 8;
+        if (row < M && col < N)
+          store_pair(&out[(size_t)row * N + col],
+                     epilogue(t[4 * i + 2 * h], scale, bias, col, act),
+                     epilogue(t[4 * i + 2 * h + 1], scale, bias, col + 1, act));
+      }
+    }
+  }
+}
+// cuTensorMapEncodeTiled, fetched through the runtime's entry-point query
+// (no -lcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// 2-D tensor map of a row-major bf16 [rows, cols] matrix, box [box_rows,
+// box_cols], 128-byte swizzle, zeros out of bounds. False if refused.
+bool make_tmap(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
+               int box_cols) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  cuuint32_t elem_strides[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+            box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Dynamic shared memory past 48 KB needs an opt-in, once per kernel and
+// device: `done` is the caller's (one per kernel), one bit per device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, uint64_t& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < 64 && ((done >> dev) & 1))) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && dev < 64) done |= 1ull << dev;
+  return e;
+}
+
+template <int MT, int BN, typename OutT>
+cudaError_t launch_splitk(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* scale,
+                          const float* bias, OutT* out, float* ws, int* counters, int M, int N,
+                          int K, int act, int splits, cudaStream_t stream) {
+  auto kernel = gemm_bf16_splitk<MT, BN, OutT>;
+  constexpr int smem = SplitkTile<MT, BN>::SMEM;
+  static uint64_t done = 0;
+  cudaError_t e = allow_smem(kernel, smem, done);
+  if (e != cudaSuccess) return e;
+  dim3 grid((N + BN - 1) / BN, splits);
+  kernel<<<grid, SK_THREADS, smem, stream>>>(x, w, scale, bias, out, ws, counters, M, N, K, act);
+  return cudaGetLastError();
+}
+
+template <int BN, typename OutT>
+cudaError_t splitk_rows(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* scale,
+                        const float* bias, OutT* out, float* ws, int* counters, int M, int N,
+                        int K, int act, int splits, cudaStream_t s) {
+  switch ((M + 15) / 16) {
+    case 1:
+      return launch_splitk<1, BN>(x, w, scale, bias, out, ws, counters, M, N, K, act, splits, s);
+    case 2:
+      return launch_splitk<2, BN>(x, w, scale, bias, out, ws, counters, M, N, K, act, splits, s);
+    case 3:
+      return launch_splitk<3, BN>(x, w, scale, bias, out, ws, counters, M, N, K, act, splits, s);
+    default:
+      return launch_splitk<4, BN>(x, w, scale, bias, out, ws, counters, M, N, K, act, splits, s);
+  }
+}
+
+template <typename OutT>
+cudaError_t launch_wgmma(const void* x, const void* w, const float* scale, const float* bias,
+                         OutT* out, int M, int N, int K, int act, int splits,
+                         cudaStream_t stream) {
+  CUtensorMap tmap_x, tmap_w;
+  if (!make_tmap(&tmap_x, x, M, K, WG_BM, WG_BK) || !make_tmap(&tmap_w, w, K, N, WG_BK, 64))
+    return cudaErrorInvalidValue;
+  static uint64_t done = 0;
+  cudaError_t e = allow_smem(gemm_bf16_wgmma<OutT>, WG_SMEM, done);
+  if (e != cudaSuccess) return e;
+  dim3 grid((M + WG_BM - 1) / WG_BM, (N + WG_BN - 1) / WG_BN);
+  gemm_bf16_wgmma<OutT><<<grid, WG_THREADS, WG_SMEM, stream>>>(tmap_x, tmap_w, scale, bias, out,
+                                                               M, N, K, act, splits);
+  return cudaGetLastError();
+}
+
 template <bool TW, typename OutT>
 void dispatch(const void* x, const void* w, const float* scale, const float* bias,
               void* out, int G, int M, int N, int K, int in_dtype, int act,
@@ -401,15 +969,74 @@ int launch(const void* x, const void* w, const float* scale, const float* bias, 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename OutT>
+cudaError_t launch_nn_bf16(const void* x, const void* w, const float* scale, const float* bias,
+                           void* out, int M, int N, int K, int act, int mainloop, int splits,
+                           int block_n, float* ws, int* counters, cudaStream_t s) {
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* wb = static_cast<const __nv_bfloat16*>(w);
+  OutT* o = static_cast<OutT*>(out);
+  if (mainloop == ML_WGMMA)
+    return launch_wgmma<OutT>(x, w, scale, bias, o, M, N, K, act, splits, s);
+  if (block_n == 64)
+    return splitk_rows<64>(xb, wb, scale, bias, o, ws, counters, M, N, K, act, splits, s);
+  return splitk_rows<128>(xb, wb, scale, bias, o, ws, counters, M, N, K, act, splits, s);
+}
+
+// The NN form's own mainloops and their preconditions; wmma and simt go
+// through launch<false> as before.
+int launch_nn(const void* x, const void* w, const float* scale, const float* bias, void* out,
+              int M, int N, int K, int in_dtype, int out_dtype, int act, int mainloop,
+              int splits, int block_n, float* ws, int* counters, void* stream) {
+  const bool bf16 = in_dtype == IN_BF16;
+  if (mainloop == ML_WMMA || mainloop == ML_SIMT) {
+    if (bf16 != (mainloop == ML_WMMA)) return static_cast<int>(cudaErrorInvalidValue);
+    return launch<false>(x, w, scale, bias, out, 1, M, N, K, in_dtype, out_dtype, act, stream);
+  }
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  if ((mainloop != ML_SPLITK && mainloop != ML_WGMMA) || !bf16 || M <= 0 || N <= 0 ||
+      K <= 0 || K % 8 != 0 || N % 8 != 0 || !aligned(x) || !aligned(w) ||
+      out_dtype < OUT_F32 || out_dtype > OUT_BF16 || act < ACT_NONE || act > ACT_RELU2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int steps = (K + SK_BK - 1) / SK_BK;  // both sum K in these ranges
+  const int per = splits > 0 ? (steps + splits - 1) / splits : 0;
+  if (splits <= 0 || splits > 65535 || (splits - 1) * per >= steps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (mainloop == ML_SPLITK) {
+    if (M > 64 || (block_n != 64 && block_n != 128) ||
+        (splits > 1 && (ws == nullptr || counters == nullptr)))
+      return static_cast<int>(cudaErrorInvalidValue);
+  } else if (block_n != WG_BN || (N + WG_BN - 1) / WG_BN > 65535 ||
+             (splits > 1 && per % 2 != 0)) {  // wgmma: ranges of whole 64-deep stages
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e =
+      out_dtype == OUT_F32
+          ? launch_nn_bf16<float>(x, w, scale, bias, out, M, N, K, act, mainloop, splits,
+                                  block_n, ws, counters, s)
+          : launch_nn_bf16<__nv_bfloat16>(x, w, scale, bias, out, M, N, K, act, mainloop,
+                                          splits, block_n, ws, counters, s);
+  return static_cast<int>(e);
+}
+
 }  // namespace
 
-// w [K, N]
+// w [K, N]. mainloop: 0 wmma, 1 splitk, 2 wgmma, 3 simt (systolic_gemm.py
+// ::nn_plan). splitk and wgmma both sum K in `splits` ranges (wgmma in
+// one block, on 128 x block_n = 128 tiles). splitk: strips of `block_n`
+// (64 or 128) columns,
+// ws at least ceil(N / block_n) * block_n * splits * M floats and
+// counters ceil(N / block_n) ints, zero before the first launch (each launch leaves
+// them zero); both unused (may be null) when splits == 1.
 extern "C" int systolic_gemm_launch(const void* x, const void* w,
                                     const float* scale, const float* bias,
                                     void* out, int M, int N, int K,
                                     int in_dtype, int out_dtype, int act,
-                                    void* stream) {
-  return launch<false>(x, w, scale, bias, out, 1, M, N, K, in_dtype, out_dtype, act, stream);
+                                    int mainloop, int splits, int block_n,
+                                    float* ws, int* counters, void* stream) {
+  return launch_nn(x, w, scale, bias, out, M, N, K, in_dtype, out_dtype, act, mainloop, splits,
+                   block_n, ws, counters, stream);
 }
 
 // w [N, K], read in that layout

@@ -10,11 +10,13 @@ Hopper kernel, which raises if it cannot run. There is no other path.
 
 The JAX wrappers pad to block multiples, call the kernel and slice back.
 The Hopper kernel masks ragged M/N/K edges itself, so nothing is padded
-here and the result has the same [M, N] contract. Its tile is fixed
-(csrc/systolic_gemm.cu): the NN and grouped forms accept and check
-explicit `block_m/n/k`, and, as on the TPU, the geometry does not change
-the result. The transposed forms take no blocks. The TPU's autotuner
-(parallel/autoshard.py::choose_blocks) is not ported.
+here and the result has the same [M, N] contract. The NN form's mainloop
+and split-K geometry come from the shape alone
+(systolic_gemm.py::nn_plan); the grouped and NT forms have one fixed
+tile. The NN and grouped forms accept and check explicit `block_m/n/k`,
+which, as on the TPU, do not change the result; the transposed forms take
+no blocks. The TPU's autotuner (parallel/autoshard.py::choose_blocks) is
+not ported.
 """
 
 from __future__ import annotations

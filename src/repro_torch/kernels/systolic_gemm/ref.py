@@ -8,6 +8,7 @@ import torch
 import torch.nn.functional as F
 
 from ...runtime import no_tf32
+from .systolic_gemm import splitk_ranges
 
 
 def _matmul_exact_int8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -46,6 +47,26 @@ def systolic_gemm_ref(x, w, scale=None, bias=None, *, activation=None,
     else:
         with no_tf32():
             acc = x.float() @ w.float()
+    return epilogue_ref(acc, scale, bias,
+                        activation=activation).to(out_dtype)
+
+
+def splitk_partials(x, w, splits: int) -> list[torch.Tensor]:
+    """The f32 partial products x[:, r] @ w[r] over the K ranges r that
+    the splitk mainloop's splits sum (systolic_gemm.splitk_ranges)."""
+    with no_tf32():
+        return [x[:, a:b].float() @ w[a:b].float()
+                for a, b in splitk_ranges(x.shape[1], splits)]
+
+
+def systolic_gemm_splitk_ref(x, w, scale=None, bias=None, *, splits: int,
+                             activation=None, out_dtype=torch.float32):
+    """The splitk mainloop's order of summation: its f32 partials added in
+    split order 0..splits-1, then the epilogue."""
+    parts = splitk_partials(x, w, splits)
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
     return epilogue_ref(acc, scale, bias,
                         activation=activation).to(out_dtype)
 

@@ -6,13 +6,20 @@ independent GEMMs x [G, M, K] @ w [G, K, N] in one launch: the MoE
 experts) check their inputs, allocate the output, launch the kernel on
 PyTorch's current stream and raise if the launch failed. They take only
 CUDA tensors: the plain version for CPU tensors is chosen in ops.py,
-never here. Each counts its own launches in `.launches`.
+never here. Each counts its own launches in `.launches`;
+`systolic_gemm_cuda.mainloop_launches` splits its count by mainloop.
+
+The NN form picks its mainloop by shape with `nn_plan`, a pure function
+the CPU tests read; the kernel takes the plan as plain ints.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -22,19 +29,109 @@ SOURCES = [Path(__file__).with_name("csrc") / "systolic_gemm.cu"]
 ACTIVATIONS = {None: 0, "relu": 1, "gelu": 2, "silu": 3, "relu2": 4}
 _IN_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAINLOOPS = {"wmma": 0, "splitk": 1, "wgmma": 2, "simt": 3}
+
+# The splitk mainloop (csrc: SK_BK): K advances in steps of 32 rows of w,
+# and a split keeps at least SPLITK_MIN_K of K. It aims for two blocks per
+# SM of an H100 SXM (132 SMs) in flight.
+SPLITK_MAX_M = 64
+SPLITK_K_STEP = 32
+SPLITK_MIN_K = 256
+SPLITK_TARGET_BLOCKS = 2 * 132
+WGMMA_BLOCK_N = 128     # the wgmma mainloop's tile is 128 x 128
+
+
+class NNPlan(NamedTuple):
+    mainloop: str        # "splitk", "wgmma", "wmma" or "simt"
+    splits: int          # K ranges summed apart (splitk, wgmma); else 1
+    block_n: int         # columns per splitk or wgmma block; else 0
+
+
+@functools.lru_cache(maxsize=1024)
+def nn_plan(M: int, N: int, K: int, dtype: torch.dtype,
+            aligned: bool) -> NNPlan:
+    """The NN form's mainloop for x [M, K] @ w [K, N] in `dtype`, with x
+    and w 16-byte aligned when `aligned`:
+
+    * splitk: bf16, M <= 64, K and N multiples of 8, aligned (decode);
+    * wgmma: bf16, M > 64, the same alignment, which TMA needs (prefill);
+    * wmma: every other bf16 shape (the ragged ones);
+    * simt: f32 and int8.
+
+    splitk and wgmma sum K in the same `splits` ranges, which depend on N
+    and K only, never on M, so a row's result is bit-equal at every M
+    (the kernel's header says why): the smallest power of two of K ranges
+    that brings splitk's blocks (strips of 128 columns, 64 where 128
+    cannot reach the target) to SPLITK_TARGET_BLOCKS while each range
+    keeps SPLITK_MIN_K of K; then the most ranges, up to that many, that
+    are all non-empty and each an even number of k-steps."""
+    if dtype != torch.bfloat16:
+        return NNPlan("simt", 1, 0)
+    if not (aligned and K % 8 == 0 and N % 8 == 0):
+        return NNPlan("wmma", 1, 0)
+    max_splits = max(1, K // SPLITK_MIN_K)
+    block_n = 128
+    if math.ceil(N / 128) * max_splits < SPLITK_TARGET_BLOCKS:
+        block_n = 64
+    strips = math.ceil(N / block_n)
+    splits = 1
+    while strips * splits < SPLITK_TARGET_BLOCKS and 2 * splits <= max_splits:
+        splits *= 2
+    # the most ranges, at most that many, none empty, each an even number
+    # of k-steps (wgmma adds the ranges between its 64-deep stages)
+    steps = math.ceil(K / SPLITK_K_STEP)
+    for s in range(splits, 0, -1):
+        per = math.ceil(steps / s)
+        if (s - 1) * per < steps and (s == 1 or per % 2 == 0):
+            splits = s
+            break
+    if M > SPLITK_MAX_M:
+        return NNPlan("wgmma", splits, WGMMA_BLOCK_N)
+    return NNPlan("splitk", splits, block_n)
+
+
+def splitk_ranges(K: int, splits: int) -> list[tuple[int, int]]:
+    """The [start, stop) of K that each split range of a splitk or wgmma
+    launch sums: as the kernel cuts them, ceil(steps / splits) k-steps
+    each."""
+    steps = math.ceil(K / SPLITK_K_STEP)
+    per = math.ceil(steps / splits)
+    return [(i * per * SPLITK_K_STEP, min(K, (i + 1) * per * SPLITK_K_STEP))
+            for i in range(splits)]
 
 
 def _lib() -> ctypes.CDLL:
     lib = build("systolic_gemm", SOURCES)
-    for fn in (lib.systolic_gemm_launch, lib.systolic_gemm_nt_launch):
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn = lib.systolic_gemm_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + \
+        [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    fn = lib.systolic_gemm_nt_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     fn = lib.grouped_systolic_gemm_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+# Per device: the split-K workspace (f32 partials, grown on demand) and the
+# strips' arrival counters (zeroed once here; every launch leaves them 0).
+_SPLITK_SCRATCH: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _splitk_scratch(device: torch.device, floats: int, strips: int):
+    ws, counters = _SPLITK_SCRATCH.get(device, (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(max(floats, 1 << 20), dtype=torch.float32,
+                         device=device)
+    if counters is None or counters.numel() < strips:
+        counters = torch.zeros(max(strips, 4096), dtype=torch.int32,
+                               device=device)
+    _SPLITK_SCRATCH[device] = (ws, counters)
+    return ws, counters
 
 
 def _check_vec(name: str, t: torch.Tensor, shape: tuple, device) -> None:
@@ -46,9 +143,10 @@ def _check_vec(name: str, t: torch.Tensor, shape: tuple, device) -> None:
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, scale, bias, activation,
-            out_dtype, form: str) -> torch.Tensor:
+            out_dtype, form: str) -> tuple[torch.Tensor, NNPlan | None]:
     """form: "nn" (x [M, K], w [K, N]), "nt" (w [N, K]) or "grouped"
-    (x [G, M, K], w [G, K, N], scale/bias [G, N])."""
+    (x [G, M, K], w [G, K, N], scale/bias [G, N]). Returns the output and,
+    for "nn", the plan it ran."""
     name = {"nn": "systolic_gemm_cuda", "nt": "systolic_gemm_nt_cuda",
             "grouped": "grouped_systolic_gemm_cuda"}[form]
     grouped = form == "grouped"
@@ -88,15 +186,28 @@ def _launch(x: torch.Tensor, w: torch.Tensor, scale, bias, activation,
             None if bias is None else bias.data_ptr(), out.data_ptr()]
     args += [G, M, N, K] if grouped else [M, N, K]
     args += [_IN_DTYPES[x.dtype], _OUT_DTYPES[out_dtype],
-             ACTIVATIONS[activation],
-             torch.cuda.current_stream(x.device).cuda_stream]
+             ACTIVATIONS[activation]]
+    plan = None
+    if form == "nn":
+        plan = nn_plan(M, N, K, x.dtype, x.data_ptr() % 16 == 0
+                       and w.data_ptr() % 16 == 0)
+        ws = counters = None
+        if plan.mainloop == "splitk" and plan.splits > 1:
+            strips = -(-N // plan.block_n)
+            ws, counters = _splitk_scratch(
+                x.device, strips * plan.block_n * plan.splits * M, strips)
+        args += [MAINLOOPS[plan.mainloop], plan.splits, plan.block_n,
+                 None if ws is None else ws.data_ptr(),
+                 None if counters is None else counters.data_ptr()]
+    args.append(torch.cuda.current_stream(x.device).cuda_stream)
     fn = {"nn": lib.systolic_gemm_launch, "nt": lib.systolic_gemm_nt_launch,
           "grouped": lib.grouped_systolic_gemm_launch}[form]
     rc = fn(*args)
     if rc != 0:
+        how = "" if plan is None else f", {plan}"
         raise RuntimeError(f"{name} kernel launch failed with CUDA error "
-                           f"{rc} (G={G} M={M} K={K} N={N}, {x.dtype})")
-    return out
+                           f"{rc} (G={G} M={M} K={K} N={N}, {x.dtype}{how})")
+    return out, plan
 
 
 def systolic_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
@@ -106,9 +217,12 @@ def systolic_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
                        out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """act((x @ w) * scale + bias) -> out_dtype on the card.
     x [M, K], w [K, N]: both float32, both bfloat16 or both int8,
-    contiguous, on one CUDA device. scale, bias: float32 [N] or None."""
-    out = _launch(x, w, scale, bias, activation, out_dtype, "nn")
+    contiguous, on one CUDA device. scale, bias: float32 [N] or None.
+    The mainloop is nn_plan's; a split-K launch uses this module's
+    per-device workspace, so launches on one device share one stream."""
+    out, plan = _launch(x, w, scale, bias, activation, out_dtype, "nn")
     systolic_gemm_cuda.launches += 1
+    systolic_gemm_cuda.mainloop_launches[plan.mainloop] += 1
     return out
 
 
@@ -121,7 +235,7 @@ def systolic_gemm_nt_cuda(x: torch.Tensor, w: torch.Tensor,
     """act((x @ w^T) * scale + bias) -> out_dtype on the card, with w
     [N, K] read in its stored layout (no transpose copy). Otherwise as
     systolic_gemm_cuda."""
-    out = _launch(x, w, scale, bias, activation, out_dtype, "nt")
+    out, _ = _launch(x, w, scale, bias, activation, out_dtype, "nt")
     systolic_gemm_nt_cuda.launches += 1
     return out
 
@@ -136,11 +250,12 @@ def grouped_systolic_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
     in one launch on the card. x [G, M, K], w [G, K, N] (one dtype as in
     systolic_gemm_cuda), scale, bias: float32 [G, N] or None. The kernel
     refuses G > 65535 (the grid's z limit), and this raises."""
-    out = _launch(x, w, scale, bias, activation, out_dtype, "grouped")
+    out, _ = _launch(x, w, scale, bias, activation, out_dtype, "grouped")
     grouped_systolic_gemm_cuda.launches += 1
     return out
 
 
 systolic_gemm_cuda.launches = 0
+systolic_gemm_cuda.mainloop_launches = dict.fromkeys(MAINLOOPS, 0)
 systolic_gemm_nt_cuda.launches = 0
 grouped_systolic_gemm_cuda.launches = 0

@@ -34,7 +34,7 @@ from repro_torch import TOLERANCES
 from repro_torch.bridge import params_from_jax
 from repro_torch.kernels.ssd import ops
 from repro_torch.kernels.ssd.ref import ssd_kernel_ref, ssd_ref
-from repro_torch.kernels.ssd.ssd import ssd_cuda
+from repro_torch.kernels.ssd.ssd import run_chunk, ssd_cuda
 from repro_torch.models.ssm import ssd_decode_step
 
 # tests/test_kernels.py::SSD_CASES: (b, S, H, P, G, N, chunk)
@@ -112,6 +112,22 @@ def test_ssd_kernel_ref_and_ssd_ref_agree_in_f32():
     y2, h2 = ssd_ref(*t, 64)
     tol = TOLERANCES["ssd_f32"]
     assert tol.ok(y1, y2) and tol.ok(h1, h2)
+
+
+def test_f32_sub_chunks_give_the_chunk_result():
+    """In f32 the kernel runs a chunk of 256 at mamba2's tiles (P 64, N
+    128) as 128-token sub-chunks, whose tiles fit a block's shared memory:
+    in f32 that is the same function. The plain version at chunk 128
+    agrees with itself at 256 and with the Pallas kernel (interpret mode)
+    at 256, y and the final state, within ssd_f32."""
+    j, t = _inputs((1, 512, 2, 64, 1, 128, 256), "float32", seed=8)
+    y256, h256 = ssd_kernel_ref(*t, chunk=256)
+    y128, h128 = ssd_kernel_ref(*t, chunk=128)
+    tol = TOLERANCES["ssd_f32"]
+    assert tol.ok(y128, y256) and tol.ok(h128, h256)
+    jy, jh = jops.ssd(*j, chunk=256, interpret=True)
+    _assert_close(y128, jy, tol)
+    _assert_close(h128, jh, tol)
 
 
 def test_mask_before_exp_keeps_long_chunks_finite():
@@ -226,17 +242,20 @@ def cuda_device():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_on_card(cuda_device, dtype):
     """ops.ssd on CUDA tensors (padding, then the kernel) against the
-    Pallas kernel's arithmetic, y and the final state."""
+    Pallas kernel's arithmetic, y and the final state; in f32 at mamba2's
+    tiles too (the kernel's sub-chunks)."""
     before = ssd_cuda.launches
     for case in SSD_CASES + [(2, 600, 8, 64, 2, 128, 256)]:
-        if dtype == "float32" and case[3] * case[5] > 32 * 64:
-            continue                       # f32 tiles past shared memory
         _, t = _inputs(case, dtype)
         t = tuple(a.to(cuda_device) for a in t)
         y, h = ops.ssd(*t, chunk=case[-1])
-        ry, rh = ssd_kernel_ref(*t, chunk=case[-1])
+        # the plain version at the chunk the kernel runs (f32 sub-chunks)
+        ry, rh = ssd_kernel_ref(*t, chunk=run_chunk(case[-1], case[3],
+                                                    case[5], t[0].dtype))
         torch.cuda.synchronize()
         tol = _tols(dtype)[0]
+        if dtype == "float32" and case[-1] >= 128:
+            tol = TOLERANCES["ssd_f32_rows"]   # mamba2-sized f32 chunks
         assert tol.ok(y.float(), ry.float()) and tol.ok(h.float(), rh.float())
     assert ssd_cuda.launches > before
 

@@ -6,8 +6,13 @@ oracle `systolic_gemm_ref`, over f32/bf16/int8 x every activation x ragged
 M/K/N. The transposed-weight form (`systolic_gemm_t`, w [N, K]: the tied LM
 head) is held the same way against JAX's `systolic_gemm_t`. Tolerances
 come from `repro_torch.TOLERANCES` (the values of tests/test_kernels.py);
-int8 accumulation without an epilogue must be exact. The Hopper kernels
-themselves run only on the card.
+int8 accumulation without an epilogue must be exact.
+
+The NN form's mainloop plan (`nn_plan`) is pure Python and is held here to
+its rules at granite-8b's and dbrx-132b's served shapes, and the splitk
+mainloop's order of summation, emulated in plain torch, against the Pallas
+kernel. The Hopper kernels themselves run only on the card (the
+gpu-marked tests: `python -m pytest -m gpu tests/test_torch_*.py` there).
 """
 
 import jax.numpy as jnp
@@ -21,10 +26,13 @@ from repro.kernels.systolic_gemm.ref import systolic_gemm_t_ref as jax_t_ref
 from repro_torch import TOLERANCES
 from repro_torch.bridge import params_from_jax
 from repro_torch.kernels.systolic_gemm import ops
-from repro_torch.kernels.systolic_gemm.ref import (systolic_gemm_ref,
+from repro_torch.kernels.systolic_gemm.ref import (splitk_partials,
+                                                   systolic_gemm_ref,
+                                                   systolic_gemm_splitk_ref,
                                                    systolic_gemm_t_ref)
 from repro_torch.kernels.systolic_gemm.systolic_gemm import (
-    systolic_gemm_cuda, systolic_gemm_nt_cuda)
+    SPLITK_K_STEP, nn_plan, splitk_ranges, systolic_gemm_cuda,
+    systolic_gemm_nt_cuda)
 
 SHAPES = [(1, 1, 1), (33, 57, 29), (100, 130, 70), (5, 260, 130)]
 ACTS = [None, "relu", "gelu", "silu", "relu2"]
@@ -180,6 +188,92 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         systolic_gemm_nt_cuda(x, w.t().contiguous())
 
 
+# (K, N) of every pod GEMM the served models run: granite-8b's q, k/v, o,
+# gate/up, down and head; dbrx-132b's q/o, k/v and untied head
+SERVED_KN = {"granite-8b": [(4096, 4096), (4096, 1024), (4096, 14336),
+                            (14336, 4096), (4096, 49152)],
+             "dbrx-132b": [(6144, 6144), (6144, 1024), (6144, 100352)]}
+# decode lanes (1, 4), dbrx's exact-length prefills (29, 64, 65, 1277) and
+# granite's bucketed prefills ([4, 256] and [4, 2048])
+SERVED_M = [1, 4, 29, 64, 65, 1024, 1277, 8192]
+
+
+@pytest.mark.parametrize("arch", list(SERVED_KN))
+def test_nn_plan_puts_served_shapes_on_splitk_or_wgmma(arch):
+    """bf16, TMA-aligned: M <= 64 on splitk, M > 64 on wgmma, never wmma;
+    the split ranges (so the order of summation) the same at every M."""
+    for K, N in SERVED_KN[arch]:
+        decode = nn_plan(1, N, K, torch.bfloat16, True)
+        for M in SERVED_M:
+            plan = nn_plan(M, N, K, torch.bfloat16, True)
+            assert plan.splits == decode.splits, (M, K, N)
+            if M <= 64:
+                assert plan == decode and plan.mainloop == "splitk", (M, K, N)
+            else:
+                assert plan == ("wgmma", decode.splits, 128), (M, K, N)
+
+
+def test_nn_plan_other_shapes():
+    """The ragged case and misaligned pointers stay on wmma; f32 and int8
+    on simt."""
+    assert nn_plan(37, 130, 100, torch.bfloat16, True).mainloop == "wmma"
+    assert nn_plan(4, 4096, 4096, torch.bfloat16, False).mainloop == "wmma"
+    assert nn_plan(4, 4096, 4100, torch.bfloat16, True).mainloop == "wmma"
+    assert nn_plan(1024, 4100, 4096, torch.bfloat16, True).mainloop == "wmma"
+    for dtype in (torch.float32, torch.int8):
+        assert nn_plan(4, 4096, 4096, dtype, True).mainloop == "simt"
+
+
+@pytest.mark.parametrize("K", [8, 256, 520, 4096, 4104, 6144, 14336])
+def test_splitk_ranges_cover_k_in_whole_k_steps(K):
+    """Every split range is non-empty, starts on a k-step and, but for the
+    last, spans an even number of k-steps (whole 64-deep wgmma stages);
+    together they cover [0, K) in order."""
+    for N in (8, 1024, 1032, 4096, 49152):
+        plan = nn_plan(4, N, K, torch.bfloat16, True)
+        ranges = splitk_ranges(K, plan.splits)
+        assert ranges[0][0] == 0 and ranges[-1][1] == K
+        for (a, b), (c, _) in zip(ranges, ranges[1:] + [(K, K)]):
+            assert a < b and b == c and a % SPLITK_K_STEP == 0
+            assert b == K or (b - a) % (2 * SPLITK_K_STEP) == 0
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N,splits", [(4, 520, 72, 3), (29, 256, 40, 8),
+                                          (64, 200, 16, 2)])
+def test_splitk_summation_order_matches_jax(M, K, N, splits, out_dtype):
+    """f32 partials per K range, added in split order, then the epilogue:
+    within gemm_bf16_f32out / gemm_bf16out of the Pallas kernel."""
+    rng = np.random.default_rng(M + K)
+    (jx, jw, js, jb), (tx, tw, ts, tb) = _inputs(rng, M, K, N, "bfloat16")
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[out_dtype]
+    tdt = getattr(torch, out_dtype)
+    pallas = jops.systolic_gemm(jx, jw, js, jb, activation="silu",
+                                out_dtype=jdt, interpret=True)
+    got = systolic_gemm_splitk_ref(tx, tw, ts, tb, splits=splits,
+                                   activation="silu", out_dtype=tdt)
+    assert got.dtype == tdt
+    _assert_close(got, pallas, TOLERANCES["gemm_bf16_f32out"
+                                          if out_dtype == "float32"
+                                          else "gemm_bf16out"])
+    assert len(splitk_partials(tx, tw, splits)) == splits
+
+
+def test_splitk_controls_fail_the_card_tolerance():
+    """chip_smoke.py's split-K controls at a CPU size: the last split's
+    partial left out, and each k-step read with the previous step's w
+    tile, both miss gemm_bf16_f32out; the emulation itself does not."""
+    import chip_smoke
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((4, 1024), generator=g).to(torch.bfloat16)
+    w = (torch.randn((1024, 256), generator=g) / 32).to(torch.bfloat16)
+    ref = systolic_gemm_ref(x, w)
+    tol = TOLERANCES["gemm_bf16_f32out"]
+    assert tol.ok(systolic_gemm_splitk_ref(x, w, splits=4), ref)
+    assert not tol.ok(chip_smoke.last_split_dropped(x, w, 4), ref)
+    assert not tol.ok(chip_smoke.stale_w_tile(x, w, SPLITK_K_STEP), ref)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -216,3 +310,33 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, transposed):
                    else _tol("float32" if dtype == torch.float32 else "int8",
                              act))
             assert tol.ok(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_new_mainloops_match_plain_on_card(cuda_device, out_dtype):
+    """splitk and wgmma at ragged M, N and K (N and K multiples of 8, not
+    of a tile), with scale, bias and SiLU, against the plain version; each
+    shape takes the mainloop nn_plan names."""
+    g = torch.Generator(cuda_device).manual_seed(1)
+    tol = TOLERANCES["gemm_bf16_f32out" if out_dtype == torch.float32
+                     else "gemm_bf16out"]
+    for M, K, N, mainloop in [(29, 4104, 1032, "splitk"),
+                              (4, 4104, 4096, "splitk"),
+                              (65, 520, 136, "wgmma"),
+                              (1277, 4104, 1032, "wgmma")]:
+        assert nn_plan(M, N, K, torch.bfloat16, True).mainloop == mainloop
+        x = torch.randn((M, K), generator=g, device=cuda_device).bfloat16()
+        w = (torch.randn((K, N), generator=g, device=cuda_device)
+             / K ** 0.5).bfloat16()
+        scale = torch.rand(N, generator=g, device=cuda_device) + 0.5
+        bias = torch.randn(N, generator=g, device=cuda_device)
+        before = dict(systolic_gemm_cuda.mainloop_launches)
+        got = systolic_gemm_cuda(x, w, scale, bias, activation="silu",
+                                 out_dtype=out_dtype)
+        ref = systolic_gemm_ref(x, w, scale, bias, activation="silu",
+                                out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert tol.ok(got, ref), (M, K, N, tol.excess(got, ref))
+        assert systolic_gemm_cuda.mainloop_launches[mainloop] == \
+            before[mainloop] + 1
