@@ -20,10 +20,17 @@ Phases, one JSON line each; any failure exits non-zero:
                controls (the last split's partial left out; each k-step's
                products taken with the previous step's w tile) must fail.
                A row's result must be bit-equal at M = 256, 65, 57, 4 and
-               1 (wgmma and splitk sum K in one order).
+               1 (wgmma and splitk sum K in one order), in the NN form at
+               granite's q and dbrx's k and in the NT form at mamba2's
+               head; and in the grouped form at dbrx's up projection (G =
+               16) at M = 399, 320, 129 and 65, all on wgmma.
   3. gemm_nt - the same for the transposed-weight kernel (w [N, K], the
                tied LM head), with mamba2's head [4, 1024] x [50280, 1024]^T
-               among the shapes (a 104-column ragged tail).
+               among the shapes (a 104-column ragged tail) and its NT
+               mainloop edges (wgmma at M = 65, 129, 300, 1277; splitk at
+               4 and 29; K = 4104 split 13 ways on both); the two split-K
+               controls, planted on w [N, K], must fail at mamba2's head
+               and at the 13-way split.
   4. flash   - the flash-attention kernel against its plain version:
                f32/bf16 x the cases of tests/test_kernels.py, granite-8b's
                and dbrx-132b's heads (48 over 8 at its longest and
@@ -47,14 +54,16 @@ Phases, one JSON line each; any failure exits non-zero:
                one-ulp tolerance.
   6. grouped - the grouped pod-GEMM kernel (the MoE experts) against its
                plain version: f32/bf16/int8 x every activation x ragged
-               shapes x f32/bf16 out with per-group scale and bias, an
-               all-zero group exactly 0, G = 1 equal to the pod-GEMM kernel
-               where both run wmma (within tolerance of it where the NN
-               launch runs splitk or wgmma),
-               and dbrx-132b's served shapes ([16, 1, 6144] x [16, 6144,
-               10752], the down [16, 1, 10752] x [16, 10752, 6144], M = 320
-               and 399 rows per expert). Two planted controls (sums in bf16,
-               group g+1 reading group g's weights) must fail.
+               shapes x f32/bf16 out with per-group scale and bias (G > 1
+               on wgmma at M = 65 and 129 too), an all-zero group exactly
+               0, G = 1 equal to the pod-GEMM kernel bit for bit where
+               both run one mainloop (wmma, simt or wgmma; within
+               tolerance where the NN launch runs splitk and the grouped
+               one wmma), and dbrx-132b's served shapes ([16, 1, 6144] x
+               [16, 6144, 10752], the down [16, 1, 10752] x [16, 10752,
+               6144], M = 320 and 399 rows per expert, up and down). Two
+               planted controls (sums in bf16, group g+1 reading group g's
+               weights) must fail.
   7. serve   - granite-8b at full width and depth (random weights from a
                seeded torch.Generator, bf16) served by ServeEngine; every
                request must finish with valid tokens, and the pod-GEMM
@@ -84,9 +93,10 @@ Phases, one JSON line each; any failure exits non-zero:
                Model(ssd_impl="pallas", use_pallas=True), served by
                ServeEngine(slots 4, max_len 2048, decode_chunk 8) on the
                paged phase's prompts: every request done, one NT-GEMM
-               launch per forward, 48 SSD launches per prefill and none per
-               decode step, no other kernel, one host sync per prefill
-               group and decode chunk.
+               launch per forward, each on splitk (decode) or wgmma
+               (prefill), 48 SSD launches per prefill and none per decode
+               step, no other kernel, one host sync per prefill group and
+               decode chunk.
  12. ssm_oracle - the same requests through the per-token ReferenceEngine:
                agreement reported at 48 layers, the margin rule held on
                ORACLE_LAYERS layers of the same weights.
@@ -95,9 +105,11 @@ Phases, one JSON line each; any failure exits non-zero:
                use_pallas=True), served by ServeEngine(slots 4, max_len
                2048, decode_chunk 8) on the paged phase's prompts with
                exact-length prefill: every request done, 8 prefills of
-               [1, S], 24 grouped and 33 pod-GEMM launches per forward, 8
-               flash launches per prefill and none per decode step, no NT
-               or SSD launch, one host sync per prefill and decode chunk.
+               [1, S], 24 grouped and 33 pod-GEMM launches per forward, the
+               grouped ones on wgmma where a prefill gives an expert more
+               than 64 rows and on wmma otherwise, 8 flash launches per
+               prefill and none per decode step, no NT or SSD launch, one
+               host sync per prefill and decode chunk.
  14. moe_oracle - the first 4 of those requests through a fresh ServeEngine
                and the per-token ReferenceEngine: every decode batch is
                fully live in both, so capacity coupling through dead lanes
@@ -106,7 +118,9 @@ Phases, one JSON line each; any failure exits non-zero:
                batch on ORACLE_LAYERS layers of the same weights.
  15. kernels - each kernel's time at the served shapes beside its bound,
                its plain version and one PyTorch call (a yardstick only);
-               the pod GEMM at granite-8b's and dbrx-132b's shapes.
+               the pod GEMM at granite-8b's and dbrx-132b's shapes, the NT
+               head up to a [4, 2048] prefill, the grouped experts' up and
+               down at M = 320; launches by mainloop from the served runs.
 
 The last lines are the card's name and power limit, the kernels line, and
 {"ok": true, "device": {...}}.
@@ -143,6 +157,7 @@ from repro_torch.kernels.systolic_gemm import systolic_gemm as sg  # noqa: E402
 from repro_torch.kernels.systolic_gemm.ref import (  # noqa: E402
     epilogue_ref, grouped_systolic_gemm_ref, splitk_partials, systolic_gemm_ref,
     systolic_gemm_t_ref)
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.layers import (apply_norm, apply_rope, embed,  # noqa: E402
                                        pod_dense)
 from repro_torch.runtime import no_tf32  # noqa: E402
@@ -271,22 +286,26 @@ def bf16_summed(x, w, k_step: int = 16) -> torch.Tensor:
 # splits of 10, the last of 9), at M = 4 and 29 rows
 KERNEL_EDGES = [(65, 1024, 1032), (129, 4104, 4096), (1277, 4104, 1032),
                 (1000, 4104, 4104), (4, 4104, 4096), (29, 4104, 1032)]
-# granite-8b's q and head at decode: where the split-K controls must fail
-SPLITK_CONTROL_SHAPES = [(4, 4096, 4096), (4, 4096, 49152)]
+# where the split-K controls must fail, (M, K, N) at decode: NN at
+# granite-8b's q and head; NT at mamba2's head (one split) and where 129
+# k-steps split 13 ways, the last range short
+SPLITK_CONTROL_SHAPES = {"nn": [(4, 4096, 4096), (4, 4096, 49152)],
+                         "nt": [(4, 1024, 50280), (4, 4104, 1032)]}
 
 
 def phase_kernel() -> None:
     """A ragged small case, granite-8b's shapes, and dbrx-132b's q/o, k/v
     and untied head at decode (M = 4 lanes) and at its longest served
     exact-length prefill (M = 1277 rows, a prime); the mainloop edges of
-    KERNEL_EDGES; then the split-K controls."""
+    KERNEL_EDGES; then the split-K controls and the row checks of every
+    form."""
     gemm_phase("kernel", sg.systolic_gemm_cuda, systolic_gemm_ref,
                [(37, 100, 130), (1, 4096, 14336), (5, 4096, 49152),
                 (4, 6144, 6144), (4, 6144, 1024), (4, 6144, 100352),
                 (1277, 6144, 6144), (1277, 6144, 1024),
                 (1277, 6144, 100352)] + KERNEL_EDGES,
                transposed=False, seed=1)
-    splitk_controls(seed=14)
+    splitk_controls("nn", seed=14)
     rows_independent_of_m(seed=15)
 
 
@@ -309,54 +328,78 @@ def stale_w_tile(x, w, k_step: int) -> torch.Tensor:
         return x.float() @ shifted.float()
 
 
-# (K, N): granite-8b's q and dbrx-132b's k projections; rows M of x
-ROW_CHECK_SHAPES = [(4096, 4096), (6144, 1024)]
+# (form, G, K, N, rows M of x, the largest first): granite-8b's q and
+# dbrx-132b's k projections (NN: wgmma at 256 and 65, splitk at 57, 4
+# and 1), mamba2-370m's tied head (NT, the same), dbrx's up projection
+# over its 16 experts (grouped: wgmma at every M, its ragged capacities)
 ROW_CHECK_MS = (256, 65, 57, 4, 1)
+ROW_CHECKS = [("nn", 1, 4096, 4096, ROW_CHECK_MS),
+              ("nn", 1, 6144, 1024, ROW_CHECK_MS),
+              ("nt", 1, 1024, 50280, ROW_CHECK_MS),
+              ("grouped", 16, 6144, 10752, (399, 320, 129, 65))]
+KERNELS = {"nn": sg.systolic_gemm_cuda, "nt": sg.systolic_gemm_nt_cuda,
+           "grouped": sg.grouped_systolic_gemm_cuda}
 
 
 def rows_independent_of_m(seed: int) -> None:
     """A row's result must not depend on M, across mainloops: the first M
-    rows of x at M = 256 and 65 (wgmma) and 57, 4 and 1 (splitk) give
-    bit-equal outputs, as the engine (bucketed prefill, M = 4 x bucket;
-    decode, M = 4) and the per-token oracle (M = S; M = 1) need."""
+    rows of x (of every group) give bit-equal outputs, as the engine
+    (bucketed prefill, M = 4 x bucket; decode, M = 4) and the per-token
+    oracle (M = S; M = 1) need, and as dbrx's experts see capacities that
+    change with the prompt."""
     g = torch.Generator("cuda").manual_seed(seed)
     rows, failures = [], []
-    for K, N in ROW_CHECK_SHAPES:
-        x, w = gemm_inputs(max(ROW_CHECK_MS), K, N, torch.bfloat16, g)
+    for form, G, K, N, Ms in ROW_CHECKS:
+        kernel = KERNELS[form]
+        if form == "grouped":
+            x, w = grouped_inputs(G, max(Ms), K, N, torch.bfloat16, g)
+        else:
+            x, w = gemm_inputs(max(Ms), K, N, torch.bfloat16, g,
+                               transposed=form == "nt")
         for out_dtype in (torch.float32, torch.bfloat16):
-            full = sg.systolic_gemm_cuda(x, w, out_dtype=out_dtype)
-            for M in ROW_CHECK_MS[1:]:
-                part = sg.systolic_gemm_cuda(x[:M].contiguous(), w,
-                                             out_dtype=out_dtype)
+            full = kernel(x, w, out_dtype=out_dtype)
+            for M in Ms[1:]:
+                part = kernel(x[..., :M, :].contiguous(), w,
+                              out_dtype=out_dtype)
                 torch.cuda.synchronize()
-                row = {"K": K, "N": N, "M": M, "out": str(out_dtype)[6:],
-                       "mainloops": [sg.nn_plan(m, N, K, torch.bfloat16,
-                                                True).mainloop
-                                     for m in (max(ROW_CHECK_MS), M)],
-                       "bit_equal": torch.equal(part, full[:M])}
+                row = {"form": form, "G": G, "K": K, "N": N, "M": M,
+                       "out": str(out_dtype)[6:],
+                       "mainloops": [sg.gemm_plan(form, m, N, K,
+                                                  torch.bfloat16,
+                                                  True).mainloop
+                                     for m in (max(Ms), M)],
+                       "bit_equal": torch.equal(part, full[..., :M, :])}
                 if not row["bit_equal"]:
                     failures.append(f"rows depend on M: {row}")
                 rows.append(row)
+            del full
+        del x, w
     emit("kernel_rows", rows=rows, failures=failures)
     check(not failures, f"{len(failures)} row-independence checks failed")
 
 
-def splitk_controls(seed: int) -> None:
-    """At granite's q and head (M = 4, bf16, both output types): the
-    kernel within tolerance, both split-K controls outside it."""
+def splitk_controls(form: str, seed: int) -> None:
+    """At SPLITK_CONTROL_SHAPES[form] (bf16, both output types): the
+    kernel within tolerance, both split-K controls outside it (NT's w
+    [N, K] planted through its [K, N] view)."""
     g = torch.Generator("cuda").manual_seed(seed)
+    nt = form == "nt"
+    kernel, plain = ((sg.systolic_gemm_nt_cuda, systolic_gemm_t_ref) if nt
+                     else (sg.systolic_gemm_cuda, systolic_gemm_ref))
     rows, failures = [], []
-    for (M, K, N) in SPLITK_CONTROL_SHAPES:
-        x, w = gemm_inputs(M, K, N, torch.bfloat16, g)
-        plan = sg.nn_plan(M, N, K, torch.bfloat16, True)
-        planted = {"last_split_dropped": last_split_dropped(x, w, plan.splits),
-                   "stale_w_tile": stale_w_tile(x, w, sg.SPLITK_K_STEP)}
+    for (M, K, N) in SPLITK_CONTROL_SHAPES[form]:
+        x, w = gemm_inputs(M, K, N, torch.bfloat16, g, transposed=nt)
+        wkn = w.t() if nt else w
+        plan = sg.gemm_plan(form, M, N, K, torch.bfloat16, True)
+        planted = {"last_split_dropped": last_split_dropped(x, wkn,
+                                                            plan.splits),
+                   "stale_w_tile": stale_w_tile(x, wkn, sg.SPLITK_K_STEP)}
         for out_dtype in (torch.float32, torch.bfloat16):
             tol = tolerance(torch.bfloat16, out_dtype, None)
-            got = sg.systolic_gemm_cuda(x, w, out_dtype=out_dtype)
-            ref = systolic_gemm_ref(x, w, out_dtype=out_dtype)
+            got = kernel(x, w, out_dtype=out_dtype)
+            ref = plain(x, w, out_dtype=out_dtype)
             torch.cuda.synchronize()
-            row = {"shape": [M, K, N], "plan": list(plan),
+            row = {"form": form, "shape": [M, K, N], "plan": list(plan),
                    "out": str(out_dtype)[6:], "kernel": tol.excess(got, ref)}
             if not row["kernel"] <= 1.0:
                 failures.append(f"kernel disagrees with plain {row}")
@@ -365,16 +408,30 @@ def splitk_controls(seed: int) -> None:
                 if not row[name] > 1.0:
                     failures.append(f"{name} control passes {row}")
             rows.append(row)
-    emit("kernel_controls", rows=rows, failures=failures)
-    check(not failures, f"{len(failures)} split-K control checks failed")
+    emit("kernel_controls" if form == "nn" else f"{form}_controls",
+         rows=rows, failures=failures)
+    check(not failures, f"{len(failures)} {form} split-K control checks "
+                        f"failed")
+
+
+# (M, K, N) of the NT form at mamba2's head (K 1024, N 50280: a 104-column
+# tail past the last 128-wide tile): wgmma one row past a 64-row half (65)
+# and a 128-row tile (129), at 300 and at 1277 (prime); splitk at 4 and
+# 29 rows. Where the 129 k-steps of K = 4104 split 13 ways (the last
+# range short): splitk at 29 rows, wgmma at 1277.
+NT_EDGES = [(65, 1024, 50280), (129, 1024, 50280), (300, 1024, 50280),
+            (1277, 1024, 50280), (29, 1024, 50280), (29, 4104, 1032),
+            (1277, 4104, 1032)]
 
 
 def phase_gemm_nt() -> None:
-    """mamba2's tied head at decode, [4, 1024] x [50280, 1024]^T, and a
-    ragged prefill-sized M with a ragged K."""
+    """mamba2's tied head at decode, [4, 1024] x [50280, 1024]^T, a ragged
+    prefill-sized M with a ragged K (wmma), the mainloop edges of
+    NT_EDGES; then the NT split-K controls."""
     gemm_phase("gemm_nt", sg.systolic_gemm_nt_cuda, systolic_gemm_t_ref,
-               [(37, 100, 130), (4, 1024, 50280), (300, 1000, 50280)],
-               transposed=True, seed=5)
+               [(37, 100, 130), (4, 1024, 50280), (300, 1000, 50280)]
+               + NT_EDGES, transposed=True, seed=5)
+    splitk_controls("nt", seed=16)
 
 
 def gemm_phase(phase: str, kernel, plain, shapes, *, transposed: bool,
@@ -390,9 +447,9 @@ def gemm_phase(phase: str, kernel, plain, shapes, *, transposed: bool,
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
         for (M, K, N) in shapes:
             x, w = gemm_inputs(M, K, N, dtype, g, transposed)
-            if not transposed:
-                plan = sg.nn_plan(M, N, K, dtype, True)
-                mainloops[f"{str(dtype)[6:]} {M}x{K}x{N}"] = list(plan)
+            plan = sg.gemm_plan("nt" if transposed else "nn", M, N, K, dtype,
+                                True)
+            mainloops[f"{str(dtype)[6:]} {M}x{K}x{N}"] = list(plan)
             scale = torch.rand(N, generator=g, device="cuda") + 0.5
             bias = torch.randn(N, generator=g, device="cuda")
             for act in sg.ACTIVATIONS:
@@ -868,17 +925,22 @@ def worst_row(got, ref, tol, chunk: int) -> dict:
 # 6. grouped pod GEMM vs plain
 # --------------------------------------------------------------------------
 
-# G, M, K, N: ragged, decode-like (M = 1), and G = 1: ragged (both
-# launches on wmma), and TMA-aligned at M = 4 and 96, where the NN launch
-# runs splitk and wgmma
-GROUPED_CASES = [(3, 37, 100, 130), (5, 1, 260, 70), (1, 33, 64, 65),
-                 (1, 4, 512, 136), (1, 96, 256, 136)]
+# G, M, K, N: ragged, decode-like (M = 1); TMA-aligned G > 1 on wgmma at
+# ragged M (one row past a 64-row half and a 128-row tile; N not a tile
+# multiple, K = 1032 not a stage multiple); and G = 1: ragged (both
+# launches on wmma), and TMA-aligned at M = 4 (grouped wmma, NN splitk)
+# and 96 (both wgmma)
+GROUPED_CASES = [(3, 37, 100, 130), (5, 1, 260, 70), (3, 65, 256, 136),
+                 (4, 129, 1032, 264), (1, 33, 64, 65), (1, 4, 512, 136),
+                 (1, 96, 256, 136)]
 # dbrx-132b's expert GEMMs: decode (M = 1 row per expert), the down
 # projection, a 1024-token prefill (8 groups x capacity 40 = 320 rows per
-# expert) and the 1277-token prompt (prime: one group of capacity 399)
+# expert) and the 1277-token prompt (prime: one group of capacity 399),
+# up and down
 GROUPED_SERVED = [(16, 1, 6144, 10752, "silu"), (16, 1, 10752, 6144, None),
                   (16, 320, 6144, 10752, "silu"), (16, 399, 6144, 10752,
-                                                   None)]
+                                                   None),
+                  (16, 399, 10752, 6144, None)]
 
 
 def grouped_inputs(G, M, K, N, dtype, g):
@@ -898,7 +960,9 @@ def phase_grouped() -> None:
     at or below 1; both controls' must exceed it where they differ from the
     plain version (bf16 sums: every f32/bf16 case without an epilogue; the
     group stride: every case with G > 1). The middle group of each case
-    with G > 1 is all zero with a zero bias and must come out exactly 0."""
+    with G > 1 is all zero with a zero bias and must come out exactly 0.
+    G = 1 must equal the NN launch bit for bit where both run one mainloop
+    (wmma, simt or wgmma: one order of summation)."""
     g = torch.Generator("cuda").manual_seed(11)
     cases, failures = 0, []
     worst: dict[str, dict] = {}
@@ -921,9 +985,12 @@ def phase_grouped() -> None:
         if not c > 1.0:
             failures.append(f"{name} control passes {case} excess={c}")
 
+    mainloops = {}
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
         for (G, M, K, N) in GROUPED_CASES:
             x, w = grouped_inputs(G, M, K, N, dtype, g)
+            plan = sg.gemm_plan("grouped", M, N, K, dtype, True)
+            mainloops[f"{str(dtype)[6:]} {G}x{M}x{K}x{N}"] = list(plan)
             scale = torch.rand((G, N), generator=g, device="cuda") + 0.5
             bias = torch.randn((G, N), generator=g, device="cuda")
             if G > 1:                            # an expert with no token
@@ -954,18 +1021,20 @@ def phase_grouped() -> None:
                         planted("bf16_summed",
                                 tol.excess(summed.to(out_dtype), ref), case)
                     if G == 1:
-                        # bit-equal where both launches run the wmma (or
-                        # simt) mainloop; splitk and wgmma sum in another
-                        # order, so there within the case's tolerance
+                        # bit-equal where both launches run one mainloop
+                        # (wmma, simt, or wgmma in NN's split ranges); the
+                        # NN splitk sums in another order than grouped
+                        # wmma, so there within the case's tolerance
                         one = sg.systolic_gemm_cuda(
                             x[0], w[0], *(t if t is None else t[0]
                                           for t in sb),
                             activation=act, out_dtype=out_dtype)
                         nn = sg.nn_plan(M, N, K, dtype, True).mainloop
-                        if nn in ("wmma", "simt"):
+                        if nn == plan.mainloop:
                             if not torch.equal(got[0], one):
                                 failures.append(f"G = 1 differs from the "
-                                                f"pod GEMM kernel {case}")
+                                                f"pod GEMM kernel ({nn}) "
+                                                f"{case}")
                         elif not tol.ok(got[0], one):
                             failures.append(f"G = 1 beyond {tol} of the pod "
                                             f"GEMM kernel ({nn}) {case}")
@@ -987,11 +1056,12 @@ def phase_grouped() -> None:
             summed = torch.stack([bf16_summed(x[i], w[i]) for i in range(G)])
             planted("bf16_summed", tol.excess(summed.to(torch.bfloat16), ref),
                     case)
-        served.append([G, M, K, N, act, tol.excess(got, ref)])
+        served.append([G, M, K, N, act, list(sg.gemm_plan(
+            "grouped", M, N, K, torch.bfloat16, True)), tol.excess(got, ref)])
         cases += 1
         del x, w, got, ref
     emit("grouped", cases=cases, worst=worst, control_min_excess=control,
-         served=served, failures=failures)
+         served=served, mainloops=mainloops, failures=failures)
     check(not failures, f"{len(failures)} grouped checks failed")
 
 
@@ -1028,7 +1098,7 @@ def phase_serve(model, params):
     syncs0 = HOST_SYNCS.count
     wall = serve(eng, reqs)
     launches = sg.systolic_gemm_cuda.launches
-    by_mainloop = nn_mainloops("serve")
+    by_mainloop = hopper_mainloops("serve")
     syncs = HOST_SYNCS.count - syncs0
     st = eng.stats
     for r in reqs:
@@ -1172,7 +1242,7 @@ def phase_serve_paged(model, params):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     gemm_launches = sg.systolic_gemm_cuda.launches
-    by_mainloop = nn_mainloops("serve_paged")
+    by_mainloop = hopper_mainloops("serve_paged")
     flash_launches = fa.flash_attention_cuda.launches
     syncs = HOST_SYNCS.count - syncs0
     st = eng.stats
@@ -1318,17 +1388,20 @@ def reset_launch_counts() -> None:
                sg.grouped_systolic_gemm_cuda, fa.flash_attention_cuda,
                ssd_mod.ssd_cuda):
         fn.launches = 0
-    sg.systolic_gemm_cuda.mainloop_launches = dict.fromkeys(sg.MAINLOOPS, 0)
+    for fn in KERNELS.values():
+        fn.mainloop_launches = dict.fromkeys(sg.MAINLOOPS, 0)
 
 
-def nn_mainloops(phase: str) -> dict:
-    """The pod-GEMM launches of a served run by mainloop: every one on
-    splitk or wgmma (bf16, TMA-aligned shapes), none on wmma or simt."""
-    by = dict(sg.systolic_gemm_cuda.mainloop_launches)
+def hopper_mainloops(phase: str, form: str = "nn") -> dict:
+    """The NN (or NT) pod-GEMM launches of a served run by mainloop: every
+    one on splitk or wgmma (bf16, TMA-aligned shapes), none on wmma or
+    simt."""
+    fn = KERNELS[form]
+    by = dict(fn.mainloop_launches)
     check(by["wmma"] == 0 and by["simt"] == 0 and
-          sum(by.values()) == sg.systolic_gemm_cuda.launches,
-          f"{phase}: pod-GEMM launches by mainloop {by}, total "
-          f"{sg.systolic_gemm_cuda.launches}")
+          sum(by.values()) == fn.launches,
+          f"{phase}: {form} pod-GEMM launches by mainloop {by}, total "
+          f"{fn.launches}")
     return by
 
 
@@ -1357,6 +1430,8 @@ def phase_serve_ssm(model, params):
                 "gemm_nt": sg.systolic_gemm_nt_cuda.launches,
                 "flash": fa.flash_attention_cuda.launches,
                 "ssd": ssd_mod.ssd_cuda.launches}
+    # every head on splitk (decode) or wgmma (prefill over 4 x bucket rows)
+    launches["gemm_nt_by_mainloop"] = hopper_mainloops("serve_ssm", "nt")
     syncs = HOST_SYNCS.count - syncs0
     st = eng.stats
     for r in reqs:
@@ -1457,7 +1532,9 @@ def phase_serve_moe(model, params):
     finally:
         del model.prefill
     launches = launch_counts()
-    launches["pod_gemm_by_mainloop"] = nn_mainloops("serve_moe")
+    launches["pod_gemm_by_mainloop"] = hopper_mainloops("serve_moe")
+    launches["grouped_by_mainloop"] = grouped_by = dict(
+        sg.grouped_systolic_gemm_cuda.mainloop_launches)
     syncs = HOST_SYNCS.count - syncs0
     peak = torch.cuda.max_memory_allocated()
     st = eng.stats
@@ -1484,6 +1561,15 @@ def phase_serve_moe(model, params):
     check(launches["flash"] == L * st["prefill_calls"],
           f"flash launches {launches['flash']} != {L} x "
           f"{st['prefill_calls']} prefill calls (none per decode step)")
+    # rows per expert of each prefill (the routing's groups x capacity):
+    # the experts of those past 64 rows on wgmma, every other on wmma
+    rows = [expert_rows(cfg, s) for s in (len(r.prompt) for r in reqs)]
+    wide = 3 * L * sum(m > sg.SPLITK_MAX_M for m in rows)
+    check(grouped_by["wgmma"] == wide and grouped_by["simt"] == 0 and
+          grouped_by["wmma"] == launches["grouped"] - wide,
+          f"grouped launches by mainloop {grouped_by}: {wide} should be "
+          f"wgmma (rows per expert at prefill {rows}), the rest wmma")
+    launches["grouped_rows_per_expert_at_prefill"] = rows
     check(launches["gemm_nt"] == 0 and launches["ssd"] == 0,
           f"dbrx launched an NT-GEMM or SSD kernel: {launches}")
     check(syncs == st["prefill_calls"] + st["chunks"],
@@ -1505,6 +1591,13 @@ def phase_serve_moe(model, params):
          gib_allocated_at_start=start_bytes / 2 ** 30,
          gib_peak=peak / 2 ** 30)
     return reqs, launches
+
+
+def expert_rows(cfg, tokens: int) -> int:
+    """Rows per expert of one MoE forward over `tokens` tokens: the
+    routing's groups times its per-group capacity (models/moe.py)."""
+    groups, per_group = moe._group_shape(tokens, cfg.moe.group_size)
+    return groups * moe._capacity(per_group, cfg.moe)
 
 
 def batch_first_differences(served, oracle, ref: ReferenceEngine):
@@ -1739,16 +1832,19 @@ def flash_line(cfg, launches: int) -> dict:
     }
 
 
-def gemm_nt_line(cfg, launches: int) -> dict:
+def gemm_nt_line(cfg, launches: int, by_mainloop: dict) -> dict:
     """The tied LM head of cfg (x [M, d] @ tok [vocab, d]^T, bf16 out) at
-    decode (M = SLOTS) and at a [SLOTS, 256] prefill; one launch per
-    forward."""
+    decode (M = SLOTS), at a [SLOTS, 256] prefill and at the largest
+    bucketed prefill, [SLOTS, 2048] (M = 8192: the head runs over every
+    position); one launch per forward. Launches by mainloop are the
+    served run's."""
     K, N = cfg.d_model, cfg.vocab
     g = torch.Generator("cuda").manual_seed(8)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
     rows, worst = [], 0.0
     for phase, M, iters in (("decode", SLOTS, 20), ("prefill", SLOTS * 256,
-                                                     5)):
+                                                     5),
+                            ("prefill", SLOTS * 2048, 3)):
         x, w = gemm_inputs(M, K, N, torch.bfloat16, g, transposed=True)
         got = sg.systolic_gemm_nt_cuda(x, w, out_dtype=torch.bfloat16)
         ref = systolic_gemm_t_ref(x, w, out_dtype=torch.bfloat16)
@@ -1758,6 +1854,7 @@ def gemm_nt_line(cfg, launches: int) -> dict:
         worst = max(worst, err)
         row = {
             "phase": phase, "M": M, "K": K, "N": N,
+            "plan": list(sg.gemm_plan("nt", M, N, K, torch.bfloat16, True)),
             "ms": time_ms(lambda: sg.systolic_gemm_nt_cuda(
                 x, w, out_dtype=torch.bfloat16), iters, flush),
             "plain_ms": time_ms(lambda: systolic_gemm_t_ref(
@@ -1769,12 +1866,14 @@ def gemm_nt_line(cfg, launches: int) -> dict:
         row["bound_ms"], row["bound_by"] = bound(
             2 * M * N * K, 2 * (M * K + K * N + M * N))
         rows.append(row)
+        del x, w, got, ref
     dec = rows[0]
     return {
         "name": "systolic_gemm_nt", "route": "cuda",
         "source": "src/repro_torch/kernels/systolic_gemm/csrc/systolic_gemm.cu",
         "replaces": "src/repro/kernels/systolic_gemm/systolic_gemm.py:249",
-        "launches": launches, "max_abs_err": worst,
+        "launches": launches, "launches_by_mainloop": by_mainloop,
+        "max_abs_err": worst,
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         "library_ms": dec["library_ms"],
@@ -1848,17 +1947,21 @@ def ssd_line(cfg, launches: int) -> dict:
     }
 
 
-def grouped_line(cfg, launches: int) -> dict:
+def grouped_line(cfg, launches: int, by_mainloop: dict) -> dict:
     """dbrx's expert GEMMs (bf16, bf16 out): one decode step's three
     projections at M = 1 row per expert (x MOE_LAYERS layers = 24
-    launches), and the up projection of a 1024-token prefill at M = 320.
-    The library yardstick is torch.bmm of the same G GEMMs, plus SiLU for
-    the gate."""
+    launches), and the up and down projections of a 1024-token prefill at
+    M = 320; up at M = 384 too, the same three 128-row tiles per expert
+    without the padding, shows what padding 320 rows costs. The library
+    yardstick is torch.bmm of the same G GEMMs, plus SiLU for the gate.
+    Launches by mainloop are the served run's."""
     E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
     shapes = [("decode", "up", 1, d, f, None), ("decode", "gate", 1, d, f,
                                                 "silu"),
               ("decode", "down", 1, f, d, None),
-              ("prefill", "up", 320, d, f, None)]
+              ("prefill", "up", 320, d, f, None),
+              ("prefill", "down", 320, f, d, None),
+              ("prefill", "up", 384, d, f, None)]
     g = torch.Generator("cuda").manual_seed(12)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
     rows, worst = [], 0.0
@@ -1879,6 +1982,8 @@ def grouped_line(cfg, launches: int) -> dict:
             return F.silu(y) if act == "silu" else y
         iters = 20 if phase == "decode" else 5
         row = {"gemm": name, "phase": phase, "G": E, "M": M, "K": K, "N": N,
+               "plan": list(sg.gemm_plan("grouped", M, N, K, torch.bfloat16,
+                                         True)),
                "ms": time_ms(lambda: sg.grouped_systolic_gemm_cuda(
                    x, w, activation=act, out_dtype=torch.bfloat16),
                    iters, flush),
@@ -1898,14 +2003,15 @@ def grouped_line(cfg, launches: int) -> dict:
         "name": "grouped_systolic_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/systolic_gemm/csrc/systolic_gemm.cu",
         "replaces": "src/repro/kernels/systolic_gemm/systolic_gemm.py:182",
-        "launches": launches, "max_abs_err": worst,
+        "launches": launches, "launches_by_mainloop": by_mainloop,
+        "max_abs_err": worst,
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": "bytes",
         "library_ms": dec["library_ms"],
         "ms_are": (f"sums over the {3 * L} grouped launches of one "
                    f"{cfg.name} ({L} layers) decode step, M = 1 row per "
-                   f"expert (per-shape rows below, the M = 320 prefill row "
-                   f"per launch; L2 flushed)"),
+                   f"expert (per-shape rows below, the prefill rows per "
+                   f"launch; L2 flushed)"),
         "shapes": rows,
     }
 
@@ -1986,10 +2092,11 @@ def main() -> int:
             cfg, launches, by_mainloop, moe_cfg, moe_launches["pod_gemm"],
             moe_launches["pod_gemm_by_mainloop"]),
                                flash_line(cfg, flash_launches),
-                               gemm_nt_line(ssm_cfg, ssm_launches["gemm_nt"]),
+                               gemm_nt_line(ssm_cfg, ssm_launches["gemm_nt"],
+                                            ssm_launches["gemm_nt_by_mainloop"]),
                                ssd_line(ssm_cfg, ssm_launches["ssd"]),
-                               grouped_line(moe_cfg,
-                                            moe_launches["grouped"])]}
+                               grouped_line(moe_cfg, moe_launches["grouped"],
+                                            moe_launches["grouped_by_mainloop"])]}
         torch.cuda.synchronize()
         gpu = gpu_name_and_power()
     except Exception:  # every phase failure ends the run non-zero

@@ -13,10 +13,10 @@
 // (one per expert) in one launch, x [G, M, K], w [G, K, N], scale and
 // bias [G, N], out [G, M, N]. The TPU grid grows a leading group axis
 // and reuses one accumulator scratch group after group; here the group
-// is blockIdx.z, each block moves its pointers to its group's matrices
-// and then runs the wmma kernel unchanged, so a group's rows, ragged
-// edges and epilogue are exactly a plain wmma launch's. A group of zero
-// rows with a zero bias (an expert no token reached) comes out exactly 0.
+// is blockIdx.z, and a block reads, scales and stores only its group's
+// matrices, so a group's rows, ragged edges and epilogue are exactly a
+// plain launch's of the same mainloop. A group of zero rows with a zero
+// bias (an expert no token reached) comes out exactly 0.
 //
 // What it computes is the same as on the TPU; how is not carried over
 // block by block. The TPU grid walks K as its minor sequential axis and
@@ -24,79 +24,88 @@
 // Here a block walks K in a loop of its own with the accumulator in
 // registers, and the epilogue (scale, bias, activation in f32, then one
 // rounding to out) runs once per output. Four mainloops; the caller picks
-// one by shape (systolic_gemm.py::nn_plan for NN) and passes it in:
+// one by form and shape (systolic_gemm.py::gemm_plan) and passes it in:
 //
-//   * splitk (bf16 NN, M <= 64: decode and short prefills). Bound by
-//     bytes: every weight byte is read once per call (granite-8b's 253
+//   * splitk (bf16 NN and NT, M <= 64: decode and short prefills). Bound
+//     by bytes: every weight byte is read once per call (granite-8b's 253
 //     GEMMs of a decode step move 16.1 GB, 4.8 ms at 3.35 TB/s), and the
 //     tensor cores idle. What held the wmma kernel at 0.3-0.5 TB/s was
 //     too few blocks in flight: granite's q projection made 64. Here
 //     blocks tile N in strips of 64 or 128 columns AND split K into
 //     `splits` ranges, so some 260-800 blocks stream the weights (up to
 //     five per SM at once); each streams its [K range, strip] of w
-//     through a 4-stage cp.async ring (16-byte loads into shared memory,
-//     L1 bypassed) with x's rows beside it, and multiplies on mma.sync
-//     m16n8k16 with the rows padded to 16. A split writes its f32 partial
+//     through a cp.async ring (16-byte loads into shared memory, L1
+//     bypassed; NN 4 stages of 32 k rows of w; NT 3 stages of 64 k along
+//     the strip's rows of w [N, K], as stored, a 128-byte line a row)
+//     with x's rows beside it, and multiplies on mma.sync m16n8k16 with
+//     the rows padded to 16. A split writes its f32 partial
 //     [M, strip] to a workspace and bumps the strip's arrival counter
 //     after a __threadfence; the last to arrive sums the partials in
 //     split order 0..splits-1 (eight loads in flight per thread), runs
 //     the epilogue, stores and resets the counter to 0.
 //     One launch per GEMM, and the same inputs give the same bits.
-//   * wgmma (bf16 NN, M > 64: prefill). Bound by operations (a 1024-row
-//     forward of granite-8b is 16.5 TFLOP, 16.7 ms at 989 TFLOP/s). The
+//   * wgmma (bf16 NN, NT and grouped, M > 64: prefill). Bound by
+//     operations (a 1024-row forward of granite-8b is 16.5 TFLOP, 16.7 ms
+//     at 989 TFLOP/s; dbrx's 16 experts at 320 rows each 0.68 TFLOP). The
 //     wmma kernel's mma.sync reached about 120 TFLOP/s. Here one block
 //     per 128 x 128 output tile: a producer warpgroup, which hands its
 //     registers to the consumers (setmaxnreg), keeps a 6-stage ring of
 //     [128 x 64] x and [64 x 128] w tiles full from one thread with TMA
-//     loads (128-byte swizzle; w as two [64 x 64] boxes), each stage
-//     signalled by an mbarrier with its byte count; two consumer
-//     warpgroups run wgmma m64n128k16 on their 64-row halves (A K-major,
-//     B MN-major with the transpose bit) and give a stage back only after
-//     wgmma.wait_group shows its products done. Six stages, not wider
-//     tiles, paid off on this card: loads in flight set the pace (128 x
-//     256 tiles with 4 stages ran slower). TMA zero-fills ragged
-//     M, N and K; the epilogue runs from the accumulator registers with
-//     guarded stores. Blocks walk M fastest, so the tiles of one weight
-//     strip run together and the strip is read from memory about once.
-//     Not persistent: a tile's epilogue does not overlap the next tile's
-//     loads, and there are no clusters or multicast.
+//     loads (128-byte swizzle; NN and grouped w as two [64 k x 64 n]
+//     boxes, NT w as one [128 n x 64 k] box), each stage signalled by an
+//     mbarrier with its byte count; two consumer warpgroups run wgmma
+//     m64n128k16 on their 64-row halves (A K-major; B MN-major with the
+//     transpose bit for NN and grouped, K-major without it for NT) and
+//     give a stage back only after wgmma.wait_group shows its products
+//     done. Six stages, not wider tiles, paid off on this card: loads in
+//     flight set the pace (128 x 256 tiles with 4 stages ran slower). TMA
+//     zero-fills ragged N and K, and M below 128 (a grouped launch's maps
+//     are 3-D, so the zeros past M stay inside the group); where M >= 128
+//     the last M tile starts at M - 128 instead, overlapping the one
+//     before it and storing only its own rows, since a box half past M
+//     loaded slower than a whole one (dbrx's expert capacities of 144-399
+//     rows). The epilogue runs from the accumulator registers with
+//     guarded stores. Blocks walk M fastest,
+//     so the tiles of one weight strip run together and the strip is read
+//     from memory about once. Not persistent: a tile's epilogue does not
+//     overlap the next tile's loads, and there are no clusters or
+//     multicast.
 //
 //   Both sum K in the same order: `splits` ranges (from N and K only, one
-//   rule for both; each an even number of 32-deep steps, so a range starts
-//   with a wgmma stage), each range from zero in k16 steps, the ranges
-//   added in order; wgmma keeps a range's sum and the running total in
-//   two register sets and adds them between stages. The tensor cores round a k16 step alike under mma.sync and
-//   wgmma, so a row's result is bit-equal at every M: a decode lane alone
-//   or in a batch, a prompt prefilled alone (M = S) or in a bucket (M =
-//   4 x bucket, the other mainloop).
+//   rule for every form; each an even number of 32-deep steps, so a range
+//   starts with a wgmma stage), each range from zero in k16 steps, the
+//   ranges added in order; wgmma keeps a range's sum and the running total
+//   in two register sets and adds them between stages. The tensor cores
+//   round a k16 step alike under mma.sync and wgmma, so a row's result is
+//   bit-equal at every M: a decode lane alone or in a batch, a prompt
+//   prefilled alone (M = S) or in a bucket (M = 4 x bucket, the other
+//   mainloop), and a grouped launch with G = 1 equals the NN launch of the
+//   same shape.
 //   * wmma (bf16 where TMA cannot go: K or N not a multiple of 8, or x or
-//     w not 16-byte aligned; and every NT and grouped launch): tensor
+//     w not 16-byte aligned; and the grouped form at M <= 64): tensor
 //     cores through nvcuda::wmma (mma.sync, 16x16x16), tile BM x 64 (BM =
 //     16 for M <= 16, else 64), K in steps of 32 staged through shared
 //     memory with the next step's loads in registers during the products
-//     (two stages). Ragged edges masked in the kernel.
+//     (two stages). Ragged edges masked in the kernel. The grouped form
+//     keeps it at decode: dbrx-132b's 16 experts at M = 1 row each read
+//     16 x 6144 x 10752 bf16 weights (2.11 GB) for 2 GFLOP, bound by bytes
+//     (0.631 ms at 3.35 TB/s), and its 2,688 blocks of 16 x 64 keep enough
+//     loads in flight to read them at about 2.9 TB/s, within 1.06x of
+//     torch.bmm; a grouped splitk would add a workspace per group for
+//     little.
 //   * simt (f32 x f32 -> f32 and int8 x int8 -> int32): FMA / integer
 //     multiply-add on the CUDA cores, 64 x 64 tiles, 4 x 4 outputs per
 //     thread. f32 stays full f32 (TF32 would change the numbers); int32
 //     accumulation is exact, then the epilogue runs in f32 as on the TPU.
 //
-// NT and grouped still run the wmma template, which is far from both
-// bounds at prefill (mma.sync, two stages, a barrier per 32-deep step).
-// The grouped form at dbrx-132b's served shapes (16 experts, d 6144,
-// d_ff 10752): at decode each expert holds M = 1 row, so a launch reads
-// 16 x 6144 x 10752 bf16 weights (2.11 GB) for 2 GFLOP and is bound by
-// bytes (0.631 ms at 3.35 TB/s); its 2,688 blocks of 16 x 64 keep enough
-// loads in flight to read them at about 2.9 TB/s. At a 1024-token prefill
-// M = 320 rows per expert and the launch is bound by operations (6.76e11
-// FLOP, 0.684 ms at 989 TFLOP/s) about as much as by bytes (0.683 ms).
-//
-// C interface (bound with ctypes): systolic_gemm_launch (NN, with its
-// mainloop, splits, strip width and split-K workspace and counters),
-// systolic_gemm_nt_launch (NT) and grouped_systolic_gemm_launch return
+// C interface (bound with ctypes): systolic_gemm_launch (NN) and
+// systolic_gemm_nt_launch (NT), each with its mainloop, splits, strip
+// width and split-K workspace and counters, and
+// grouped_systolic_gemm_launch (mainloop, splits, tile width) return
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for
 // arguments the kernels do not take (G > 65535, the grid's z limit; a
-// mainloop the dtype, shape or alignment does not allow; a tensor map
-// cuTensorMapEncodeTiled refuses); the caller raises when it is not 0.
+// mainloop the form, dtype, shape or alignment does not allow; a tensor
+// map cuTensorMapEncodeTiled refuses); the caller raises when it is not 0.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
@@ -407,22 +416,32 @@ gemm_simt(const InT* __restrict__ x, const InT* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 NN at M <= 64: split-K over a cp.async ring (decode)
+// bf16 NN and NT at M <= 64: split-K over a cp.async ring (decode)
 // ---------------------------------------------------------------------------
 
-constexpr int SK_BK = 32;          // k-step: rows of w in one ring stage
-constexpr int SK_STAGES = 4;       // ring depth
+constexpr int SK_BK = 32;          // k-step of the split ranges (and of NN's stages)
+constexpr int SK_STAGES = 4;       // NN's ring depth
 constexpr int SK_THREADS = 128;    // 4 warps, each owning BN / 4 columns
-constexpr int SK_XLD = SK_BK + 8;  // 80-byte x rows: ldmatrix without bank conflicts
+// NT's stages: 64 k deep, so each of the strip's rows of w [N, K] arrives as
+// one 128-byte line a stage, three stages in flight. 32-deep stages (half a
+// line a row) read mamba2's head at decode slower on the H100 than the
+// library call; these read it faster.
+constexpr int SK_NT_BK = 64;
+constexpr int SK_NT_STAGES = 3;
 
-// One ring stage: x [16 MT][SK_BK] and w [SK_BK][BN], rows padded by 16 bytes.
-template <int MT, int BN>
+// One ring stage: x [16 MT][BK] and w [BK][BN] (NN) or [BN][BK] (TW: NT,
+// w read K-major as stored), rows padded by 16 bytes (ldmatrix without
+// bank conflicts).
+template <int MT, int BN, bool TW>
 struct SplitkTile {
-  static constexpr int WLD = BN + 8;                 // 272- or 144-byte w rows
-  static constexpr int X_ELEMS = MT * 16 * SK_XLD;
-  static constexpr int W_ELEMS = SK_BK * WLD;
+  static constexpr int BK = TW ? SK_NT_BK : SK_BK;  // k per stage
+  static constexpr int STAGES = TW ? SK_NT_STAGES : SK_STAGES;
+  static constexpr int XLD = BK + 8;
+  static constexpr int WLD = TW ? XLD : BN + 8;
+  static constexpr int X_ELEMS = MT * 16 * XLD;
+  static constexpr int W_ELEMS = (TW ? BN : BK) * WLD;
   static constexpr int STAGE = X_ELEMS + W_ELEMS;    // bf16 elements
-  static constexpr int SMEM = SK_STAGES * STAGE * 2; // bytes
+  static constexpr int SMEM = STAGES * STAGE * 2;    // bytes
 };
 
 // 16 bytes global -> shared through L2 only; zero-filled when !valid.
@@ -465,24 +484,29 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
 }
 
 // Block (strip, split) = (blockIdx.x, blockIdx.y): columns [strip * BN,
-// + BN) over k-steps [split * per, min(steps, (split + 1) * per)) with
-// per = ceil(steps / splits); the launcher makes sure the last range is
-// not empty. With one split the block runs the epilogue itself; otherwise
+// + BN) over 32-deep k-steps [split * per, min(steps, (split + 1) * per))
+// with per = ceil(steps / splits); the launcher makes sure the last range
+// is not empty (and, for NT's deeper stages, that ranges but the last are
+// whole stages). With one split the block runs the epilogue itself; otherwise
 // it writes its f32 partial [M, BN] to ws[strip][split] and the last
 // block of the strip to arrive sums ws[strip][0..splits-1] in that order,
 // runs the epilogue and resets counters[strip] to 0 for the next launch.
 // MT = ceil(M / 16) row tiles; rows past M are zero-filled and not stored.
-template <int MT, int BN, typename OutT>
+// TW: w is [N, K] (NT); a stage holds the strip's BN rows of w, SK_BK deep,
+// and B fragments come from ldmatrix without .trans. The ring, the
+// workspace, the counters and the reduction are the NN form's.
+template <int MT, int BN, bool TW, typename OutT>
 __global__ void __launch_bounds__(SK_THREADS)
 gemm_bf16_splitk(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
                  const float* __restrict__ scale, const float* __restrict__ bias,
                  OutT* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
                  int M, int N, int K, int act) {
-  using Tile = SplitkTile<MT, BN>;
+  using Tile = SplitkTile<MT, BN, TW>;
+  constexpr int BK = Tile::BK, STAGES = Tile::STAGES;
   constexpr int WN = BN / 4;           // columns per warp
   constexpr int NT = WN / 8;           // n8 tiles per warp (2 or 4)
-  constexpr int XV = MT * 16 * (SK_BK / 8);   // 16-byte vectors per stage
-  constexpr int WV = SK_BK * (BN / 8);
+  constexpr int XV = MT * 16 * (BK / 8);   // 16-byte vectors per stage
+  constexpr int WV = BK * (BN / 8);
   static_assert(WV % SK_THREADS == 0 && NT % 2 == 0, "stage must split evenly");
   extern __shared__ __align__(16) __nv_bfloat16 sk_smem[];
   __shared__ int sk_last;
@@ -492,28 +516,34 @@ gemm_bf16_splitk(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __res
   const int n0 = strip * BN;
   const int steps = (K + SK_BK - 1) / SK_BK;
   const int per = (steps + splits - 1) / splits;
-  const int s0 = split * per;
-  const int nsteps = min(steps, s0 + per) - s0;
+  const int kbeg = split * per * SK_BK;
+  const int nsteps = (min(K, kbeg + per * SK_BK) - kbeg + BK - 1) / BK;
 
-  auto load_stage = [&](int t) {  // k-step s0 + t into slot t % SK_STAGES
-    __nv_bfloat16* xs = sk_smem + (t % SK_STAGES) * Tile::STAGE;
+  auto load_stage = [&](int t) {  // stage t of the range into slot t % STAGES
+    __nv_bfloat16* xs = sk_smem + (t % STAGES) * Tile::STAGE;
     __nv_bfloat16* wt = xs + Tile::X_ELEMS;
-    const int k0 = (s0 + t) * SK_BK;
+    const int k0 = kbeg + t * BK;
 #pragma unroll
     for (int i = 0; i < (XV + SK_THREADS - 1) / SK_THREADS; ++i) {
       const int v = tid + i * SK_THREADS;
       if (v < XV) {
-        const int r = v / (SK_BK / 8), c = (v % (SK_BK / 8)) * 8;
+        const int r = v / (BK / 8), c = (v % (BK / 8)) * 8;
         const bool ok = r < M && k0 + c < K;
-        cp_async16(&xs[r * SK_XLD + c], ok ? x + (size_t)r * K + k0 + c : x, ok);
+        cp_async16(&xs[r * Tile::XLD + c], ok ? x + (size_t)r * K + k0 + c : x, ok);
       }
     }
 #pragma unroll
     for (int i = 0; i < WV / SK_THREADS; ++i) {
       const int v = tid + i * SK_THREADS;
-      const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
-      const bool ok = k0 + r < K && n0 + c < N;
-      cp_async16(&wt[r * Tile::WLD + c], ok ? w + (size_t)(k0 + r) * N + n0 + c : w, ok);
+      if constexpr (TW) {  // row n0 + r of w, 8 consecutive k
+        const int r = v / (BK / 8), c = (v % (BK / 8)) * 8;
+        const bool ok = n0 + r < N && k0 + c < K;
+        cp_async16(&wt[r * Tile::WLD + c], ok ? w + (size_t)(n0 + r) * K + k0 + c : w, ok);
+      } else {             // row k0 + r of w, 8 consecutive n
+        const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
+        const bool ok = k0 + r < K && n0 + c < N;
+        cp_async16(&wt[r * Tile::WLD + c], ok ? w + (size_t)(k0 + r) * N + n0 + c : w, ok);
+      }
     }
   };
 
@@ -526,30 +556,34 @@ gemm_bf16_splitk(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __res
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
 #pragma unroll
-  for (int t = 0; t < SK_STAGES - 1; ++t) {  // fill the ring
+  for (int t = 0; t < STAGES - 1; ++t) {  // fill the ring
     if (t < nsteps) load_stage(t);
     cp_async_commit();
   }
   for (int t = 0; t < nsteps; ++t) {
-    cp_async_wait<SK_STAGES - 2>();  // stage t has landed (this thread's part)
-    __syncthreads();                 // everyone's part; slot t - 1 is free
-    if (t + SK_STAGES - 1 < nsteps) load_stage(t + SK_STAGES - 1);
+    cp_async_wait<STAGES - 2>();  // stage t has landed (this thread's part)
+    __syncthreads();              // everyone's part; slot t - 1 is free
+    if (t + STAGES - 1 < nsteps) load_stage(t + STAGES - 1);
     cp_async_commit();
-    const __nv_bfloat16* xs = sk_smem + (t % SK_STAGES) * Tile::STAGE;
+    const __nv_bfloat16* xs = sk_smem + (t % STAGES) * Tile::STAGE;
     const __nv_bfloat16* wt = xs + Tile::X_ELEMS;
 #pragma unroll
-    for (int kk = 0; kk < SK_BK; kk += 16) {
+    for (int kk = 0; kk < BK; kk += 16) {
       uint32_t a[MT][4];
 #pragma unroll
       for (int i = 0; i < MT; ++i)
-        ldmatrix_x4(a[i], &xs[(i * 16 + lane % 16) * SK_XLD + kk + (lane / 16) * 8]);
+        ldmatrix_x4(a[i], &xs[(i * 16 + lane % 16) * Tile::XLD + kk + (lane / 16) * 8]);
 #pragma unroll
       for (int j = 0; j < NT; j += 2) {
         // matrices: k 0-7 / 8-15 of n8 tile j, then of tile j + 1
         const int q = lane / 8;
         uint32_t b[4];
-        ldmatrix_x4_trans(b, &wt[(kk + lane % 8 + (q & 1) * 8) * Tile::WLD + warp * WN +
-                                 (j + (q >> 1)) * 8]);
+        if constexpr (TW)  // [n][k] rows: each 8 x 8 matrix already n-major
+          ldmatrix_x4(b, &wt[(warp * WN + (j + (q >> 1)) * 8 + lane % 8) * Tile::WLD + kk +
+                             (q & 1) * 8]);
+        else
+          ldmatrix_x4_trans(b, &wt[(kk + lane % 8 + (q & 1) * 8) * Tile::WLD + warp * WN +
+                                   (j + (q >> 1)) * 8]);
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
           mma_16816(acc[i][j], a[i], b[0], b[1]);
@@ -629,13 +663,17 @@ gemm_bf16_splitk(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __res
 }
 
 // ---------------------------------------------------------------------------
-// bf16 NN at M > 64: a TMA ring feeding wgmma (prefill)
+// bf16 NN, NT and grouped at M > 64: a TMA ring feeding wgmma (prefill)
 // ---------------------------------------------------------------------------
+
+enum Form { FORM_NN = 0, FORM_NT = 1, FORM_GROUPED = 2 };
 
 constexpr int WG_BM = 128, WG_BN = 128, WG_BK = 64, WG_STAGES = 6;
 constexpr int WG_THREADS = 384;                 // producer + 2 consumer warpgroups
 constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;   // one [128 x 64] box of x: 16 KB
-constexpr int WG_B_BOX = WG_BK * 64 * 2;        // one [64 k x 64 n] box of w: 8 KB
+// w per stage: two [64 k x 64 n] boxes (NN, grouped) or one [128 n x 64 k]
+// box (NT), 16 KB either way
+constexpr int WG_B_BOX = WG_BK * 64 * 2;        // 8 KB
 constexpr int WG_STAGE_BYTES = WG_A_BYTES + 2 * WG_B_BOX;   // 32 KB
 // 6 slots (192 KB: the loads in flight, not the products, set the pace),
 // + room to align to 1 KB
@@ -677,6 +715,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
+// The same for a 3-D tensor map (c2: the group).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
 // address, leading and stride byte offsets (16-byte units), layout 1.
@@ -696,9 +743,11 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
 }
 
-// d[64 x 128] = A[64 x 16] (K-major) * B[16 x 128] (MN-major: transpose
-// bit set) + (scale_d ? d : 0), bf16 in, f32 accumulate; d in the
-// warpgroup's fragment layout.
+// d[64 x 128] = A[64 x 16] (K-major) * B[16 x 128] + (scale_d ? d : 0),
+// bf16 in, f32 accumulate; d in the warpgroup's fragment layout. B is
+// MN-major with TNSP_B = 1 (NN, grouped: w [K, N]) and K-major with 0 (NT:
+// w [N, K]).
+template <int TNSP_B>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
                                                  int scale_d) {
   asm volatile(
@@ -709,7 +758,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
       "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
       "%62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
@@ -721,17 +770,21 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TNSP_B)
       : "memory");
 }
 
 // Block (blockIdx.x, blockIdx.y) = output tile [128 m, 128 n]; M tiles
-// run fastest. Warpgroup 0 is the producer: it hands its registers to the
-// consumers (setmaxnreg), and one thread issues the TMA loads of step kt
-// into slot kt % 6 once the consumers have given the slot back.
-// Warpgroups 1 and 2 multiply rows [0, 64) and [64, 128) of the tile.
-// Shared memory per slot: x [128 rows][128 B], then w's two [64 k][128 B]
-// boxes (n 0-63, then 64-127), each row 128-byte swizzled by TMA.
+// run fastest; blockIdx.z is the group of a grouped launch (else 0).
+// Warpgroup 0 is the producer: it hands its registers to the consumers
+// (setmaxnreg), and one thread issues the TMA loads of step kt into slot
+// kt % 6 once the consumers have given the slot back. Warpgroups 1 and 2
+// multiply rows [0, 64) and [64, 128) of the tile. Shared memory per slot:
+// x [128 rows][128 B], then w, each row 128-byte swizzled by TMA: NN and
+// grouped two [64 k][128 B] boxes (n 0-63, then 64-127), NT one [128 n][128
+// B] box, K-major like x. A grouped launch's maps are 3-D ({K, M, G} and
+// {N, K, G}) and each load names the group, so rows past M inside a group
+// arrive as zeros and never as the next group's rows.
 //
 // The sum over K runs in the splitk mainloop's order: K cut into `splits`
 // ranges of per = ceil(ceil(K / 32) / splits) 32-deep steps (even, so
@@ -739,20 +792,32 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 // added in order between stages (t), outside the wgmma pipeline. The
 // tensor cores round a k16 step alike under mma.sync and wgmma, so a row
 // comes out bit-equal whichever mainloop its M picks.
-template <typename OutT>
+template <int FORM, typename OutT>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 gemm_bf16_wgmma(const __grid_constant__ CUtensorMap tmap_x,
                 const __grid_constant__ CUtensorMap tmap_w, const float* __restrict__ scale,
                 const float* __restrict__ bias, OutT* __restrict__ out, int M, int N, int K,
                 int act, int splits) {
+  constexpr bool KMAJOR_B = FORM == FORM_NT;
   extern __shared__ uint8_t wg_smem_raw[];
   __shared__ __align__(8) uint64_t full[WG_STAGES];
   __shared__ __align__(8) uint64_t empty[WG_STAGES];
   // the swizzle pattern repeats every 1024 bytes: tiles start on one
   uint8_t* smem = wg_smem_raw + ((1024 - (smem_u32(wg_smem_raw) & 1023)) & 1023);
   const int tid = threadIdx.x, wg = tid / 128;
-  const int m0 = blockIdx.x * WG_BM, n0 = blockIdx.y * WG_BN;
+  const int n0 = blockIdx.y * WG_BN, grp = blockIdx.z;
+  // The last M tile, where M >= 128, is moved back inside the matrix and
+  // stores only the rows from m_lo on: a box that reaches past M (into
+  // TMA's zero fill) ran slower than a whole one, and a row's sum is the
+  // same wherever its tile starts.
+  const int m_lo = blockIdx.x * WG_BM;
+  const int m0 = m_lo + WG_BM > M && M >= WG_BM ? M - WG_BM : m_lo;
   const int ksteps = (K + WG_BK - 1) / WG_BK;
+  if constexpr (FORM == FORM_GROUPED) {  // the epilogue's operands of group grp
+    out += (size_t)grp * M * N;
+    if (scale != nullptr) scale += (size_t)grp * N;
+    if (bias != nullptr) bias += (size_t)grp * N;
+  }
 
   if (tid == 0) {
     for (int s = 0; s < WG_STAGES; ++s) {
@@ -771,9 +836,19 @@ gemm_bf16_wgmma(const __grid_constant__ CUtensorMap tmap_x,
         if (kt >= WG_STAGES) mbar_wait(&empty[s], (kt / WG_STAGES - 1) & 1);
         uint8_t* a = smem + s * WG_STAGE_BYTES;
         mbar_expect_tx(&full[s], WG_STAGE_BYTES);
-        tma_load_2d(a, &tmap_x, &full[s], kt * WG_BK, m0);
-        tma_load_2d(a + WG_A_BYTES, &tmap_w, &full[s], n0, kt * WG_BK);
-        tma_load_2d(a + WG_A_BYTES + WG_B_BOX, &tmap_w, &full[s], n0 + 64, kt * WG_BK);
+        if constexpr (FORM == FORM_GROUPED) {
+          tma_load_3d(a, &tmap_x, &full[s], kt * WG_BK, m0, grp);
+          tma_load_3d(a + WG_A_BYTES, &tmap_w, &full[s], n0, kt * WG_BK, grp);
+          tma_load_3d(a + WG_A_BYTES + WG_B_BOX, &tmap_w, &full[s], n0 + 64, kt * WG_BK, grp);
+        } else {
+          tma_load_2d(a, &tmap_x, &full[s], kt * WG_BK, m0);
+          if constexpr (KMAJOR_B) {
+            tma_load_2d(a + WG_A_BYTES, &tmap_w, &full[s], kt * WG_BK, n0);
+          } else {
+            tma_load_2d(a + WG_A_BYTES, &tmap_w, &full[s], n0, kt * WG_BK);
+            tma_load_2d(a + WG_A_BYTES + WG_B_BOX, &tmap_w, &full[s], n0 + 64, kt * WG_BK);
+          }
+        }
       }
     }
   } else {
@@ -796,11 +871,14 @@ gemm_bf16_wgmma(const __grid_constant__ CUtensorMap tmap_x,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < WG_BK / 16; ++kk)
-          // A: k16 is 32 bytes along the swizzled row, 8-row groups 1024 B
-          // apart; B: k16 is two 8-row groups of 1024 B, columns 64-127
-          // one box (8 KB) on
-          wgmma_m64n128k16(r, sw128_desc(a + kk * 32, 16, 1024),
-                           sw128_desc(b + kk * 2048, WG_B_BOX, 1024), kk > 0 || kt > k0);
+          // A (and NT's B): k16 is 32 bytes along the swizzled row, 8-row
+          // groups 1024 B apart; MN-major B: k16 is two 8-row groups of
+          // 1024 B, columns 64-127 one box (8 KB) on
+          wgmma_m64n128k16<KMAJOR_B ? 0 : 1>(
+              r, sw128_desc(a + kk * 32, 16, 1024),
+              KMAJOR_B ? sw128_desc(b + kk * 32, 16, 1024)
+                       : sw128_desc(b + kk * 2048, WG_B_BOX, 1024),
+              kk > 0 || kt > k0);
         wgmma_commit();
         wgmma_wait<1>();  // the products of step kt - 1 are done: give its slot back
         if (kt > 0 && tid % 128 == 0) mbar_arrive(&empty[(kt - 1) % WG_STAGES]);
@@ -820,7 +898,7 @@ gemm_bf16_wgmma(const __grid_constant__ CUtensorMap tmap_x,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = row0 + h * 8;
-        if (row < M && col < N)
+        if (row >= m_lo && row < M && col < N)
           store_pair(&out[(size_t)row * N + col],
                      epilogue(t[4 * i + 2 * h], scale, bias, col, act),
                      epilogue(t[4 * i + 2 * h + 1], scale, bias, col + 1, act));
@@ -852,17 +930,20 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// 2-D tensor map of a row-major bf16 [rows, cols] matrix, box [box_rows,
-// box_cols], 128-byte swizzle, zeros out of bounds. False if refused.
-bool make_tmap(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
-               int box_cols) {
+// Tensor map of a row-major bf16 [rows, cols] matrix (depth 0: 2-D) or of
+// `depth` of them back to back ([depth, rows, cols]: 3-D, dims {cols,
+// rows, depth}), box [box_rows, box_cols] (one matrix deep), 128-byte
+// swizzle, zeros out of bounds. False if refused.
+bool make_tmap(CUtensorMap* map, const void* base, int depth, int rows, int cols,
+               int box_rows, int box_cols) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
-  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  cuuint32_t elem_strides[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+  const cuuint32_t rank = depth > 0 ? 3 : 2;
+  cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)depth};
+  cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
+  cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  cuuint32_t elem_strides[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
             box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -879,12 +960,12 @@ cudaError_t allow_smem(Kernel kernel, int bytes, uint64_t& done) {
   return e;
 }
 
-template <int MT, int BN, typename OutT>
+template <int MT, int BN, bool TW, typename OutT>
 cudaError_t launch_splitk(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* scale,
                           const float* bias, OutT* out, float* ws, int* counters, int M, int N,
                           int K, int act, int splits, cudaStream_t stream) {
-  auto kernel = gemm_bf16_splitk<MT, BN, OutT>;
-  constexpr int smem = SplitkTile<MT, BN>::SMEM;
+  auto kernel = gemm_bf16_splitk<MT, BN, TW, OutT>;
+  constexpr int smem = SplitkTile<MT, BN, TW>::SMEM;
   static uint64_t done = 0;
   cudaError_t e = allow_smem(kernel, smem, done);
   if (e != cudaSuccess) return e;
@@ -893,35 +974,42 @@ cudaError_t launch_splitk(const __nv_bfloat16* x, const __nv_bfloat16* w, const 
   return cudaGetLastError();
 }
 
-template <int BN, typename OutT>
+template <int BN, bool TW, typename OutT>
 cudaError_t splitk_rows(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* scale,
                         const float* bias, OutT* out, float* ws, int* counters, int M, int N,
                         int K, int act, int splits, cudaStream_t s) {
   switch ((M + 15) / 16) {
     case 1:
-      return launch_splitk<1, BN>(x, w, scale, bias, out, ws, counters, M, N, K, act, splits, s);
+      return launch_splitk<1, BN, TW>(x, w, scale, bias, out, ws, counters, M, N, K, act, splits,
+                                      s);
     case 2:
-      return launch_splitk<2, BN>(x, w, scale, bias, out, ws, counters, M, N, K, act, splits, s);
+      return launch_splitk<2, BN, TW>(x, w, scale, bias, out, ws, counters, M, N, K, act, splits,
+                                      s);
     case 3:
-      return launch_splitk<3, BN>(x, w, scale, bias, out, ws, counters, M, N, K, act, splits, s);
+      return launch_splitk<3, BN, TW>(x, w, scale, bias, out, ws, counters, M, N, K, act, splits,
+                                      s);
     default:
-      return launch_splitk<4, BN>(x, w, scale, bias, out, ws, counters, M, N, K, act, splits, s);
+      return launch_splitk<4, BN, TW>(x, w, scale, bias, out, ws, counters, M, N, K, act, splits,
+                                      s);
   }
 }
 
-template <typename OutT>
+template <int FORM, typename OutT>
 cudaError_t launch_wgmma(const void* x, const void* w, const float* scale, const float* bias,
-                         OutT* out, int M, int N, int K, int act, int splits,
+                         OutT* out, int G, int M, int N, int K, int act, int splits,
                          cudaStream_t stream) {
   CUtensorMap tmap_x, tmap_w;
-  if (!make_tmap(&tmap_x, x, M, K, WG_BM, WG_BK) || !make_tmap(&tmap_w, w, K, N, WG_BK, 64))
-    return cudaErrorInvalidValue;
+  const int depth = FORM == FORM_GROUPED ? G : 0;
+  const bool ok = make_tmap(&tmap_x, x, depth, M, K, WG_BM, WG_BK) &&
+                  (FORM == FORM_NT ? make_tmap(&tmap_w, w, 0, N, K, WG_BN, WG_BK)
+                                   : make_tmap(&tmap_w, w, depth, K, N, WG_BK, 64));
+  if (!ok) return cudaErrorInvalidValue;
   static uint64_t done = 0;
-  cudaError_t e = allow_smem(gemm_bf16_wgmma<OutT>, WG_SMEM, done);
+  cudaError_t e = allow_smem(gemm_bf16_wgmma<FORM, OutT>, WG_SMEM, done);
   if (e != cudaSuccess) return e;
-  dim3 grid((M + WG_BM - 1) / WG_BM, (N + WG_BN - 1) / WG_BN);
-  gemm_bf16_wgmma<OutT><<<grid, WG_THREADS, WG_SMEM, stream>>>(tmap_x, tmap_w, scale, bias, out,
-                                                               M, N, K, act, splits);
+  dim3 grid((M + WG_BM - 1) / WG_BM, (N + WG_BN - 1) / WG_BN, G);
+  gemm_bf16_wgmma<FORM, OutT><<<grid, WG_THREADS, WG_SMEM, stream>>>(
+      tmap_x, tmap_w, scale, bias, out, M, N, K, act, splits);
   return cudaGetLastError();
 }
 
@@ -952,6 +1040,7 @@ void dispatch(const void* x, const void* w, const float* scale, const float* bia
   }
 }
 
+// The wmma and simt mainloops, every form.
 template <bool TW>
 int launch(const void* x, const void* w, const float* scale, const float* bias, void* out,
            int G, int M, int N, int K, int in_dtype, int out_dtype, int act, void* stream) {
@@ -969,33 +1058,45 @@ int launch(const void* x, const void* w, const float* scale, const float* bias, 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename OutT>
-cudaError_t launch_nn_bf16(const void* x, const void* w, const float* scale, const float* bias,
-                           void* out, int M, int N, int K, int act, int mainloop, int splits,
-                           int block_n, float* ws, int* counters, cudaStream_t s) {
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* wb = static_cast<const __nv_bfloat16*>(w);
+template <int FORM, typename OutT>
+cudaError_t launch_hopper(const void* x, const void* w, const float* scale, const float* bias,
+                          void* out, int G, int M, int N, int K, int act, int mainloop,
+                          int splits, int block_n, float* ws, int* counters, cudaStream_t s) {
   OutT* o = static_cast<OutT*>(out);
   if (mainloop == ML_WGMMA)
-    return launch_wgmma<OutT>(x, w, scale, bias, o, M, N, K, act, splits, s);
-  if (block_n == 64)
-    return splitk_rows<64>(xb, wb, scale, bias, o, ws, counters, M, N, K, act, splits, s);
-  return splitk_rows<128>(xb, wb, scale, bias, o, ws, counters, M, N, K, act, splits, s);
+    return launch_wgmma<FORM, OutT>(x, w, scale, bias, o, G, M, N, K, act, splits, s);
+  if constexpr (FORM == FORM_GROUPED) {
+    return cudaErrorInvalidValue;  // no grouped splitk: the launcher refuses it first
+  } else {
+    constexpr bool TW = FORM == FORM_NT;
+    const auto* xb = static_cast<const __nv_bfloat16*>(x);
+    const auto* wb = static_cast<const __nv_bfloat16*>(w);
+    if (block_n == 64)
+      return splitk_rows<64, TW>(xb, wb, scale, bias, o, ws, counters, M, N, K, act, splits, s);
+    return splitk_rows<128, TW>(xb, wb, scale, bias, o, ws, counters, M, N, K, act, splits, s);
+  }
 }
 
-// The NN form's own mainloops and their preconditions; wmma and simt go
-// through launch<false> as before.
-int launch_nn(const void* x, const void* w, const float* scale, const float* bias, void* out,
-              int M, int N, int K, int in_dtype, int out_dtype, int act, int mainloop,
-              int splits, int block_n, float* ws, int* counters, void* stream) {
+// Every form's launch by the plan it is given (systolic_gemm.py::gemm_plan),
+// refused when the dtype, shape or alignment does not allow it: wmma and
+// simt through launch<TW>; splitk (NN and NT) and wgmma (every form) on
+// bf16 with K and N multiples of 8 and x and w 16-byte aligned (TMA and
+// cp.async need both), K cut into `splits` non-empty ranges (for wgmma
+// with splits > 1, each an even number of 32-deep steps).
+template <int FORM>
+int launch_planned(const void* x, const void* w, const float* scale, const float* bias,
+                   void* out, int G, int M, int N, int K, int in_dtype, int out_dtype, int act,
+                   int mainloop, int splits, int block_n, float* ws, int* counters,
+                   void* stream) {
+  constexpr bool TW = FORM == FORM_NT;
   const bool bf16 = in_dtype == IN_BF16;
   if (mainloop == ML_WMMA || mainloop == ML_SIMT) {
     if (bf16 != (mainloop == ML_WMMA)) return static_cast<int>(cudaErrorInvalidValue);
-    return launch<false>(x, w, scale, bias, out, 1, M, N, K, in_dtype, out_dtype, act, stream);
+    return launch<TW>(x, w, scale, bias, out, G, M, N, K, in_dtype, out_dtype, act, stream);
   }
   auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
-  if ((mainloop != ML_SPLITK && mainloop != ML_WGMMA) || !bf16 || M <= 0 || N <= 0 ||
-      K <= 0 || K % 8 != 0 || N % 8 != 0 || !aligned(x) || !aligned(w) ||
+  if ((mainloop != ML_SPLITK && mainloop != ML_WGMMA) || !bf16 || G <= 0 || G > 65535 ||
+      M <= 0 || N <= 0 || K <= 0 || K % 8 != 0 || N % 8 != 0 || !aligned(x) || !aligned(w) ||
       out_dtype < OUT_F32 || out_dtype > OUT_BF16 || act < ACT_NONE || act > ACT_RELU2)
     return static_cast<int>(cudaErrorInvalidValue);
   const int steps = (K + SK_BK - 1) / SK_BK;  // both sum K in these ranges
@@ -1003,40 +1104,43 @@ int launch_nn(const void* x, const void* w, const float* scale, const float* bia
   if (splits <= 0 || splits > 65535 || (splits - 1) * per >= steps)
     return static_cast<int>(cudaErrorInvalidValue);
   if (mainloop == ML_SPLITK) {
-    if (M > 64 || (block_n != 64 && block_n != 128) ||
-        (splits > 1 && (ws == nullptr || counters == nullptr)))
+    constexpr int stage_steps = SplitkTile<1, 64, TW>::BK / SK_BK;  // 32-deep steps a stage
+    if (FORM == FORM_GROUPED || G != 1 || M > 64 || (block_n != 64 && block_n != 128) ||
+        (splits > 1 && (ws == nullptr || counters == nullptr || per % stage_steps != 0)))
       return static_cast<int>(cudaErrorInvalidValue);
-  } else if (block_n != WG_BN || (N + WG_BN - 1) / WG_BN > 65535 ||
+  } else if ((FORM != FORM_GROUPED && G != 1) || block_n != WG_BN ||
+             (N + WG_BN - 1) / WG_BN > 65535 ||
              (splits > 1 && per % 2 != 0)) {  // wgmma: ranges of whole 64-deep stages
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e =
       out_dtype == OUT_F32
-          ? launch_nn_bf16<float>(x, w, scale, bias, out, M, N, K, act, mainloop, splits,
-                                  block_n, ws, counters, s)
-          : launch_nn_bf16<__nv_bfloat16>(x, w, scale, bias, out, M, N, K, act, mainloop,
-                                          splits, block_n, ws, counters, s);
+          ? launch_hopper<FORM, float>(x, w, scale, bias, out, G, M, N, K, act, mainloop,
+                                       splits, block_n, ws, counters, s)
+          : launch_hopper<FORM, __nv_bfloat16>(x, w, scale, bias, out, G, M, N, K, act,
+                                               mainloop, splits, block_n, ws, counters, s);
   return static_cast<int>(e);
 }
 
 }  // namespace
 
-// w [K, N]. mainloop: 0 wmma, 1 splitk, 2 wgmma, 3 simt (systolic_gemm.py
-// ::nn_plan). splitk and wgmma both sum K in `splits` ranges (wgmma in
-// one block, on 128 x block_n = 128 tiles). splitk: strips of `block_n`
-// (64 or 128) columns,
-// ws at least ceil(N / block_n) * block_n * splits * M floats and
-// counters ceil(N / block_n) ints, zero before the first launch (each launch leaves
-// them zero); both unused (may be null) when splits == 1.
+// mainloop: 0 wmma, 1 splitk, 2 wgmma, 3 simt (systolic_gemm.py::gemm_plan).
+// splitk and wgmma both sum K in `splits` ranges (wgmma in one block, on
+// 128 x block_n = 128 tiles). splitk: strips of `block_n` (64 or 128)
+// columns, ws at least ceil(N / block_n) * block_n * splits * M floats and
+// counters ceil(N / block_n) ints, zero before the first launch (each
+// launch leaves them zero); both unused (may be null) when splits == 1.
+
+// w [K, N]
 extern "C" int systolic_gemm_launch(const void* x, const void* w,
                                     const float* scale, const float* bias,
                                     void* out, int M, int N, int K,
                                     int in_dtype, int out_dtype, int act,
                                     int mainloop, int splits, int block_n,
                                     float* ws, int* counters, void* stream) {
-  return launch_nn(x, w, scale, bias, out, M, N, K, in_dtype, out_dtype, act, mainloop, splits,
-                   block_n, ws, counters, stream);
+  return launch_planned<FORM_NN>(x, w, scale, bias, out, 1, M, N, K, in_dtype, out_dtype, act,
+                                 mainloop, splits, block_n, ws, counters, stream);
 }
 
 // w [N, K], read in that layout
@@ -1044,15 +1148,20 @@ extern "C" int systolic_gemm_nt_launch(const void* x, const void* w,
                                        const float* scale, const float* bias,
                                        void* out, int M, int N, int K,
                                        int in_dtype, int out_dtype, int act,
-                                       void* stream) {
-  return launch<true>(x, w, scale, bias, out, 1, M, N, K, in_dtype, out_dtype, act, stream);
+                                       int mainloop, int splits, int block_n,
+                                       float* ws, int* counters, void* stream) {
+  return launch_planned<FORM_NT>(x, w, scale, bias, out, 1, M, N, K, in_dtype, out_dtype, act,
+                                 mainloop, splits, block_n, ws, counters, stream);
 }
 
-// x [G, M, K], w [G, K, N], scale and bias [G, N] (or null), out [G, M, N]
+// x [G, M, K], w [G, K, N], scale and bias [G, N] (or null), out [G, M, N];
+// wmma, simt or wgmma (no splitk, so no workspace)
 extern "C" int grouped_systolic_gemm_launch(const void* x, const void* w,
                                             const float* scale, const float* bias,
                                             void* out, int G, int M, int N, int K,
                                             int in_dtype, int out_dtype, int act,
+                                            int mainloop, int splits, int block_n,
                                             void* stream) {
-  return launch<false>(x, w, scale, bias, out, G, M, N, K, in_dtype, out_dtype, act, stream);
+  return launch_planned<FORM_GROUPED>(x, w, scale, bias, out, G, M, N, K, in_dtype, out_dtype,
+                                      act, mainloop, splits, block_n, nullptr, nullptr, stream);
 }

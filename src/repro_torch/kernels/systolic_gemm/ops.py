@@ -10,10 +10,11 @@ Hopper kernel, which raises if it cannot run. There is no other path.
 
 The JAX wrappers pad to block multiples, call the kernel and slice back.
 The Hopper kernel masks ragged M/N/K edges itself, so nothing is padded
-here and the result has the same [M, N] contract. The NN form's mainloop
-and split-K geometry come from the shape alone
-(systolic_gemm.py::nn_plan); the grouped and NT forms have one fixed
-tile. The NN and grouped forms accept and check explicit `block_m/n/k`,
+here and the result has the same [M, N] contract. Every form's mainloop
+and split-K geometry come from the form and shape alone
+(systolic_gemm.py::gemm_plan: splitk for NN and NT at M <= 64, wgmma for
+every form above, wmma for ragged shapes and the grouped form at M <=
+64). The NN and grouped forms accept and check explicit `block_m/n/k`,
 which, as on the TPU, do not change the result; the transposed forms take
 no blocks. The TPU's autotuner (parallel/autoshard.py::choose_blocks) is
 not ported.

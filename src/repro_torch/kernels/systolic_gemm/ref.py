@@ -78,6 +78,15 @@ def systolic_gemm_t_ref(x, w, scale=None, bias=None, *, activation=None,
                              out_dtype=out_dtype)
 
 
+def systolic_gemm_t_splitk_ref(x, w, scale=None, bias=None, *, splits: int,
+                               activation=None, out_dtype=torch.float32):
+    """The NT form's splitk and wgmma order of summation, w [N, K]: the
+    same K ranges in the same order as the NN form's."""
+    return systolic_gemm_splitk_ref(x, w.t(), scale, bias, splits=splits,
+                                    activation=activation,
+                                    out_dtype=out_dtype)
+
+
 def grouped_systolic_gemm_ref(x, w, scale=None, bias=None, *,
                               activation=None, out_dtype=torch.float32):
     """G independent GEMMs: x [G, M, K] @ w [G, K, N], scale/bias [G, N].
@@ -88,4 +97,18 @@ def grouped_systolic_gemm_ref(x, w, scale=None, bias=None, *,
                           None if scale is None else scale[g],
                           None if bias is None else bias[g],
                           activation=activation, out_dtype=out_dtype)
+        for g in range(x.shape[0])])
+
+
+def grouped_systolic_gemm_splitk_ref(x, w, scale=None, bias=None, *,
+                                     splits: int, activation=None,
+                                     out_dtype=torch.float32):
+    """The grouped form's wgmma order of summation: per group the NN
+    form's split ranges, x [G, M, K] @ w [G, K, N]."""
+    return torch.stack([
+        systolic_gemm_splitk_ref(x[g], w[g],
+                                 None if scale is None else scale[g],
+                                 None if bias is None else bias[g],
+                                 splits=splits, activation=activation,
+                                 out_dtype=out_dtype)
         for g in range(x.shape[0])])

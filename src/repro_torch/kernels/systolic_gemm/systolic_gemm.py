@@ -6,11 +6,12 @@ independent GEMMs x [G, M, K] @ w [G, K, N] in one launch: the MoE
 experts) check their inputs, allocate the output, launch the kernel on
 PyTorch's current stream and raise if the launch failed. They take only
 CUDA tensors: the plain version for CPU tensors is chosen in ops.py,
-never here. Each counts its own launches in `.launches`;
-`systolic_gemm_cuda.mainloop_launches` splits its count by mainloop.
+never here. Each counts its own launches in `.launches` and splits that
+count by mainloop in `.mainloop_launches`.
 
-The NN form picks its mainloop by shape with `nn_plan`, a pure function
-the CPU tests read; the kernel takes the plan as plain ints.
+Every form picks its mainloop by shape with `gemm_plan`, a pure function
+the CPU tests read (bf16: splitk at decode, wgmma at prefill; the grouped
+form keeps wmma at M <= 64); the kernel takes the plan as plain ints.
 """
 
 from __future__ import annotations
@@ -41,34 +42,44 @@ SPLITK_TARGET_BLOCKS = 2 * 132
 WGMMA_BLOCK_N = 128     # the wgmma mainloop's tile is 128 x 128
 
 
-class NNPlan(NamedTuple):
+FORMS = ("nn", "nt", "grouped")
+
+
+class GemmPlan(NamedTuple):
     mainloop: str        # "splitk", "wgmma", "wmma" or "simt"
     splits: int          # K ranges summed apart (splitk, wgmma); else 1
     block_n: int         # columns per splitk or wgmma block; else 0
 
 
 @functools.lru_cache(maxsize=1024)
-def nn_plan(M: int, N: int, K: int, dtype: torch.dtype,
-            aligned: bool) -> NNPlan:
-    """The NN form's mainloop for x [M, K] @ w [K, N] in `dtype`, with x
-    and w 16-byte aligned when `aligned`:
+def gemm_plan(form: str, M: int, N: int, K: int, dtype: torch.dtype,
+              aligned: bool) -> GemmPlan:
+    """The mainloop of one launch of `form` ("nn": x [M, K] @ w [K, N];
+    "nt": w [N, K]; "grouped": M rows per group, w [G, K, N]) in `dtype`,
+    with x and w 16-byte aligned when `aligned`:
 
-    * splitk: bf16, M <= 64, K and N multiples of 8, aligned (decode);
-    * wgmma: bf16, M > 64, the same alignment, which TMA needs (prefill);
-    * wmma: every other bf16 shape (the ragged ones);
+    * splitk: NN and NT, bf16, M <= 64, K and N multiples of 8, aligned
+      (decode);
+    * wgmma: every form, bf16, M > 64, the same alignment, which TMA
+      needs (prefill);
+    * wmma: every other bf16 shape (the ragged ones, and the grouped form
+      at M <= 64, which reads its experts near the byte bound there);
     * simt: f32 and int8.
 
     splitk and wgmma sum K in the same `splits` ranges, which depend on N
-    and K only, never on M, so a row's result is bit-equal at every M
-    (the kernel's header says why): the smallest power of two of K ranges
+    and K only, never on M or the form, so a row's result is bit-equal at
+    every M and a grouped launch with G = 1 equals the NN launch (the
+    kernel's header says why): the smallest power of two of K ranges
     that brings splitk's blocks (strips of 128 columns, 64 where 128
     cannot reach the target) to SPLITK_TARGET_BLOCKS while each range
     keeps SPLITK_MIN_K of K; then the most ranges, up to that many, that
     are all non-empty and each an even number of k-steps."""
+    if form not in FORMS:
+        raise ValueError(f"form must be one of {FORMS}, got {form!r}")
     if dtype != torch.bfloat16:
-        return NNPlan("simt", 1, 0)
+        return GemmPlan("simt", 1, 0)
     if not (aligned and K % 8 == 0 and N % 8 == 0):
-        return NNPlan("wmma", 1, 0)
+        return GemmPlan("wmma", 1, 0)
     max_splits = max(1, K // SPLITK_MIN_K)
     block_n = 128
     if math.ceil(N / 128) * max_splits < SPLITK_TARGET_BLOCKS:
@@ -86,8 +97,16 @@ def nn_plan(M: int, N: int, K: int, dtype: torch.dtype,
             splits = s
             break
     if M > SPLITK_MAX_M:
-        return NNPlan("wgmma", splits, WGMMA_BLOCK_N)
-    return NNPlan("splitk", splits, block_n)
+        return GemmPlan("wgmma", splits, WGMMA_BLOCK_N)
+    if form == "grouped":
+        return GemmPlan("wmma", 1, 0)
+    return GemmPlan("splitk", splits, block_n)
+
+
+def nn_plan(M: int, N: int, K: int, dtype: torch.dtype,
+            aligned: bool) -> GemmPlan:
+    """gemm_plan of the NN form."""
+    return gemm_plan("nn", M, N, K, dtype, aligned)
 
 
 def splitk_ranges(K: int, splits: int) -> list[tuple[int, int]]:
@@ -107,11 +126,11 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     fn = lib.systolic_gemm_nt_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
-        [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + \
+        [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     fn = lib.grouped_systolic_gemm_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
@@ -143,10 +162,10 @@ def _check_vec(name: str, t: torch.Tensor, shape: tuple, device) -> None:
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, scale, bias, activation,
-            out_dtype, form: str) -> tuple[torch.Tensor, NNPlan | None]:
+            out_dtype, form: str) -> tuple[torch.Tensor, GemmPlan]:
     """form: "nn" (x [M, K], w [K, N]), "nt" (w [N, K]) or "grouped"
-    (x [G, M, K], w [G, K, N], scale/bias [G, N]). Returns the output and,
-    for "nn", the plan it ran."""
+    (x [G, M, K], w [G, K, N], scale/bias [G, N]). Returns the output and
+    the plan it ran."""
     name = {"nn": "systolic_gemm_cuda", "nt": "systolic_gemm_nt_cuda",
             "grouped": "grouped_systolic_gemm_cuda"}[form]
     grouped = form == "grouped"
@@ -187,26 +206,25 @@ def _launch(x: torch.Tensor, w: torch.Tensor, scale, bias, activation,
     args += [G, M, N, K] if grouped else [M, N, K]
     args += [_IN_DTYPES[x.dtype], _OUT_DTYPES[out_dtype],
              ACTIVATIONS[activation]]
-    plan = None
-    if form == "nn":
-        plan = nn_plan(M, N, K, x.dtype, x.data_ptr() % 16 == 0
-                       and w.data_ptr() % 16 == 0)
+    plan = gemm_plan(form, M, N, K, x.dtype, x.data_ptr() % 16 == 0
+                     and w.data_ptr() % 16 == 0)
+    args += [MAINLOOPS[plan.mainloop], plan.splits, plan.block_n]
+    if not grouped:
         ws = counters = None
         if plan.mainloop == "splitk" and plan.splits > 1:
             strips = -(-N // plan.block_n)
             ws, counters = _splitk_scratch(
                 x.device, strips * plan.block_n * plan.splits * M, strips)
-        args += [MAINLOOPS[plan.mainloop], plan.splits, plan.block_n,
-                 None if ws is None else ws.data_ptr(),
+        args += [None if ws is None else ws.data_ptr(),
                  None if counters is None else counters.data_ptr()]
     args.append(torch.cuda.current_stream(x.device).cuda_stream)
     fn = {"nn": lib.systolic_gemm_launch, "nt": lib.systolic_gemm_nt_launch,
           "grouped": lib.grouped_systolic_gemm_launch}[form]
     rc = fn(*args)
     if rc != 0:
-        how = "" if plan is None else f", {plan}"
         raise RuntimeError(f"{name} kernel launch failed with CUDA error "
-                           f"{rc} (G={G} M={M} K={K} N={N}, {x.dtype}{how})")
+                           f"{rc} (G={G} M={M} K={K} N={N}, {x.dtype}, "
+                           f"{plan})")
     return out, plan
 
 
@@ -218,7 +236,7 @@ def systolic_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
     """act((x @ w) * scale + bias) -> out_dtype on the card.
     x [M, K], w [K, N]: both float32, both bfloat16 or both int8,
     contiguous, on one CUDA device. scale, bias: float32 [N] or None.
-    The mainloop is nn_plan's; a split-K launch uses this module's
+    The mainloop is gemm_plan's; a split-K launch uses this module's
     per-device workspace, so launches on one device share one stream."""
     out, plan = _launch(x, w, scale, bias, activation, out_dtype, "nn")
     systolic_gemm_cuda.launches += 1
@@ -234,9 +252,10 @@ def systolic_gemm_nt_cuda(x: torch.Tensor, w: torch.Tensor,
                           ) -> torch.Tensor:
     """act((x @ w^T) * scale + bias) -> out_dtype on the card, with w
     [N, K] read in its stored layout (no transpose copy). Otherwise as
-    systolic_gemm_cuda."""
-    out, _ = _launch(x, w, scale, bias, activation, out_dtype, "nt")
+    systolic_gemm_cuda (gemm_plan's "nt" mainloop)."""
+    out, plan = _launch(x, w, scale, bias, activation, out_dtype, "nt")
     systolic_gemm_nt_cuda.launches += 1
+    systolic_gemm_nt_cuda.mainloop_launches[plan.mainloop] += 1
     return out
 
 
@@ -249,13 +268,15 @@ def grouped_systolic_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
     """G independent act((x[g] @ w[g]) * scale[g] + bias[g]) -> out_dtype
     in one launch on the card. x [G, M, K], w [G, K, N] (one dtype as in
     systolic_gemm_cuda), scale, bias: float32 [G, N] or None. The kernel
-    refuses G > 65535 (the grid's z limit), and this raises."""
-    out, _ = _launch(x, w, scale, bias, activation, out_dtype, "grouped")
+    refuses G > 65535 (the grid's z limit), and this raises. The mainloop
+    is gemm_plan's "grouped" one."""
+    out, plan = _launch(x, w, scale, bias, activation, out_dtype, "grouped")
     grouped_systolic_gemm_cuda.launches += 1
+    grouped_systolic_gemm_cuda.mainloop_launches[plan.mainloop] += 1
     return out
 
 
-systolic_gemm_cuda.launches = 0
-systolic_gemm_cuda.mainloop_launches = dict.fromkeys(MAINLOOPS, 0)
-systolic_gemm_nt_cuda.launches = 0
-grouped_systolic_gemm_cuda.launches = 0
+for _fn in (systolic_gemm_cuda, systolic_gemm_nt_cuda,
+            grouped_systolic_gemm_cuda):
+    _fn.launches = 0
+    _fn.mainloop_launches = dict.fromkeys(MAINLOOPS, 0)

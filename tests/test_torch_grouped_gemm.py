@@ -7,7 +7,10 @@ On the CPU `repro_torch...ops.grouped_gemm` runs its plain version
 (int8 and f32 shapes, the per-group epilogue, an empty group, ragged
 capacity fill, G = 1), with tolerances from `repro_torch.TOLERANCES`
 (the values of tests/test_kernels.py; int8 without an epilogue is exact).
-The Hopper kernel itself runs only on the card (the `gpu` test below).
+The wgmma mainloop's order of summation (per group the NN form's split
+ranges, `grouped_systolic_gemm_splitk_ref`) is held to the NN form's and
+to an empty group's exact zero. The Hopper kernel itself runs only on the
+card (the `gpu` tests below).
 """
 
 import jax.numpy as jnp
@@ -20,10 +23,11 @@ from repro.kernels.systolic_gemm.ref import systolic_gemm_ref as jax_ref
 from repro_torch import TOLERANCES
 from repro_torch.bridge import params_from_jax
 from repro_torch.kernels.systolic_gemm import ops
-from repro_torch.kernels.systolic_gemm.ref import (grouped_systolic_gemm_ref,
-                                                   systolic_gemm_ref)
+from repro_torch.kernels.systolic_gemm.ref import (
+    grouped_systolic_gemm_ref, grouped_systolic_gemm_splitk_ref,
+    systolic_gemm_ref, systolic_gemm_splitk_ref)
 from repro_torch.kernels.systolic_gemm.systolic_gemm import (
-    grouped_systolic_gemm_cuda, systolic_gemm_cuda)
+    gemm_plan, grouped_systolic_gemm_cuda, systolic_gemm_cuda)
 
 T = lambda a: params_from_jax(np.asarray(a))          # jax -> torch (exact)
 GROUPED_SHAPES = [(2, 32, 40, 24), (3, 64, 64, 64), (1, 5, 130, 17),
@@ -137,6 +141,30 @@ def test_grouped_gemm_single_group_is_the_pod_gemm():
                   TOLERANCES["gemm_int8_exact"])
 
 
+@pytest.mark.parametrize("act", ACTS)
+def test_grouped_split_order_is_nn_split_order_per_group(act):
+    """The wgmma mainloop's arithmetic in plain torch: each group summed in
+    the NN form's split ranges, bit for bit the NN emulation of that group
+    (so G = 1 equals the NN launch), and an empty group with a zero bias
+    exactly 0 under every activation."""
+    g = torch.Generator().manual_seed(6)
+    G, M, K, N = 3, 65, 520, 24          # 17 k-steps in ranges 6, 6, 5
+    x = torch.randn((G, M, K), generator=g).to(torch.bfloat16)
+    w = (torch.randn((G, K, N), generator=g) / K ** 0.5).to(torch.bfloat16)
+    s = torch.rand((G, N), generator=g) + 0.5
+    b = torch.randn((G, N), generator=g)
+    x[1] = 0
+    b[1] = 0
+    got = grouped_systolic_gemm_splitk_ref(x, w, s, b, splits=3,
+                                           activation=act)
+    for i in range(G):
+        assert torch.equal(got[i], systolic_gemm_splitk_ref(
+            x[i], w[i], s[i], b[i], splits=3, activation=act))
+    assert torch.equal(got[1], torch.zeros((M, N)))
+    tol = TOLERANCES["gemm_bf16_f32out"]
+    assert tol.ok(got, grouped_systolic_gemm_ref(x, w, s, b, activation=act))
+
+
 def test_grouped_wrapper_checks_its_inputs():
     """The kernel wrapper never takes the plain version itself, and refuses
     what the kernel does not take before it looks for a card."""
@@ -214,3 +242,24 @@ def test_kernel_refuses_more_groups_than_the_grid_holds(cuda_device):
     got = grouped_systolic_gemm_cuda(x[1:], x[1:])
     torch.cuda.synchronize()
     assert torch.equal(got, torch.ones_like(got, dtype=torch.float32))
+
+
+@pytest.mark.gpu
+def test_wgmma_rows_and_single_group_are_bit_equal_on_card(cuda_device):
+    """The grouped wgmma mainloop: a group's rows are bit-equal at every M
+    above 64 (dbrx's ragged capacities), and G = 1 equals the NN launch of
+    the same shape bit for bit (both wgmma, one order of summation)."""
+    g = torch.Generator(cuda_device).manual_seed(2)
+    G, K, N = 4, 1032, 264
+    x = torch.randn((G, 200, K), generator=g, device=cuda_device).bfloat16()
+    w = (torch.randn((G, K, N), generator=g, device=cuda_device)
+         / K ** 0.5).bfloat16()
+    full = grouped_systolic_gemm_cuda(x, w, out_dtype=torch.bfloat16)
+    for M in (129, 65):
+        assert gemm_plan("grouped", M, N, K, torch.bfloat16,
+                         True).mainloop == "wgmma"
+        part = grouped_systolic_gemm_cuda(x[:, :M].contiguous(), w,
+                                          out_dtype=torch.bfloat16)
+        assert torch.equal(part, full[:, :M]), M
+    one = grouped_systolic_gemm_cuda(x[:1], w[:1])
+    assert torch.equal(one[0], systolic_gemm_cuda(x[0], w[0]))

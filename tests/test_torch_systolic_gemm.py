@@ -8,11 +8,12 @@ head) is held the same way against JAX's `systolic_gemm_t`. Tolerances
 come from `repro_torch.TOLERANCES` (the values of tests/test_kernels.py);
 int8 accumulation without an epilogue must be exact.
 
-The NN form's mainloop plan (`nn_plan`) is pure Python and is held here to
-its rules at granite-8b's and dbrx-132b's served shapes, and the splitk
-mainloop's order of summation, emulated in plain torch, against the Pallas
-kernel. The Hopper kernels themselves run only on the card (the
-gpu-marked tests: `python -m pytest -m gpu tests/test_torch_*.py` there).
+The mainloop plan of every form (`gemm_plan`; `nn_plan` for NN) is pure
+Python and is held here to its rules at granite-8b's, mamba2-370m's and
+dbrx-132b's served shapes, and the splitk/wgmma order of summation,
+emulated in plain torch, against the NN, NT and grouped Pallas kernels.
+The Hopper kernels themselves run only on the card (the gpu-marked tests:
+`python -m pytest -m gpu tests/test_torch_*.py` there).
 """
 
 import jax.numpy as jnp
@@ -26,13 +27,13 @@ from repro.kernels.systolic_gemm.ref import systolic_gemm_t_ref as jax_t_ref
 from repro_torch import TOLERANCES
 from repro_torch.bridge import params_from_jax
 from repro_torch.kernels.systolic_gemm import ops
-from repro_torch.kernels.systolic_gemm.ref import (splitk_partials,
-                                                   systolic_gemm_ref,
-                                                   systolic_gemm_splitk_ref,
-                                                   systolic_gemm_t_ref)
+from repro_torch.kernels.systolic_gemm.ref import (
+    grouped_systolic_gemm_ref, grouped_systolic_gemm_splitk_ref,
+    splitk_partials, systolic_gemm_ref, systolic_gemm_splitk_ref,
+    systolic_gemm_t_ref, systolic_gemm_t_splitk_ref)
 from repro_torch.kernels.systolic_gemm.systolic_gemm import (
-    SPLITK_K_STEP, nn_plan, splitk_ranges, systolic_gemm_cuda,
-    systolic_gemm_nt_cuda)
+    FORMS, SPLITK_K_STEP, gemm_plan, grouped_systolic_gemm_cuda, nn_plan,
+    splitk_ranges, systolic_gemm_cuda, systolic_gemm_nt_cuda)
 
 SHAPES = [(1, 1, 1), (33, 57, 29), (100, 130, 70), (5, 260, 130)]
 ACTS = [None, "relu", "gelu", "silu", "relu2"]
@@ -213,6 +214,63 @@ def test_nn_plan_puts_served_shapes_on_splitk_or_wgmma(arch):
                 assert plan == ("wgmma", decode.splits, 128), (M, K, N)
 
 
+# mamba2-370m's tied head, x [M, 1024] @ tok [50280, 1024]^T: decode (4
+# lanes) and the largest bucketed prefill ([4, 2048], every position)
+MAMBA2_HEAD_KN = (1024, 50280)
+# dbrx-132b's expert GEMMs (K, N): up and gate, then down; rows per expert
+# at decode (1) and at exact-length prefills (9, 320, 399)
+DBRX_EXPERT_KN = [(6144, 10752), (10752, 6144)]
+
+
+def test_gemm_plan_puts_mamba2_head_and_dbrx_experts_on_hopper_mainloops():
+    """The NT head on splitk at decode and wgmma at prefill; the grouped
+    experts on wmma at M <= 64 and wgmma above; each with NN's splits."""
+    K, N = MAMBA2_HEAD_KN
+    nn = nn_plan(1, N, K, torch.bfloat16, True)
+    assert gemm_plan("nt", 4, N, K, torch.bfloat16, True) == nn
+    assert gemm_plan("nt", 8192, N, K, torch.bfloat16, True) == \
+        ("wgmma", nn.splits, 128)
+    for K, N in DBRX_EXPERT_KN:
+        nn = nn_plan(1, N, K, torch.bfloat16, True)
+        for M in (1, 9):
+            assert gemm_plan("grouped", M, N, K, torch.bfloat16, True) == \
+                ("wmma", 1, 0), (M, K, N)
+        for M in (320, 399):
+            assert gemm_plan("grouped", M, N, K, torch.bfloat16, True) == \
+                ("wgmma", nn.splits, 128), (M, K, N)
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_gemm_plan_splits_are_nn_splits_for_every_form(form):
+    """splits is a function of N and K only: a form's splitk or wgmma plan
+    sums K in NN's ranges at every M, so rows are bit-equal across M and a
+    grouped launch with G = 1 equals the NN launch; ragged shapes stay on
+    wmma and f32/int8 on simt in every form."""
+    kns = [kn for arch in SERVED_KN.values() for kn in arch] + \
+        [MAMBA2_HEAD_KN, *DBRX_EXPERT_KN, (4104, 1032), (520, 136)]
+    for K, N in kns:
+        for M in SERVED_M:
+            nn = nn_plan(M, N, K, torch.bfloat16, True)
+            plan = gemm_plan(form, M, N, K, torch.bfloat16, True)
+            assert plan.mainloop in ("splitk", "wgmma", "wmma"), plan
+            if plan.mainloop != "wmma":
+                assert plan == nn, (form, M, K, N)
+            else:
+                assert form == "grouped" and M <= 64, (M, K, N)
+    assert gemm_plan(form, 300, 130, 100, torch.bfloat16, True).mainloop \
+        == "wmma"
+    assert gemm_plan(form, 300, 4096, 4096, torch.bfloat16,
+                     False).mainloop == "wmma"
+    for dtype in (torch.float32, torch.int8):
+        assert gemm_plan(form, 300, 4096, 4096, dtype, True).mainloop == \
+            "simt"
+
+
+def test_gemm_plan_refuses_an_unknown_form():
+    with pytest.raises(ValueError, match="form"):
+        gemm_plan("tn", 4, 8, 8, torch.bfloat16, True)
+
+
 def test_nn_plan_other_shapes():
     """The ragged case and misaligned pointers stay on wmma; f32 and int8
     on simt."""
@@ -238,25 +296,63 @@ def test_splitk_ranges_cover_k_in_whole_k_steps(K):
             assert b == K or (b - a) % (2 * SPLITK_K_STEP) == 0
 
 
+def _grouped_inputs(rng, G, M, K, N):
+    """bf16 x [G, M, K], w [G, K, N]; f32 scale and bias [G, N]."""
+    x = rng.standard_normal((G, M, K))
+    w = rng.standard_normal((G, K, N)) / np.sqrt(K)
+    s = (rng.random((G, N)) + 0.5).astype(np.float32)
+    b = rng.standard_normal((G, N)).astype(np.float32)
+    jx, jw = jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
+    to_t = lambda a: params_from_jax(np.asarray(a))
+    return (jx, jw, jnp.asarray(s), jnp.asarray(b)), \
+        (to_t(jx), to_t(jw), torch.from_numpy(s), torch.from_numpy(b))
+
+
+def _splitk_case(form, M, K, N, splits, G=1):
+    return pytest.param(form, G, M, K, N, splits,
+                        id=f"{M}-{K}-{N}-{splits}" if form == "nn"
+                        else f"{form}-{G}-{M}-{K}-{N}-{splits}")
+
+
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("M,K,N,splits", [(4, 520, 72, 3), (29, 256, 40, 8),
-                                          (64, 200, 16, 2)])
-def test_splitk_summation_order_matches_jax(M, K, N, splits, out_dtype):
+@pytest.mark.parametrize("form,G,M,K,N,splits", [
+    _splitk_case("nn", 4, 520, 72, 3), _splitk_case("nn", 29, 256, 40, 8),
+    _splitk_case("nn", 64, 200, 16, 2),
+    # NT (w [N, K]): splitk rows at decode, wgmma rows past 64, uneven ranges
+    _splitk_case("nt", 4, 520, 72, 3), _splitk_case("nt", 65, 264, 40, 4),
+    # grouped (wgmma only): ragged rows per group, an uneven last range
+    _splitk_case("grouped", 65, 200, 24, 2, G=3),
+    _splitk_case("grouped", 70, 520, 16, 3, G=2)])
+def test_splitk_summation_order_matches_jax(form, G, M, K, N, splits,
+                                            out_dtype):
     """f32 partials per K range, added in split order, then the epilogue:
-    within gemm_bf16_f32out / gemm_bf16out of the Pallas kernel."""
+    within gemm_bf16_f32out / gemm_bf16out of the form's Pallas kernel
+    (NN, NT or grouped, interpret mode), SiLU with scale and bias."""
     rng = np.random.default_rng(M + K)
-    (jx, jw, js, jb), (tx, tw, ts, tb) = _inputs(rng, M, K, N, "bfloat16")
     jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[out_dtype]
     tdt = getattr(torch, out_dtype)
-    pallas = jops.systolic_gemm(jx, jw, js, jb, activation="silu",
-                                out_dtype=jdt, interpret=True)
-    got = systolic_gemm_splitk_ref(tx, tw, ts, tb, splits=splits,
-                                   activation="silu", out_dtype=tdt)
+    kw = dict(activation="silu")
+    if form == "grouped":
+        (jx, jw, js, jb), (tx, tw, ts, tb) = _grouped_inputs(rng, G, M, K, N)
+        pallas = jops.grouped_gemm(jx, jw, js, jb, out_dtype=jdt,
+                                   interpret=True, **kw)
+        got = grouped_systolic_gemm_splitk_ref(tx, tw, ts, tb, splits=splits,
+                                               out_dtype=tdt, **kw)
+        parts = [splitk_partials(tx[g], tw[g], splits) for g in range(G)]
+    else:
+        nt = form == "nt"
+        (jx, jw, js, jb), (tx, tw, ts, tb) = _inputs(rng, M, K, N, "bfloat16",
+                                                     transposed=nt)
+        pallas = (jops.systolic_gemm_t if nt else jops.systolic_gemm)(
+            jx, jw, js, jb, out_dtype=jdt, interpret=True, **kw)
+        got = (systolic_gemm_t_splitk_ref if nt else systolic_gemm_splitk_ref)(
+            tx, tw, ts, tb, splits=splits, out_dtype=tdt, **kw)
+        parts = [splitk_partials(tx, tw.t() if nt else tw, splits)]
     assert got.dtype == tdt
     _assert_close(got, pallas, TOLERANCES["gemm_bf16_f32out"
                                           if out_dtype == "float32"
                                           else "gemm_bf16out"])
-    assert len(splitk_partials(tx, tw, splits)) == splits
+    assert all(len(p) == splits for p in parts)
 
 
 def test_splitk_controls_fail_the_card_tolerance():
@@ -272,6 +368,22 @@ def test_splitk_controls_fail_the_card_tolerance():
     assert tol.ok(systolic_gemm_splitk_ref(x, w, splits=4), ref)
     assert not tol.ok(chip_smoke.last_split_dropped(x, w, 4), ref)
     assert not tol.ok(chip_smoke.stale_w_tile(x, w, SPLITK_K_STEP), ref)
+
+
+def test_nt_splitk_controls_fail_the_card_tolerance():
+    """The same controls planted on an NT weight w [N, K] through its
+    [K, N] view, as chip_smoke.py's NT phase plants them: both miss
+    gemm_bf16_f32out of the NT plain version; the NT split-order
+    emulation does not."""
+    import chip_smoke
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn((4, 1024), generator=g).to(torch.bfloat16)
+    w = (torch.randn((256, 1024), generator=g) / 32).to(torch.bfloat16)
+    ref = systolic_gemm_t_ref(x, w)
+    tol = TOLERANCES["gemm_bf16_f32out"]
+    assert tol.ok(systolic_gemm_t_splitk_ref(x, w, splits=4), ref)
+    assert not tol.ok(chip_smoke.last_split_dropped(x, w.t(), 4), ref)
+    assert not tol.ok(chip_smoke.stale_w_tile(x, w.t(), SPLITK_K_STEP), ref)
 
 
 @pytest.fixture
@@ -312,31 +424,54 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, transposed):
             assert tol.ok(got, ref)
 
 
+# (M, K, N, mainloop) per form: ragged M, N and K (N and K multiples of 8,
+# not of a tile; NT and grouped also N and K below one TMA box); the
+# grouped cases have G = 3 with an empty middle group
+NEW_MAINLOOP_CASES = {
+    "nn": [(29, 4104, 1032, "splitk"), (4, 4104, 4096, "splitk"),
+           (65, 520, 136, "wgmma"), (1277, 4104, 1032, "wgmma")],
+    "nt": [(29, 4104, 1032, "splitk"), (4, 1024, 50280, "splitk"),
+           (65, 520, 136, "wgmma"), (300, 1024, 50280, "wgmma"),
+           (65, 40, 72, "wgmma")],
+    "grouped": [(65, 256, 136, "wgmma"), (129, 1032, 264, "wgmma"),
+                (70, 40, 16, "wgmma"), (33, 256, 136, "wmma")]}
+KERNELS = {"nn": (systolic_gemm_cuda, systolic_gemm_ref),
+           "nt": (systolic_gemm_nt_cuda, systolic_gemm_t_ref),
+           "grouped": (grouped_systolic_gemm_cuda, grouped_systolic_gemm_ref)}
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-def test_new_mainloops_match_plain_on_card(cuda_device, out_dtype):
-    """splitk and wgmma at ragged M, N and K (N and K multiples of 8, not
-    of a tile), with scale, bias and SiLU, against the plain version; each
-    shape takes the mainloop nn_plan names."""
+def test_new_mainloops_match_plain_on_card(cuda_device, out_dtype, form):
+    """splitk and wgmma at ragged M, N and K, with scale, bias and SiLU,
+    against the plain version; each shape takes the mainloop gemm_plan
+    names. A grouped launch's empty group comes out exactly 0."""
     g = torch.Generator(cuda_device).manual_seed(1)
     tol = TOLERANCES["gemm_bf16_f32out" if out_dtype == torch.float32
                      else "gemm_bf16out"]
-    for M, K, N, mainloop in [(29, 4104, 1032, "splitk"),
-                              (4, 4104, 4096, "splitk"),
-                              (65, 520, 136, "wgmma"),
-                              (1277, 4104, 1032, "wgmma")]:
-        assert nn_plan(M, N, K, torch.bfloat16, True).mainloop == mainloop
-        x = torch.randn((M, K), generator=g, device=cuda_device).bfloat16()
-        w = (torch.randn((K, N), generator=g, device=cuda_device)
+    kernel, plain = KERNELS[form]
+    lead = (3,) if form == "grouped" else ()
+    for M, K, N, mainloop in NEW_MAINLOOP_CASES[form]:
+        assert gemm_plan(form, M, N, K, torch.bfloat16, True).mainloop == \
+            mainloop
+        x = torch.randn(lead + (M, K), generator=g,
+                        device=cuda_device).bfloat16()
+        w_shape = lead + ((N, K) if form == "nt" else (K, N))
+        w = (torch.randn(w_shape, generator=g, device=cuda_device)
              / K ** 0.5).bfloat16()
-        scale = torch.rand(N, generator=g, device=cuda_device) + 0.5
-        bias = torch.randn(N, generator=g, device=cuda_device)
-        before = dict(systolic_gemm_cuda.mainloop_launches)
-        got = systolic_gemm_cuda(x, w, scale, bias, activation="silu",
-                                 out_dtype=out_dtype)
-        ref = systolic_gemm_ref(x, w, scale, bias, activation="silu",
-                                out_dtype=out_dtype)
+        scale = torch.rand(lead + (N,), generator=g, device=cuda_device) + 0.5
+        bias = torch.randn(lead + (N,), generator=g, device=cuda_device)
+        if lead:                                 # an expert with no token
+            x[1] = 0
+            bias[1] = 0
+        before = dict(kernel.mainloop_launches)
+        got = kernel(x, w, scale, bias, activation="silu",
+                     out_dtype=out_dtype)
+        ref = plain(x, w, scale, bias, activation="silu",
+                    out_dtype=out_dtype)
         torch.cuda.synchronize()
         assert tol.ok(got, ref), (M, K, N, tol.excess(got, ref))
-        assert systolic_gemm_cuda.mainloop_launches[mainloop] == \
-            before[mainloop] + 1
+        if lead:
+            assert torch.equal(got[1], torch.zeros_like(got[1]))
+        assert kernel.mainloop_launches[mainloop] == before[mainloop] + 1
