@@ -34,13 +34,20 @@ Phases, one JSON line each; any failure exits non-zero:
   4. flash   - the flash-attention kernel against its plain version:
                f32/bf16 x the cases of tests/test_kernels.py, granite-8b's
                and dbrx-132b's heads (48 over 8 at its longest and
-               shortest prompts), Sq != Skv, D = 192, within
-               runtime.TOLERANCES; bf16 also against the Pallas kernel's
-               own arithmetic (flash_bf16_tiled_served: one bf16 ulp and
-               a flipped p of a heavy key). Two planted controls (causal
-               mask off by one, GQA map h % Hkv) must fail; at granite-8b's
-               [4, 2048, 32, 128] two that err on late KV tiles only (a
-               stale K tile, PV summed in bf16) must fail that tolerance.
+               shortest prompts), Sq != Skv, D = 192, and the wgmma
+               mainloop's edges (Sq and Skv at 127, 128, 129; a kv_len
+               tail inside a key tile and on its edge; a window across two
+               key tiles; B > 1 with ragged S; D = 64 and 128), within
+               runtime.TOLERANCES, each case with its mainloop
+               (flash_plan); bf16 also against the Pallas kernel's own
+               arithmetic at the kernel's key tile (flash_bf16_tiled_served:
+               one bf16 ulp and a flipped p of a heavy key). Two planted
+               controls (causal mask off by one, GQA map h % Hkv) must
+               fail; at granite-8b's [4, 2048, 32, 128] two that err on
+               late KV tiles only (a stale K tile, PV summed in bf16) must
+               fail that tolerance. A prompt's rows must be bit-equal
+               prefilled alone ([1, S]) and in a [4, 2S] bucket, at
+               granite's and dbrx's heads.
   5. ssd     - the SSD chunk-scan kernel against the Pallas kernel's own
                arithmetic (ssd_kernel_ref) at about one bf16 ulp and
                against the reference (ssd_ref, bf16 state) at its stated
@@ -80,8 +87,9 @@ Phases, one JSON line each; any failure exits non-zero:
                served by a paged ServeEngine (max_len 2048, a pool of half
                the dense pages) on prompts of up to 1500 tokens: every
                request done, the pool drained, at least one lane recycled,
-               36 flash launches per prefill, 253 pod-GEMM launches per
-               forward, one host sync per prefill group and decode chunk.
+               36 flash launches per prefill, each on wgmma, 253 pod-GEMM
+               launches per forward, one host sync per prefill group and
+               decode chunk.
  10. paged_oracle - the same requests through a dense ServeEngine on the
                same flash model: tokens must be equal. On ORACLE_LAYERS
                layers the paged flash engine is held to the margin rule
@@ -108,8 +116,8 @@ Phases, one JSON line each; any failure exits non-zero:
                [1, S], 24 grouped and 33 pod-GEMM launches per forward, the
                grouped ones on wgmma where a prefill gives an expert more
                than 64 rows and on wmma otherwise, 8 flash launches per
-               prefill and none per decode step, no NT or SSD launch, one
-               host sync per prefill and decode chunk.
+               prefill, each on wgmma, and none per decode step, no NT or
+               SSD launch, one host sync per prefill and decode chunk.
  14. moe_oracle - the first 4 of those requests through a fresh ServeEngine
                and the per-token ReferenceEngine: every decode batch is
                fully live in both, so capacity coupling through dead lanes
@@ -118,7 +126,9 @@ Phases, one JSON line each; any failure exits non-zero:
                batch on ORACLE_LAYERS layers of the same weights.
  15. kernels - each kernel's time at the served shapes beside its bound,
                its plain version and one PyTorch call (a yardstick only);
-               the pod GEMM at granite-8b's and dbrx-132b's shapes, the NT
+               the pod GEMM at granite-8b's and dbrx-132b's shapes, flash
+               at granite's [4, 256] and [4, 2048] and dbrx's [1, 1277]
+               prefills (mainloop, key tile and TFLOP/s each), the NT
                head up to a [4, 2048] prefill, the grouped experts' up and
                down at M = 320; launches by mainloop from the served runs.
 
@@ -519,12 +529,20 @@ FLASH_CASES = [
     # group), D 128, its longest (prime) and shortest served prompts
     (1, 1277, 1277, 48, 8, 128, True, None, None),
     (1, 29, 29, 48, 8, 128, True, None, None),
+    # the wgmma mainloop's edges (128-row q tiles, 128-key tiles): S below,
+    # at and just past a tile; Sq != Skv with a kv_len tail inside a key
+    # tile and on a tile edge; a window across two key tiles; B > 1 with
+    # ragged S (a tile that reaches past S must not read the next batch)
+    (1, 127, 127, 8, 2, 128, True, None, None),
+    (1, 128, 128, 8, 2, 128, True, None, None),
+    (1, 129, 129, 8, 2, 128, True, None, None),
+    (2, 129, 257, 8, 2, 128, True, None, 200),
+    (2, 300, 384, 8, 2, 128, False, None, 256),
+    (1, 512, 512, 8, 2, 128, True, 200, None),
+    (2, 384, 384, 4, 4, 64, True, 130, None),
+    (3, 200, 200, 8, 2, 128, True, None, None),
+    (3, 150, 150, 4, 2, 64, False, None, None),
 ]
-
-
-def kernel_block_k(D: int) -> int:
-    """The kernel's key tile (csrc/flash_attention.cu, launch_bf16)."""
-    return 64 if D <= 128 else 32
 
 
 def pv_summed_in_bf16(q, k, v, block_k: int) -> torch.Tensor:
@@ -571,7 +589,7 @@ def flash_served_shape(g) -> dict:
     that two right kernels share) at flash_bf16_tiled and the served
     tolerance."""
     B, S, Hq, Hkv, D = 4, 2048, 32, 8, 128
-    bk = kernel_block_k(D)
+    bk = fa.flash_plan(D, torch.bfloat16).block_k
     q, k, v = (torch.randn((B, S, h, D), generator=g, device="cuda")
                .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
     got = fa.flash_attention_cuda(q, k, v, causal=True)
@@ -606,6 +624,29 @@ def flash_served_shape(g) -> dict:
     return out
 
 
+def flash_rows_alone_and_bucketed(g) -> list[dict]:
+    """A prompt's rows prefilled alone ([1, S], as the exact-length engine
+    and the oracle do) and in lane 2 of a [4, 2S] bucket beside other
+    lanes (as the bucketed engine does) must be bit-equal: the key tile
+    comes from D alone, and a row's arithmetic from its own q row and
+    keys. At granite-8b's heads (32 over 8) and dbrx-132b's (48 over 8),
+    D 128, causal."""
+    out = []
+    for S, Hq, Hkv in ((957, 32, 8), (1277, 48, 8)):
+        q, k, v = (torch.randn((SLOTS, 2 * S, h, 128), generator=g,
+                               device="cuda").to(torch.bfloat16)
+                   for h in (Hq, Hkv, Hkv))
+        alone = fa.flash_attention_cuda(
+            *(x[2:3, :S].contiguous() for x in (q, k, v)), causal=True)
+        bucket = fa.flash_attention_cuda(q, k, v, causal=True)[2:3, :S]
+        out.append({"S": S, "bucket": [SLOTS, 2 * S], "Hq": Hq, "Hkv": Hkv,
+                    "mainloop": fa.flash_plan(128, q.dtype).mainloop,
+                    "equal": bool(torch.equal(alone, bucket)),
+                    "max_abs_diff": float((alone.float() - bucket.float())
+                                          .abs().max())})
+    return out
+
+
 def plain_masked(q, k, v, ok, kv_head):
     """The plain version's arithmetic with a given [Sq, Skv] mask and
     q-head -> kv-head map; the planted controls take a wrong one of each."""
@@ -626,6 +667,7 @@ def phase_flash() -> None:
     cases, failures = 0, []
     worst: dict[str, dict] = {}
     control: dict[str, dict] = {}
+    by_mainloop: dict[str, int] = {}
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOLERANCES["flash_f32" if dtype == torch.float32
                          else "flash_bf16"]
@@ -634,6 +676,7 @@ def phase_flash() -> None:
             q, k, v = (torch.randn(s, generator=g, device="cuda").to(dtype)
                        for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D),
                                  (B, Skv, Hkv, D)))
+            plan = fa.flash_plan(D, dtype)
             got = fa.flash_attention_cuda(q, k, v, causal=causal,
                                           window=window, kv_len=kv_len)
             ref = flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -644,9 +687,10 @@ def phase_flash() -> None:
             row = worst.setdefault(cls, {"max_abs_err": 0.0, "excess": 0.0})
             row["max_abs_err"] = max(row["max_abs_err"], err)
             row["excess"] = max(row["excess"], excess)
+            by_mainloop[plan.mainloop] = by_mainloop.get(plan.mainloop, 0) + 1
             case = (f"{cls} q{(B, Sq, Hq, D)} kv{(Skv, Hkv)} causal={causal} "
-                    f"window={window} kv_len={kv_len} max_abs_err={err} "
-                    f"excess={excess} ({tol})")
+                    f"window={window} kv_len={kv_len} {plan} "
+                    f"max_abs_err={err} excess={excess} ({tol})")
             if not bool(torch.isfinite(got.float()).all()):
                 failures.append("non-finite kernel output " + case)
             elif not excess <= 1.0:
@@ -654,10 +698,11 @@ def phase_flash() -> None:
             if dtype == torch.bfloat16:
                 tiled = flash_attention_tiled_ref(
                     q, k, v, causal=causal, window=window, kv_len=kv_len,
-                    block_k=kernel_block_k(D))
+                    block_k=plan.block_k)
                 te = TOLERANCES["flash_bf16_tiled_served"].excess(got,
                                                                   tiled)
-                row = worst.setdefault("bfloat16 vs tiled", {"excess": 0.0})
+                row = worst.setdefault(f"bfloat16 {plan.mainloop} vs tiled",
+                                       {"excess": 0.0})
                 row["excess"] = max(row["excess"], te)
                 if not te <= 1.0:
                     failures.append(f"kernel disagrees with tiled plain "
@@ -692,8 +737,11 @@ def phase_flash() -> None:
         if not c["excess_vs_tiled"] > 1.0:
             failures.append(f"late-tile control {name} passes "
                             f"flash_bf16_tiled_served: {c}")
-    emit("flash", cases=cases + 1, worst=worst, control=control,
-         served_shape=served,
+    rows = flash_rows_alone_and_bucketed(g)
+    failures += [f"rows differ alone and in a bucket: {r}" for r in rows
+                 if not r["equal"]]
+    emit("flash", cases=cases + 1, by_mainloop=by_mainloop, worst=worst,
+         control=control, served_shape=served, rows_alone_vs_bucket=rows,
          tolerances={k: [t.rtol, t.atol] for k, t in TOLERANCES.items()
                      if k.startswith("flash")}, failures=failures)
     check(not failures, f"{len(failures)} flash checks failed")
@@ -1244,6 +1292,7 @@ def phase_serve_paged(model, params):
     gemm_launches = sg.systolic_gemm_cuda.launches
     by_mainloop = hopper_mainloops("serve_paged")
     flash_launches = fa.flash_attention_cuda.launches
+    flash_by_mainloop = flash_mainloops("serve_paged")
     syncs = HOST_SYNCS.count - syncs0
     st = eng.stats
     # the prefill's dense transient lane cache at the largest bucket, and
@@ -1284,11 +1333,12 @@ def phase_serve_paged(model, params):
          decode_ms_per_step=1e3 * st["decode_s"] / st["decode_steps"],
          host_syncs=syncs, pod_gemm_launches=gemm_launches,
          pod_gemm_by_mainloop=by_mainloop,
-         flash_launches=flash_launches, recycled=eng.recycled,
+         flash_launches=flash_launches,
+         flash_by_mainloop=flash_by_mainloop, recycled=eng.recycled,
          peak_paged_kv_stats=peak, largest_bucket=bucket,
          prefill_transient_kv_bytes=transient,
          device_peak_bytes_over_start=peak_over_start)
-    return reqs, flash_launches
+    return reqs, flash_by_mainloop
 
 
 def layer0_qkv(cfg, params, tokens):
@@ -1318,7 +1368,7 @@ def layer0_gate(cfg, params) -> dict:
     D = q.shape[-1]
     got = fa.flash_attention_cuda(q, k, v, causal=True)
     tiled = flash_attention_tiled_ref(q, k, v, causal=True,
-                                      block_k=kernel_block_k(D))
+                                      block_k=fa.flash_plan(D, torch.bfloat16).block_k)
     # the score scale, over batch 0's first 256 rows (their causal pairs)
     qs = q[:1, :256].float() / math.sqrt(D)
     s = torch.einsum("bqhd,bkhd->bhqk", qs, k[:1, :256].float()
@@ -1390,6 +1440,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in KERNELS.values():
         fn.mainloop_launches = dict.fromkeys(sg.MAINLOOPS, 0)
+    fa.flash_attention_cuda.mainloop_launches = dict.fromkeys(fa.MAINLOOPS, 0)
 
 
 def hopper_mainloops(phase: str, form: str = "nn") -> dict:
@@ -1402,6 +1453,16 @@ def hopper_mainloops(phase: str, form: str = "nn") -> dict:
           sum(by.values()) == fn.launches,
           f"{phase}: {form} pod-GEMM launches by mainloop {by}, total "
           f"{fn.launches}")
+    return by
+
+
+def flash_mainloops(phase: str) -> dict:
+    """The flash launches of a served run by mainloop: every one on wgmma
+    (bf16 at the served head dim, 128), none on mma or simt."""
+    fn = fa.flash_attention_cuda
+    by = dict(fn.mainloop_launches)
+    check(by["wgmma"] == fn.launches and sum(by.values()) == fn.launches,
+          f"{phase}: flash launches by mainloop {by}, total {fn.launches}")
     return by
 
 
@@ -1535,6 +1596,7 @@ def phase_serve_moe(model, params):
     launches["pod_gemm_by_mainloop"] = hopper_mainloops("serve_moe")
     launches["grouped_by_mainloop"] = grouped_by = dict(
         sg.grouped_systolic_gemm_cuda.mainloop_launches)
+    launches["flash_by_mainloop"] = flash_mainloops("serve_moe")
     syncs = HOST_SYNCS.count - syncs0
     peak = torch.cuda.max_memory_allocated()
     st = eng.stats
@@ -1773,61 +1835,81 @@ def gemm_line(cfg, launches: int, by_mainloop: dict, moe_cfg,
 FLASH_SEQS = (256, 2048)     # granite-8b prefill buckets, B = SLOTS
 
 
-def flash_line(cfg, launches: int) -> dict:
-    B, Hq, Hkv = SLOTS, cfg.n_heads, cfg.n_kv_heads
-    D = cfg.resolved_head_dim
+def flash_row(B, S, Hq, Hkv, D, iters: int, g, flush) -> dict:
+    """One causal bf16 launch [B, S, Hq over Hkv, D] on randn inputs:
+    checked against the naive and tiled plain versions, then timed beside
+    both and SDPA, with its plan and its rate."""
+    q, k, v = (torch.randn((B, S, h, D), generator=g,
+                           device="cuda").to(torch.bfloat16)
+               for h in (Hq, Hkv, Hkv))
+    plan = fa.flash_plan(D, q.dtype)
+    got = fa.flash_attention_cuda(q, k, v, causal=True)
+    ref = flash_attention_ref(q, k, v, causal=True)
+    tiled = flash_attention_tiled_ref(q, k, v, causal=True,
+                                      block_k=plan.block_k)
+    err = float((got.double() - ref.double()).abs().max())
+    check(TOLERANCES["flash_bf16"].ok(got, ref)
+          and TOLERANCES["flash_bf16_tiled_served"].ok(got, tiled),
+          f"flash {[B, S, Hq, Hkv, D]}: kernel disagrees (max_abs_err "
+          f"{err})")
+    del got, ref, tiled
+
+    def library(q=q, k=k, v=v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+    # 4 D operations per unmasked (q, k) pair (QK^T and PV); q, k, v
+    # read once, o written once
+    flops = 4 * B * Hq * D * (S * (S + 1) // 2)
+    row = {
+        "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D, "causal": True,
+        "mainloop": plan.mainloop, "block_k": plan.block_k,
+        "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True),
+                      iters, flush),
+        "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v,
+                                                        causal=True),
+                            2, flush),
+        "library_ms": time_ms(library, iters, flush),
+        "max_abs_err": err,
+    }
+    row["tflop_s"] = flops / row["ms"] / 1e9
+    row["library_tflop_s"] = flops / row["library_ms"] / 1e9
+    row["bound_ms"], row["bound_by"] = bound(
+        flops, 2 * B * S * D * (2 * Hq + 2 * Hkv))
+    return row
+
+
+def flash_line(cfg, by_mainloop: dict, moe_cfg, moe_by_mainloop: dict) -> dict:
+    """granite-8b's prefill attention at buckets 256 and 2048 (B = SLOTS),
+    the line's own numbers (a forward's 36 launches at 2048), and dbrx-
+    132b's longest exact-length prefill, [1, 1277, 48 over 8, 128].
+    Launches by mainloop are the served runs' (granite paged; dbrx under
+    "moe")."""
     g = torch.Generator("cuda").manual_seed(4)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
-    rows, worst = [], 0.0
-    for S, iters in zip(FLASH_SEQS, (20, 5)):
-        q, k, v = (torch.randn((B, S, h, D), generator=g,
-                               device="cuda").to(torch.bfloat16)
-                   for h in (Hq, Hkv, Hkv))
-        got = fa.flash_attention_cuda(q, k, v, causal=True)
-        ref = flash_attention_ref(q, k, v, causal=True)
-        tiled = flash_attention_tiled_ref(q, k, v, causal=True,
-                                          block_k=kernel_block_k(D))
-        err = float((got.double() - ref.double()).abs().max())
-        check(TOLERANCES["flash_bf16"].ok(got, ref)
-              and TOLERANCES["flash_bf16_tiled_served"].ok(got, tiled),
-              f"flash S={S}: kernel disagrees (max_abs_err {err})")
-        worst = max(worst, err)
-        del got, ref, tiled
-
-        def library(q=q, k=k, v=v):
-            return F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=True)
-        row = {
-            "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D, "causal": True,
-            "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v,
-                                                          causal=True),
-                          iters, flush),
-            "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v,
-                                                            causal=True),
-                                2, flush),
-            "library_ms": time_ms(library, iters, flush),
-            "max_abs_err": err,
-        }
-        # 4 D operations per unmasked (q, k) pair (QK^T and PV); q, k, v
-        # read once, o written once
-        row["bound_ms"], row["bound_by"] = bound(
-            4 * B * Hq * D * (S * (S + 1) // 2),
-            2 * B * S * D * (2 * Hq + 2 * Hkv))
-        rows.append(row)
-    top, L = rows[-1], cfg.n_layers
+    D = cfg.resolved_head_dim
+    rows = [flash_row(SLOTS, S, cfg.n_heads, cfg.n_kv_heads, D, iters, g,
+                      flush) for S, iters in zip(FLASH_SEQS, (20, 5))]
+    rows.append(flash_row(1, 1277, moe_cfg.n_heads, moe_cfg.n_kv_heads,
+                          moe_cfg.resolved_head_dim, 10, g, flush))
+    top, L = rows[1], cfg.n_layers
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:72",
-        "launches": launches, "max_abs_err": worst,
+        "launches": sum(by_mainloop.values()),
+        "launches_by_mainloop": by_mainloop,
+        "moe": {"arch": moe_cfg.name, "n_layers": moe_cfg.n_layers,
+                "launches_by_mainloop": moe_by_mainloop},
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": L * top["ms"], "plain_ms": L * top["plain_ms"],
         "bound_ms": L * top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": L * top["library_ms"],
         "ms_are": (f"sums over the {L} launches of one {cfg.name} prefill "
-                   f"forward at bucket {top['S']} (B={B}, bf16, causal; "
-                   f"per-shape rows below, L2 flushed)"),
+                   f"forward at bucket {top['S']} (B={SLOTS}, bf16, causal; "
+                   f"per-shape rows below, the last {moe_cfg.name}'s "
+                   f"[1, 1277] prefill; L2 flushed)"),
         "shapes": rows,
     }
 
@@ -2047,7 +2129,7 @@ def main() -> int:
         torch.cuda.synchronize()
         phase_oracle(model, params, served)
         torch.cuda.synchronize()
-        paged, flash_launches = phase_serve_paged(flash_model, params)
+        paged, flash_by_mainloop = phase_serve_paged(flash_model, params)
         torch.cuda.synchronize()
         phase_paged_oracle(flash_model, params, paged)
         torch.cuda.synchronize()
@@ -2091,7 +2173,8 @@ def main() -> int:
         kernels = {"kernels": [gemm_line(
             cfg, launches, by_mainloop, moe_cfg, moe_launches["pod_gemm"],
             moe_launches["pod_gemm_by_mainloop"]),
-                               flash_line(cfg, flash_launches),
+                               flash_line(cfg, flash_by_mainloop, moe_cfg,
+                                          moe_launches["flash_by_mainloop"]),
                                gemm_nt_line(ssm_cfg, ssm_launches["gemm_nt"],
                                             ssm_launches["gemm_nt_by_mainloop"]),
                                ssd_line(ssm_cfg, ssm_launches["ssd"]),

@@ -4,7 +4,10 @@ Each kernel is a `.cu` file with a plain `extern "C"` interface, compiled
 by `nvcc` into a shared library and loaded with `ctypes` (no PyTorch
 headers, so a build takes seconds). Libraries land in `build/kernels/` at
 the repo root, named by a hash of their sources and flags, so an edited
-source rebuilds and an unchanged one is reused. A failed build raises.
+source rebuilds and an unchanged one is reused. The headers the sources
+share (`csrc/*.cuh` anywhere in this package) are hashed into every
+library's name, so an edited header rebuilds them all. A failed build
+raises.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from pathlib import Path
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
+HEADERS = sorted(Path(__file__).resolve().parent.glob("**/csrc/*.cuh"))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -37,14 +41,21 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def library_path(name: str, sources: list[Path],
+                 headers: list[Path] = HEADERS) -> Path:
+    """lib`name`-<hash>.so in BUILD_DIR, the hash over the flags, the
+    sources and the headers."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [*sources, *headers]:
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
 def build(name: str, sources: list[Path]) -> ctypes.CDLL:
     """Compile `sources` into lib`name`-<hash>.so (once) and load it."""
     if name in _LOADED:
         return _LOADED[name][0]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(src.read_bytes())
-    lib_path = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    lib_path = library_path(name, sources)
     report = ""
     t0 = time.perf_counter()
     if not lib_path.exists():

@@ -6,8 +6,9 @@ Hopper kernel, which raises if it cannot run. There is no other path.
 
 The JAX wrapper pads Sq and Skv to block multiples and masks the padded
 keys through kv_len. The Hopper kernel masks ragged Sq and Skv itself, so
-nothing is padded here. Its tiles are fixed (csrc/flash_attention.cu), so
-the reference's block_q/block_k have no counterpart.
+nothing is padded here. Its tiles come from the head dim and dtype alone
+(flash_attention.py::flash_plan), so the reference's block_q/block_k have
+no counterpart.
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@ in interpret mode over the cases of tests/test_kernels.py, f32 and bf16,
 plus Sq != Skv, at TOLERANCES["flash_f32"] / ["flash_bf16"]. The plain
 version of the Pallas kernel's own arithmetic (`flash_attention_tiled_ref`,
 which the card holds the Hopper kernel to) matches Pallas at about one
-bf16 ulp, and that tolerance rejects faults on late KV tiles. The model
+bf16 ulp at every key tile `flash_plan` can pick (the Pallas kernel run
+with that tile), and that tolerance rejects faults on late KV tiles. The
+plan itself is a pure function of the head dim and dtype. The model
 with `attention_impl="pallas"` is held against the JAX Model built the same
 way, on bridged parameters. The Hopper kernel itself runs only on the card.
 """
@@ -26,8 +28,8 @@ from repro_torch import TOLERANCES
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_arch as t_get_arch, reduced as t_reduced
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.flash_attention import \
-    flash_attention_cuda
+from repro_torch.kernels.flash_attention.flash_attention import (
+    MAX_HEAD_DIM, flash_attention_cuda, flash_plan)
 from repro_torch.kernels.flash_attention.ref import (
     flash_attention_ref, flash_attention_tiled_ref)
 from repro_torch.models import attention as tatt
@@ -45,6 +47,9 @@ ATTN_CASES = [
     (2, 48, 80, 4, 2, 32, True, None),
 ]
 DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+HEAD_DIMS = range(8, MAX_HEAD_DIM + 1, 8)
+# every key tile the kernel's bf16 mainloops use
+BLOCK_KS = sorted({flash_plan(D, torch.bfloat16).block_k for D in HEAD_DIMS})
 
 
 def _tol(dtype):
@@ -91,32 +96,64 @@ def test_kv_len_tail_matches_jax_pallas(dtype):
     assert not torch.equal(got, full)
 
 
+def test_flash_plan_mainloops():
+    """bf16 at D = 64 and 128 (every served head dim) on wgmma, every other
+    bf16 D on mma, f32 on simt; no other dtype."""
+    for D in HEAD_DIMS:
+        plan = flash_plan(D, torch.bfloat16)
+        want = "wgmma" if D in (64, 128) else "mma"
+        assert plan.mainloop == want, (D, plan)
+        assert plan.block_q == (128 if want == "wgmma" else 64), (D, plan)
+        assert flash_plan(D, torch.float32).mainloop == "simt"
+    with pytest.raises(ValueError, match="flash attention takes"):
+        flash_plan(64, torch.float16)
+
+
+def test_flash_plan_key_tile_depends_on_head_dim_and_dtype_only():
+    """The key tile is a multiple of 16 (one k16 step of PV) that the plan
+    reads from D and the dtype alone: no sequence length or batch enters
+    it, so a row rounds p at the same keys in a bucket or alone."""
+    import inspect
+    assert list(inspect.signature(flash_plan).parameters) == ["D", "dtype"]
+    for D in HEAD_DIMS:
+        bk = flash_plan(D, torch.bfloat16).block_k
+        assert bk % 16 == 0 and bk >= 32, (D, bk)
+    assert flash_plan(128, torch.bfloat16).block_k == 128
+    assert flash_plan(192, torch.bfloat16).block_k == 32
+    assert flash_plan(128, torch.float32).block_k == 1
+    assert BLOCK_KS == [32, 64, 128]
+
+
+@pytest.mark.parametrize("block_k", BLOCK_KS)
 @pytest.mark.parametrize("case", ATTN_CASES)
-def test_tiled_plain_matches_jax_pallas(case):
+def test_tiled_plain_matches_jax_pallas(case, block_k):
     """The Pallas kernel's arithmetic block by block, in torch ops, against
-    Pallas itself (bf16, block_k as the JAX wrapper clamps it): equal up to
-    f32 sums in another order, at flash_bf16_tiled. The naive version's
-    bf16 scores miss that tolerance, so the card gates the kernel on the
-    tiled version."""
+    Pallas itself run with the same key tile (bf16, block_k as the JAX
+    wrapper clamps it): equal up to f32 sums in another order, at
+    flash_bf16_tiled, at every tile the kernel's mainloops use. The naive
+    version's bf16 scores miss that tolerance, so the card gates the kernel
+    on the tiled version."""
     B, Sq, Skv, Hq, Hkv, D, causal, win = case
     rng = np.random.default_rng(sum(case[:6]))
     (jq, jk, jv), (tq, tk, tv) = _qkv(rng, B, Sq, Skv, Hq, Hkv, D,
                                       "bfloat16")
     got = flash_attention_tiled_ref(tq, tk, tv, causal=causal, window=win,
-                                    block_k=min(64, max(8, Skv)))
+                                    block_k=min(block_k, max(8, Skv)))
     assert got.dtype == tq.dtype
     pallas = jops.flash_attention(jq, jk, jv, causal=causal, window=win,
-                                  block_q=64, block_k=64, interpret=True)
+                                  block_q=64, block_k=block_k,
+                                  interpret=True)
     _assert_close(got, pallas, TOLERANCES["flash_bf16_tiled"])
 
 
-def test_tiled_tolerance_rejects_late_tile_faults():
-    """The late-tile controls of chip_smoke.py at a CPU size: a stale last
-    K tile and PV summed in bf16 each fail flash_bf16_tiled against the
-    tiled plain version."""
+@pytest.mark.parametrize("bk", BLOCK_KS)
+def test_tiled_tolerance_rejects_late_tile_faults(bk):
+    """The late-tile controls of chip_smoke.py at a CPU size, at each key
+    tile of the kernel: a stale last K tile and PV summed in bf16 each fail
+    flash_bf16_tiled against the tiled plain version."""
     import chip_smoke
     g = torch.Generator().manual_seed(5)
-    S, bk = 1024, 64
+    S = 1024
     q, k, v = (torch.randn((1, S, h, 64), generator=g).to(torch.bfloat16)
                for h in (8, 2, 2))
     tiled = flash_attention_tiled_ref(q, k, v, causal=True, block_k=bk)
@@ -128,34 +165,38 @@ def test_tiled_tolerance_rejects_late_tile_faults():
     assert tol.excess(chip_smoke.pv_summed_in_bf16(q, k, v, bk), tiled) > 1
 
 
-def _served_case(seed, shape=(1, 1277, 48, 8, 128)):
+def _served_case(seed, shape=(1, 1277, 48, 8, 128), bk=None):
     """dbrx-132b's longest exact-length prefill: the tiled plain version,
     the same with its scores summed in f64, and the two late-tile
-    controls of chip_smoke.py."""
+    controls of chip_smoke.py, at key tile bk (the plan's for D by
+    default)."""
     import chip_smoke
     B, S, Hq, Hkv, D = shape
+    bk = flash_plan(D, torch.bfloat16).block_k if bk is None else bk
     g = torch.Generator().manual_seed(seed)
     q, k, v = (torch.randn((B, S, h, D), generator=g).to(torch.bfloat16)
                for h in (Hq, Hkv, Hkv))
-    tiled = flash_attention_tiled_ref(q, k, v, causal=True, block_k=64)
-    other = flash_attention_tiled_ref(q, k, v, causal=True, block_k=64,
+    tiled = flash_attention_tiled_ref(q, k, v, causal=True, block_k=bk)
+    other = flash_attention_tiled_ref(q, k, v, causal=True, block_k=bk,
                                       score_dtype=torch.float64)
     stale = k.clone()
-    stale[:, S - 64:] = k[:, S - 128:S - 64]
+    stale[:, S - bk:] = k[:, S - 2 * bk:S - bk]
     controls = {"stale_last_k_tile": flash_attention_tiled_ref(
-                    q, stale, v, causal=True, block_k=64),
+                    q, stale, v, causal=True, block_k=bk),
                 "pv_summed_in_bf16": chip_smoke.pv_summed_in_bf16(q, k, v,
-                                                                  64)}
+                                                                  bk)}
     return tiled, other, controls
 
 
-def test_served_tolerance_holds_sum_order_and_rejects_late_tile_faults():
-    """flash_bf16_tiled_served, the card's gate at served sizes: the tiled
-    plain version against itself with its scores summed in f64 (another
-    order of the f32 sums, all that separates two right kernels) stays
-    within it; a stale last K tile and PV summed in bf16 fail it."""
+@pytest.mark.parametrize("bk", BLOCK_KS)
+def test_served_tolerance_holds_sum_order_and_rejects_late_tile_faults(bk):
+    """flash_bf16_tiled_served, the card's gate at served sizes, at each
+    key tile of the kernel: the tiled plain version against itself with its
+    scores summed in f64 (another order of the f32 sums, all that
+    separates two right kernels) stays within it; a stale last K tile and
+    PV summed in bf16 fail it."""
     tol = TOLERANCES["flash_bf16_tiled_served"]
-    tiled, other, controls = _served_case(1)
+    tiled, other, controls = _served_case(1, bk=bk)
     assert tol.ok(tiled, other), tol.excess(tiled, other)
     assert tol.excess(controls["stale_last_k_tile"], tiled) > 10
     assert tol.excess(controls["pv_summed_in_bf16"], tiled) > 1
@@ -165,7 +206,8 @@ def order_readings(seeds=(0, 1, 2, 3)) -> list[dict]:
     """The CPU readings behind flash_bf16_tiled_served: the tiled plain
     version against itself with f64-summed scores, and each late-tile
     control against it, at flash_bf16_tiled and at the served tolerance,
-    on granite-8b's heads ([1, 2048, 32 over 8, 128]) and dbrx-132b's."""
+    on granite-8b's heads ([1, 2048, 32 over 8, 128]) and dbrx-132b's, at
+    the kernel's key tile for their head dim (flash_plan)."""
     one_ulp = TOLERANCES["flash_bf16_tiled"]
     served = TOLERANCES["flash_bf16_tiled_served"]
     out = []
@@ -173,6 +215,8 @@ def order_readings(seeds=(0, 1, 2, 3)) -> list[dict]:
         for seed in seeds:
             tiled, other, controls = _served_case(seed, shape)
             out.append({"shape": list(shape), "seed": seed,
+                        "block_k": flash_plan(shape[-1],
+                                              torch.bfloat16).block_k,
                         "plain_vs_itself": {
                             "flash_bf16_tiled": one_ulp.excess(other, tiled),
                             "served": served.excess(other, tiled)},
@@ -347,8 +391,26 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype):
         if dtype == torch.bfloat16:       # the kernel's key tile
             tiled = flash_attention_tiled_ref(
                 q, k, v, causal=causal, window=win,
-                block_k=64 if D <= 128 else 32)
+                block_k=flash_plan(D, dtype).block_k)
             assert tight.ok(got, tiled), (B, Sq, Skv, Hq, Hkv, D, causal, win)
+
+
+@pytest.mark.gpu
+def test_wgmma_rows_equal_alone_and_in_a_bucket_on_card(cuda_device):
+    """bf16 at D = 128 runs on wgmma, and a prompt's rows come out bit-equal
+    prefilled alone ([1, S]) and in lane 2 of a [4, 2S] bucket."""
+    g = torch.Generator(cuda_device).manual_seed(1)
+    for S, Hq, Hkv in ((200, 32, 8), (333, 48, 8)):
+        q, k, v = (torch.randn((4, 2 * S, h, 128), generator=g,
+                               device=cuda_device).to(torch.bfloat16)
+                   for h in (Hq, Hkv, Hkv))
+        before = dict(flash_attention_cuda.mainloop_launches)
+        alone = flash_attention_cuda(*(t[2:3, :S].contiguous()
+                                       for t in (q, k, v)), causal=True)
+        bucket = flash_attention_cuda(q, k, v, causal=True)[2:3, :S]
+        assert flash_attention_cuda.mainloop_launches["wgmma"] == \
+            before["wgmma"] + 2
+        assert torch.equal(alone, bucket), S
 
 
 if __name__ == "__main__":
