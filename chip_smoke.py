@@ -54,11 +54,16 @@ Phases, one JSON line each; any failure exits non-zero:
                drift, y and final state: the cases of tests/test_kernels.py
                in f32 and bf16, mamba2's [4, 2048, 32, 64] (N 128, chunk
                256; in bf16 and in f32, where the kernel runs 128-token
-               sub-chunks), a ragged S and G > 1. At the served shape five planted
-               controls (no state carried across chunks, the mask after
-               exp, y_inter from the updated state, ssd_ref itself, and
-               the state and y_inter rounded to bf16) must fail the
-               one-ulp tolerance.
+               sub-chunks), a ragged S and G > 1, each on the mainloop
+               ssd_plan picks (bf16 at mamba2's tiles on chunked, the rest
+               on serial). At the served shape seven planted controls (no
+               state carried across chunks, the mask after exp, y_inter
+               from the updated state, ssd_ref itself, the state and
+               y_inter rounded to bf16, the state pass without its decay,
+               cum carried across chunks) must fail the one-ulp tolerance;
+               a prompt of 1277 tokens gives bit-equal rows and state alone
+               ([1, 1277]) and in a [4, 2048] bucket; strided views of one
+               projection give bit-equal results to contiguous copies.
   6. grouped - the grouped pod-GEMM kernel (the MoE experts) against its
                plain version: f32/bf16/int8 x every activation x ragged
                shapes x f32/bf16 out with per-group scale and bias (G > 1
@@ -102,8 +107,8 @@ Phases, one JSON line each; any failure exits non-zero:
                ServeEngine(slots 4, max_len 2048, decode_chunk 8) on the
                paged phase's prompts: every request done, one NT-GEMM
                launch per forward, each on splitk (decode) or wgmma
-               (prefill), 48 SSD launches per prefill and none per decode
-               step, no other kernel, one host sync per prefill group and
+               (prefill), 48 SSD launches per prefill, each on chunked, and
+               none per decode step, no other kernel, one host sync per prefill group and
                decode chunk.
  12. ssm_oracle - the same requests through the per-token ReferenceEngine:
                agreement reported at 48 layers, the margin rule held on
@@ -129,8 +134,10 @@ Phases, one JSON line each; any failure exits non-zero:
                the pod GEMM at granite-8b's and dbrx-132b's shapes, flash
                at granite's [4, 256] and [4, 2048] and dbrx's [1, 1277]
                prefills (mainloop, key tile and TFLOP/s each), the NT
-               head up to a [4, 2048] prefill, the grouped experts' up and
-               down at M = 320; launches by mainloop from the served runs.
+               head up to a [4, 2048] prefill, SSD at [4, 256] and [4,
+               2048] on its mainloop with the serial mainloop timed beside
+               it, the grouped experts' up and down at M = 320; launches
+               by mainloop from the served runs.
 
 The last lines are the card's name and power limit, the kernels line, and
 {"ok": true, "device": {...}}.
@@ -141,6 +148,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -162,7 +170,8 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref, flash_attention_tiled_ref)
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd import ssd as ssd_mod  # noqa: E402
-from repro_torch.kernels.ssd.ref import ssd_kernel_ref, ssd_ref  # noqa: E402
+from repro_torch.kernels.ssd.ref import (  # noqa: E402
+    CHUNKED_FAULTS, ssd_chunked_ref, ssd_kernel_ref, ssd_ref)
 from repro_torch.kernels.systolic_gemm import systolic_gemm as sg  # noqa: E402
 from repro_torch.kernels.systolic_gemm.ref import (  # noqa: E402
     epilogue_ref, grouped_systolic_gemm_ref, splitk_partials, systolic_gemm_ref,
@@ -841,13 +850,22 @@ def phase_ssd() -> None:
     g = torch.Generator("cuda").manual_seed(7)
     cases, failures = 0, []
     worst: dict[str, dict] = {}
+    mainloops: dict[str, str] = {}
     tight_bf16, loose = (TOLERANCES["ssd_bf16_kernel"],
                          TOLERANCES["ssd_bf16_reference"])
     for dtype in (torch.float32, torch.bfloat16):
         cls = str(dtype)[6:]
         for (b, S, H, P, G, N, chunk) in SSD_CASES:
             x, dt, A, B, C, D = ssd_inputs((b, S, H, P, G, N), dtype, g)
+            plan = ssd_mod.ssd_plan(P, N, chunk, dtype)
+            before = dict(ssd_mod.ssd_cuda.mainloop_launches)
             got = ssd_ops.ssd(x, dt, A, B, C, D, chunk=chunk)
+            ran = [m for m, n in ssd_mod.ssd_cuda.mainloop_launches.items()
+                   if n != before[m]]
+            mainloops[f"{cls} {(b, S, H, P, G, N, chunk)}"] = plan
+            if ran != [plan]:
+                failures.append(f"{cls} {(b, S, H, P, G, N, chunk)} ran "
+                                f"{ran}, its plan is {plan}")
             # the plain version at the chunk the kernel runs (in f32 at
             # mamba2's tiles: 128-token sub-chunks of the 256 asked for)
             ref = ssd_kernel_ref(x, dt, A, B, C, D, chunk=ssd_mod.run_chunk(
@@ -902,12 +920,17 @@ def phase_ssd() -> None:
     for name, e in served["excess"].items():
         if not e <= 1.0:
             failures.append(f"served shape {name}: excess {e}")
+    if served["mainloop"] != "chunked":
+        failures.append(f"served shape ran {served['mainloop']}")
     for fault, e in served["controls"].items():
         # a control fails when y or h does; NaN (mask after exp) fails
         if all(v <= 1.0 for v in e.values()):
             failures.append(f"control {fault} passes ssd_bf16_kernel: {e}")
-    emit("ssd", cases=cases + 1, worst=worst, served_shape=served,
-         f32_served_shape=f32_served,
+    same = ssd_rows_and_strides(g)
+    failures += [f"{k} not bit-equal: {v}" for k, v in same.items()
+                 if not all(v.values())]
+    emit("ssd", cases=cases + 1, mainloop_by_case=mainloops, worst=worst,
+         served_shape=served, bit_equal=same, f32_served_shape=f32_served,
          tolerances={k: [t.rtol, t.atol] for k, t in TOLERANCES.items()
                      if k.startswith("ssd")}, failures=failures)
     check(not failures, f"{len(failures)} ssd checks failed")
@@ -916,11 +939,14 @@ def phase_ssd() -> None:
 def ssd_served_shape(g) -> dict:
     """The kernel at mamba2's served prefill, [4, 2048, 32, 64], N = 128,
     chunk 256, bf16, against both plain versions, and the planted
-    controls against ssd_kernel_ref. The last two controls are ssd_ref
-    itself and the state and y_inter rounded to bf16: neither may pass for
-    the kernel's f32 state."""
+    controls against ssd_kernel_ref. Two controls are ssd_ref itself and
+    the state and y_inter rounded to bf16: neither may pass for the
+    kernel's f32 state. The last two plant faults of the chunked
+    mainloop's order (CHUNKED_FAULTS)."""
     args = ssd_inputs(SSD_SERVED, torch.bfloat16, g)
+    before = ssd_mod.ssd_cuda.mainloop_launches["chunked"]
     y, h = ssd_ops.ssd(*args, chunk=256)
+    ran_chunked = ssd_mod.ssd_cuda.mainloop_launches["chunked"] == before + 1
     ky, kh = ssd_kernel_ref(*args, chunk=256)
     ry, rh = ssd_ref(*args, 256)
     # the noise floor: the same plain version on the CPU, whose f32 sums
@@ -929,6 +955,7 @@ def ssd_served_shape(g) -> dict:
     tight, loose = (TOLERANCES["ssd_bf16_kernel"],
                     TOLERANCES["ssd_bf16_reference"])
     out = {"shape": list(SSD_SERVED) + [256],
+           "mainloop": "chunked" if ran_chunked else "not chunked",
            "excess": {"y_vs_kernel_ref": tight.excess(y, ky),
                       "h_vs_kernel_ref": tight.excess(h, kh),
                       "y_vs_ssd_ref": loose.excess(y, ry),
@@ -950,7 +977,50 @@ def ssd_served_shape(g) -> dict:
     py, ph = ssd_planted(*args, chunk=256, fault="state_in_bf16")
     out["controls"]["state_in_bf16"] = {"y": tight.excess(py, ky),
                                         "h": tight.excess(ph, kh)}
+    # the chunked mainloop's own order: the state pass without its decay,
+    # cum carried across chunk boundaries
+    for fault in CHUNKED_FAULTS:
+        py, ph = ssd_chunked_ref(*args, chunk=256, fault=fault)
+        out["controls"][fault] = {"y": tight.excess(py, ky),
+                                  "h": tight.excess(ph, kh)}
     return out
+
+
+SSD_PROMPT = 1277       # the longest prompt of the served mamba2 run
+
+
+def ssd_rows_and_strides(g) -> dict:
+    """Bit-equality at mamba2's served shape ([4, 2048, 32, 64], N 128,
+    bf16): a prompt of SSD_PROMPT tokens alone as [1, SSD_PROMPT] and as
+    lane 2 of a [4, 2048] launch (dt = 0 past it, random x, B and C
+    there), y rows and final state; and x, B, C as the strided views
+    apply_ssm hands over (split off one [4, 2048, d_inner + 2 N]
+    projection) against contiguous copies of them."""
+    b, S, H, P, G, N = SSD_SERVED
+    x, dt, A, B, C, D = ssd_inputs(SSD_SERVED, torch.bfloat16, g)
+    dt[2, SSD_PROMPT:] = 0.0
+    y, h = ssd_ops.ssd(x, dt, A, B, C, D, chunk=256)
+    xa, dta, Ba, Ca = (t[2:3, :SSD_PROMPT].contiguous()
+                       for t in (x, dt, B, C))
+    ya, ha = ssd_ops.ssd(xa, dta, A, Ba, Ca, D, chunk=256)
+    proj = torch.randn((b, S, H * P + 2 * G * N), generator=g,
+                       device="cuda").to(torch.bfloat16)
+    xs, Bs, Cs = torch.split(proj, [H * P, G * N, G * N], dim=-1)
+    views = (xs.reshape(b, S, H, P), Bs.reshape(b, S, G, N),
+             Cs.reshape(b, S, G, N))
+    yv, hv = ssd_mod.ssd_cuda(views[0], dt, A, views[1], views[2], D,
+                              chunk=256)
+    yc, hc = ssd_mod.ssd_cuda(views[0].contiguous(), dt, A,
+                              views[1].contiguous(), views[2].contiguous(),
+                              D, chunk=256)
+    torch.cuda.synchronize()
+    return {"alone_vs_bucket": {
+                "prompt": SSD_PROMPT,
+                "y_rows": torch.equal(y[2:3, :SSD_PROMPT], ya),
+                "state": torch.equal(h[2:3], ha)},
+            "strided_vs_contiguous": {
+                "views_not_contiguous": not views[0].is_contiguous(),
+                "y": torch.equal(yv, yc), "state": torch.equal(hv, hc)}}
 
 
 def worst_row(got, ref, tol, chunk: int) -> dict:
@@ -1441,6 +1511,7 @@ def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.mainloop_launches = dict.fromkeys(sg.MAINLOOPS, 0)
     fa.flash_attention_cuda.mainloop_launches = dict.fromkeys(fa.MAINLOOPS, 0)
+    ssd_mod.ssd_cuda.mainloop_launches = dict.fromkeys(ssd_mod.MAINLOOPS, 0)
 
 
 def hopper_mainloops(phase: str, form: str = "nn") -> dict:
@@ -1493,6 +1564,8 @@ def phase_serve_ssm(model, params):
                 "ssd": ssd_mod.ssd_cuda.launches}
     # every head on splitk (decode) or wgmma (prefill over 4 x bucket rows)
     launches["gemm_nt_by_mainloop"] = hopper_mainloops("serve_ssm", "nt")
+    # every SSD call on chunked (bf16 at mamba2's tiles)
+    launches["ssd_by_mainloop"] = dict(ssd_mod.ssd_cuda.mainloop_launches)
     syncs = HOST_SYNCS.count - syncs0
     st = eng.stats
     for r in reqs:
@@ -1509,6 +1582,9 @@ def phase_serve_ssm(model, params):
     check(launches["ssd"] == cfg.n_layers * st["prefill_calls"],
           f"SSD launches {launches['ssd']} != {cfg.n_layers} x "
           f"{st['prefill_calls']} prefill calls (none per decode step)")
+    check(launches["ssd_by_mainloop"]["chunked"] == launches["ssd"],
+          f"SSD launches by mainloop {launches['ssd_by_mainloop']}, total "
+          f"{launches['ssd']}: every one must run chunked")
     check(launches["pod_gemm"] == 0 and launches["flash"] == 0,
           f"mamba2 launched another kernel: {launches}")
     check(syncs == st["prefill_calls"] + st["chunks"],
@@ -1985,7 +2061,29 @@ def ssd_bound(b, S, H, P, G, N, chunk) -> tuple[float, str]:
     return times[by], by
 
 
-def ssd_line(cfg, launches: int) -> dict:
+def ssd_split_ms(args, chunk: int, flush: torch.Tensor) -> dict:
+    """Device ms of each kernel one SSD call launches (chunked: the chunk
+    states, the state pass, the chunk scan), from torch.profiler over 5
+    calls, each after an L2 flush."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            flush.zero_()
+            ssd_mod.ssd_cuda(*args, chunk=chunk)
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        name = re.search(r"ssd_\w+", e.key)
+        if name and e.device_time_total > 0:
+            split[name.group(0)] = e.device_time_total / e.count / 1e3
+    return split
+
+
+def ssd_line(cfg, launches: int, by_mainloop: dict) -> dict:
+    """mamba2's SSD call at [SLOTS, 256] and [SLOTS, 2048] (bf16), on the
+    mainloop ssd_plan picks, with the serial mainloop (the earlier design)
+    timed beside it on the same inputs; launches by mainloop are the served
+    run's."""
     s = cfg.ssm
     H, P, N, chunk = s.n_heads(cfg.d_model), s.head_dim, s.d_state, \
         s.chunk_size
@@ -2004,27 +2102,33 @@ def ssd_line(cfg, launches: int) -> dict:
         worst = max(worst, err)
         row = {"b": SLOTS, "S": S, "H": H, "P": P, "G": s.n_groups, "N": N,
                "chunk": chunk,
+               "mainloop": ssd_mod.ssd_plan(P, N, chunk, torch.bfloat16),
                "ms": time_ms(lambda: ssd_mod.ssd_cuda(*args, chunk=chunk),
                              iters, flush),
+               "serial_ms": time_ms(lambda: ssd_mod.ssd_cuda(
+                   *args, chunk=chunk, mainloop="serial"), iters, flush),
                "plain_ms": time_ms(lambda: ssd_kernel_ref(*args,
                                                           chunk=chunk),
                                    2, flush),
                "library_ms": None, "max_abs_err": err}
         row["bound_ms"], row["bound_by"] = ssd_bound(*shape, chunk)
+        row["split_ms"] = ssd_split_ms(args, chunk, flush)
         rows.append(row)
     top, L = rows[-1], cfg.n_layers
     return {
         "name": "ssd", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/ssd.py:70",
-        "launches": launches, "max_abs_err": worst,
+        "launches": launches, "launches_by_mainloop": by_mainloop,
+        "mainloop": top["mainloop"], "max_abs_err": worst,
         "ms": L * top["ms"], "plain_ms": L * top["plain_ms"],
         "bound_ms": L * top["bound_ms"], "bound_by": top["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "serial_ms": L * top["serial_ms"],
         "ms_are": (f"sums over the {L} launches of one {cfg.name} prefill "
-                   f"forward at bucket {top['S']} (b={SLOTS}, bf16; per-shape "
-                   f"rows below, L2 flushed; no single PyTorch call computes "
-                   f"the chunk scan)"),
+                   f"forward at bucket {top['S']} (b={SLOTS}, bf16, on "
+                   f"{top['mainloop']}; serial_ms the serial mainloop on the "
+                   f"same inputs; per-shape rows below, L2 flushed; no "
+                   f"single PyTorch call computes the chunk scan)"),
         "shapes": rows,
     }
 
@@ -2177,7 +2281,8 @@ def main() -> int:
                                           moe_launches["flash_by_mainloop"]),
                                gemm_nt_line(ssm_cfg, ssm_launches["gemm_nt"],
                                             ssm_launches["gemm_nt_by_mainloop"]),
-                               ssd_line(ssm_cfg, ssm_launches["ssd"]),
+                               ssd_line(ssm_cfg, ssm_launches["ssd"],
+                                        ssm_launches["ssd_by_mainloop"]),
                                grouped_line(moe_cfg, moe_launches["grouped"],
                                             moe_launches["grouped_by_mainloop"])]}
         torch.cuda.synchronize()

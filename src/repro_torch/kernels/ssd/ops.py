@@ -6,11 +6,12 @@ A CPU tensor runs the plain version of the Pallas kernel's arithmetic
 raises if it cannot run. There is no other path.
 
 Against the JAX wrapper: groups are not repeated to heads (the kernel
-reads group h // (H / G) in place), S is padded to a chunk multiple with
-dt = 0 (a step that leaves the state unchanged, so padded rows are inert),
-and the final state is the kernel's own f32 state cast to x's dtype. The
-JAX wrapper recomputes it with the jnp reference, whose state is bf16 in a
-bf16 model; tests/test_torch_ssd.py states that drift.
+reads group h // (H / G) in place), x, B and C are read by stride where
+the model hands over views of one projection, S is padded to a chunk
+multiple with dt = 0 (a step that leaves the state unchanged, so padded
+rows are inert), and the final state is the kernel's own f32 state cast
+to x's dtype. The JAX wrapper recomputes it with the jnp reference, whose
+state is bf16 in a bf16 model; tests/test_torch_ssd.py states that drift.
 """
 
 from __future__ import annotations
@@ -28,8 +29,7 @@ def ssd(x, dt, A, B, C, D, *, chunk: int = 128):
         raise ValueError(f"ssd runs on cuda or cpu, not {x.device}")
     S = x.shape[1]
     x, dt, B, C = pad_chunks(x, dt.float(), B, C, chunk)
-    y, h_final = ssd_cuda(x.contiguous(), dt.contiguous(),
-                          A.float().contiguous(), B.contiguous(),
-                          C.contiguous(), D.float().contiguous(),
-                          chunk=chunk)
+    # x, B and C go by stride (the model's split views are not copied)
+    y, h_final = ssd_cuda(x, dt.contiguous(), A.float().contiguous(), B, C,
+                          D.float().contiguous(), chunk=chunk)
     return y[:, :S], h_final

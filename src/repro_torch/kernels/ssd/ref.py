@@ -11,6 +11,10 @@
   one cast at the end. It returns that f32 state (cast to x's dtype) as
   the final state, as the Hopper kernel does. This is the version the
   card holds the kernel to at about one bf16 ulp.
+* `ssd_chunked_ref`: the same arithmetic in the chunked mainloop's order
+  (every chunk's own state, a sequential f32 state pass, then every
+  chunk's scan), with the planted faults of that order as options. Used by
+  the tests and chip_smoke.py only.
 
 Both take x [b, S, H, P], dt [b, S, H], A and D [H], B and C [b, S, G, N]
 with G | H, pad S to a chunk multiple (dt = 0 there, which leaves the
@@ -129,4 +133,66 @@ def ssd_kernel_ref(x, dt, A, B, C, D, *, chunk: int):
             h = torch.exp(cum[:, -1, :])[..., None, None] * h + torch.einsum(
                 "bshp,bshn->bhpn", xf * w[..., None], Bc)
             ys.append((y + Df[None, None, :, None] * xf).to(x.dtype))
+    return torch.cat(ys, dim=1)[:, :S], h.to(x.dtype)
+
+
+CHUNKED_FAULTS = ("state_pass_without_decay", "cum_across_chunks")
+
+
+def ssd_chunked_ref(x, dt, A, B, C, D, *, chunk: int, fault=None):
+    """ssd_kernel_ref's arithmetic in three phases, as the chunked
+    mainloop runs it: (1) per chunk, cum = cumsum(dt A) restarting at the
+    chunk, w = exp(cum_end - cum) dt and s_c = (x w)^T B in f32; (2) for
+    c = 0 .. nc-1, h_prev[c] = h and h = exp(cum_end_c) h + s_c; (3) per
+    chunk, y = M x + exp(cum) (C h_prev[c]^T) + D x with M = (C B^T) *
+    decay * dt masked before exp and rounded to x's dtype. One of
+    CHUNKED_FAULTS plants an error of that order: the state pass without
+    its decay, or cum carried across chunk boundaries."""
+    if fault not in (None, *CHUNKED_FAULTS):
+        raise ValueError(f"unknown fault {fault!r}")
+    b, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    x, dt, B, C = pad_chunks(x, dt, B, C, chunk)
+    nc = x.shape[1] // chunk
+    rep = H // G
+    xf = x.float().reshape(b, nc, chunk, H, P)
+    Bc = B.repeat_interleave(rep, dim=2).float().reshape(b, nc, chunk, H, N)
+    Cc = C.repeat_interleave(rep, dim=2).float().reshape(b, nc, chunk, H, N)
+    dtc = dt.float().reshape(b, nc, chunk, H)
+    dA = dtc * A.float()
+    if fault == "cum_across_chunks":
+        cum = torch.cumsum(dA.reshape(b, nc * chunk, H), dim=1).reshape(
+            b, nc, chunk, H)
+    else:
+        cum = torch.cumsum(dA, dim=2)                  # [b, nc, c, H]
+    tri = _tril(chunk, x.device)[None, :, :, None]     # [1, t, s, 1]
+    with no_tf32():
+        # 1. each chunk's own state, [b, nc, H, P, N]
+        w = torch.exp(cum[:, :, -1:, :] - cum) * dtc
+        states = torch.stack([torch.einsum(
+            "bshp,bshn->bhpn", xf[:, q] * w[:, q, ..., None], Bc[:, q])
+            for q in range(nc)], dim=1)
+        # 2. the state pass
+        decay_end = torch.exp(cum[:, :, -1, :])         # [b, nc, H]
+        if fault == "state_pass_without_decay":
+            decay_end = torch.ones_like(decay_end)
+        h = torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+        h_prev = []
+        for q in range(nc):
+            h_prev.append(h)
+            h = decay_end[:, q, :, None, None] * h + states[:, q]
+        # 3. each chunk's scan
+        ys = []
+        for q in range(nc):
+            seg = cum[:, q, :, None, :] - cum[:, q, None, :, :]
+            decay = torch.where(tri, torch.exp(torch.where(tri, seg, 0.0)),
+                                0.0)
+            M = torch.einsum("bthn,bshn->btsh", Cc[:, q], Bc[:, q]) * \
+                decay * dtc[:, q, None, :, :]
+            y = torch.einsum("btsh,bshp->bthp", M.to(x.dtype).float(),
+                             xf[:, q])
+            y = y + torch.exp(cum[:, q])[..., None] * torch.einsum(
+                "bthn,bhpn->bthp", Cc[:, q], h_prev[q])
+            ys.append((y + D.float()[None, None, :, None] * xf[:, q])
+                      .to(x.dtype))
     return torch.cat(ys, dim=1)[:, :S], h.to(x.dtype)

@@ -17,7 +17,14 @@ chunked prefill. Tolerances come from `repro_torch.TOLERANCES`:
   state is bf16; the port's comes from the kernel's f32 state. That drift
   is stated here, not hidden: the two are not one ulp apart.
 
-The Hopper kernel itself runs only on the card (the gpu-marked test).
+The chunked mainloop's order (chunk states, a sequential f32 state pass,
+the chunk scan) has its own plain version, `ssd_chunked_ref`: it is held
+against the Pallas kernel the same way, gives a prompt's rows and state
+bit for bit alone and padded into a bucket, and its planted faults fail
+`ssd_bf16_kernel`. `ssd_plan` is read for every served and test shape, and
+the kernel wrapper's input check for the strided views apply_ssm hands it.
+
+The Hopper kernel itself runs only on the card (the gpu-marked tests).
 `PYTHONPATH=src:. python tests/test_torch_ssd.py` prints the CPU readings
 behind ssd_bf16_reference (drift_readings).
 """
@@ -33,8 +40,13 @@ from repro.models.ssm import ssd_reference as jax_ssd_reference
 from repro_torch import TOLERANCES
 from repro_torch.bridge import params_from_jax
 from repro_torch.kernels.ssd import ops
-from repro_torch.kernels.ssd.ref import ssd_kernel_ref, ssd_ref
-from repro_torch.kernels.ssd.ssd import run_chunk, ssd_cuda
+from repro_torch.configs import get_arch, reduced
+from repro_torch.kernels.ssd import ssd as ssd_mod
+from repro_torch.kernels.ssd.ref import (CHUNKED_FAULTS, ssd_chunked_ref,
+                                         ssd_kernel_ref, ssd_ref)
+from repro_torch.kernels.ssd.ssd import run_chunk, ssd_cuda, ssd_plan
+from repro_torch.models import ssm as tssm
+from repro_torch.models.model import Model
 from repro_torch.models.ssm import ssd_decode_step
 
 # tests/test_kernels.py::SSD_CASES: (b, S, H, P, G, N, chunk)
@@ -231,6 +243,148 @@ def test_ssd_runs_only_on_cpu_or_cuda():
         ops.ssd(x, x[..., 0], x[0, 0, :, 0], x, x, x[0, 0, :, 0], chunk=16)
 
 
+# (b, S, H, P, G, N, chunk): a G > 1 shape beside the four of SSD_CASES
+CHUNKED_REF_CASES = SSD_CASES + [(1, 96, 4, 16, 2, 32, 32)]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", CHUNKED_REF_CASES)
+def test_chunked_ref_matches_jax_pallas(case, dtype):
+    """The chunked mainloop's order against the Pallas kernel (interpret
+    mode): y within ssd_f32 / ssd_bf16_kernel, the final state against the
+    JAX wrapper's as test_ssd_matches_jax_pallas holds it."""
+    j, t = _inputs(case, dtype, seed=11)
+    chunk = case[-1]
+    jy, jh = jops.ssd(*j, chunk=chunk, interpret=True)
+    y, h = ssd_chunked_ref(*t, chunk=chunk)
+    tol_y, tol_h = _tols(dtype)
+    _assert_close(y, jy, tol_y)
+    _assert_close(h, jh, tol_h)
+
+
+@pytest.mark.parametrize("lens", [(5, 64), (100, 160), (33, 32)])
+def test_chunked_ref_rows_equal_alone_and_in_a_bucket(lens):
+    """A prompt of S real tokens, alone ([1, S]) and right-padded with
+    dt = 0 (random x, B, C past S) into a [2, bucket] launch beside another
+    lane, gives the same y rows and final state bit for bit: a padded step
+    adds exactly 0 to its chunk's state and the state pass leaves h as it
+    is through a padded chunk."""
+    S, bucket = lens[0], max(lens)
+    bucket = -(-bucket // 32) * 32 + 32          # at least one padded chunk
+    case = (2, bucket, 4, 16, 1, 32, 32)
+    _, (x, dt, A, B, C, D) = _inputs(case, "bfloat16", seed=12)
+    dt = dt.clone()
+    dt[0, S:] = 0.0
+    y, h = ssd_chunked_ref(x, dt, A, B, C, D, chunk=32)
+    ya, ha = ssd_chunked_ref(x[:1, :S].clone(), dt[:1, :S].clone(), A,
+                             B[:1, :S].clone(), C[:1, :S].clone(), D,
+                             chunk=32)
+    assert torch.equal(y[:1, :S], ya) and torch.equal(h[:1], ha)
+
+
+def test_chunked_ref_controls_fail_the_one_ulp_tolerance():
+    """At mamba2's head shape (P 64, N 128, chunk 256, 4 chunks) the plain
+    three-phase version equals ssd_kernel_ref within ssd_bf16_kernel, and
+    each of its planted faults (the state pass without its exp(cum_end)
+    decay; cum carried across chunk boundaries) fails it, in y or h."""
+    import chip_smoke
+    g = torch.Generator().manual_seed(13)
+    args = chip_smoke.ssd_inputs((1, 1024, 2, 64, 1, 128), torch.bfloat16,
+                                 g, "cpu")
+    y, h = ssd_kernel_ref(*args, chunk=256)
+    tol = TOLERANCES["ssd_bf16_kernel"]
+    cy, ch = ssd_chunked_ref(*args, chunk=256)
+    assert tol.ok(cy, y) and tol.ok(ch, h)
+    for fault in CHUNKED_FAULTS:
+        py, ph = ssd_chunked_ref(*args, chunk=256, fault=fault)
+        excess = max(tol.excess(py, y), tol.excess(ph, h))
+        assert not excess <= 1.0, (fault, excess)
+
+
+@pytest.mark.parametrize("shape, dtype, mainloop", [
+    # mamba2-370m's served tiles (P, N, chunk) and hymba-1.5b's SSM heads
+    ((64, 128, 256), torch.bfloat16, "chunked"),
+    ((64, 128, 256), torch.float32, "serial"),
+    ((64, 16, 256), torch.bfloat16, "serial"),
+    # reduced(mamba2-370m) in the CPU model tests
+    ((16, 16, 32), torch.bfloat16, "serial"),
+    ((16, 16, 32), torch.float32, "serial"),
+    # other chunks at mamba2's P and N
+    ((64, 128, 128), torch.bfloat16, "serial"),
+    ((64, 128, 512), torch.bfloat16, "serial"),
+] + [((c[3], c[5], c[6]), dt, "serial") for c in SSD_CASES
+     for dt in (torch.float32, torch.bfloat16)])
+def test_ssd_plan(shape, dtype, mainloop):
+    """chunked takes bf16 at mamba2's tiles only; f32 (sub-chunks
+    included) and every other shape stay on serial."""
+    assert ssd_plan(*shape, dtype) == mainloop
+
+
+def test_ssd_plan_refuses_other_dtypes():
+    with pytest.raises(ValueError, match="ssd takes"):
+        ssd_plan(64, 128, 256, torch.float16)
+
+
+def _apply_ssm_views():
+    """The (x, dt, A, B, C, D, chunk) that apply_ssm hands the SSD kernel's
+    entry point in a reduced(mamba2-370m) prefill of 64 tokens (two chunks
+    of 32), recorded on the CPU."""
+    cfg = reduced(get_arch("mamba2-370m"))
+    model = Model(cfg, device="cpu", use_pallas=True, ssd_impl="pallas")
+    params = model.init(torch.Generator().manual_seed(0))
+    seen = []
+
+    def record(x, dt, A, B, C, D, *, chunk):
+        seen.append((x, dt, A, B, C, D, chunk))
+        return ops.ssd(x, dt, A, B, C, D, chunk=chunk)
+
+    tokens = torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab, (2, 64)))
+    orig, tssm.ssd_kernel = tssm.ssd_kernel, record
+    try:
+        model.forward(params, {"tokens": tokens})
+    finally:
+        tssm.ssd_kernel = orig
+    assert len(seen) == cfg.n_layers
+    return seen[0]
+
+
+def test_ssd_cuda_takes_apply_ssm_views_by_stride():
+    """x, B and C reach the kernel wrapper as views into one projection
+    (rows of di + 2 G N elements), not copies: its input check takes them
+    as they are, rows 16-byte aligned for the chunked mainloop; a view
+    whose last dim is not contiguous is refused."""
+    x, dt, A, B, C, D, chunk = _apply_ssm_views()
+    assert not x.is_contiguous() and not B.is_contiguous()
+    assert x.stride(1) == B.stride(1) == C.stride(1) > x.shape[2] * x.shape[3]
+    dt, A, D = dt.float().contiguous(), A.float(), D.float()
+    ssd_mod.check_inputs(x, dt, A, B, C, D, chunk=chunk)
+    assert all(ssd_mod._vector_ready(t) for t in (x, B, C))
+    for bad in ("x", "B", "C"):
+        args = {"x": x, "B": B, "C": C}
+        t = args[bad]
+        wide = t.new_zeros(*t.shape[:3], 2 * t.shape[3])
+        wide[..., ::2] = t
+        args[bad] = wide[..., ::2]                # last stride 2
+        with pytest.raises(ValueError, match="contiguous last dim"):
+            ssd_mod.check_inputs(args["x"], dt, A, args["B"], args["C"], D,
+                                 chunk=chunk)
+
+
+def test_mainloop_override_is_held_to_the_plan():
+    """serial may be asked for at any shape (to time it beside chunked);
+    chunked only where the plan picks it."""
+    bf16 = torch.bfloat16
+    assert ssd_mod.resolve_mainloop(64, 128, 256, bf16, None) == "chunked"
+    assert ssd_mod.resolve_mainloop(64, 128, 256, bf16, "serial") == "serial"
+    for P, N, chunk, dtype in ((64, 128, 256, torch.float32),
+                               (16, 32, 32, bf16), (64, 128, 128, bf16)):
+        with pytest.raises(ValueError, match="does not take"):
+            ssd_mod.resolve_mainloop(P, N, chunk, dtype, "chunked")
+    with pytest.raises(ValueError, match="does not take"):
+        ssd_mod.resolve_mainloop(64, 128, 256, bf16, "wgmma")
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -258,6 +412,42 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype):
             tol = TOLERANCES["ssd_f32_rows"]   # mamba2-sized f32 chunks
         assert tol.ok(y.float(), ry.float()) and tol.ok(h.float(), rh.float())
     assert ssd_cuda.launches > before
+
+
+@pytest.mark.gpu
+def test_chunked_mainloop_on_card(cuda_device):
+    """mamba2's tiles in bf16 run the chunked mainloop, within
+    ssd_bf16_kernel of the Pallas kernel's arithmetic and of the serial
+    mainloop; a prompt's rows and state are bit-equal alone and in a
+    bucket; strided views of one projection equal contiguous copies."""
+    import chip_smoke
+    g = torch.Generator("cuda").manual_seed(15)
+    shape = (2, 768, 8, 64, 1, 128)
+    x, dt, A, B, C, D = chip_smoke.ssd_inputs(shape, torch.bfloat16, g)
+    dt[1, 600:] = 0.0
+    before = dict(ssd_cuda.mainloop_launches)
+    y, h = ops.ssd(x, dt, A, B, C, D, chunk=256)
+    assert ssd_cuda.mainloop_launches["chunked"] == before["chunked"] + 1
+    sy, sh = ssd_cuda(x, dt, A, B, C, D, chunk=256, mainloop="serial")
+    ky, kh = ssd_kernel_ref(x, dt, A, B, C, D, chunk=256)
+    torch.cuda.synchronize()
+    tol = TOLERANCES["ssd_bf16_kernel"]
+    for got, ref in ((y, ky), (h, kh), (y, sy), (h, sh)):
+        assert tol.ok(got, ref), tol.excess(got, ref)
+    ya, ha = ops.ssd(*(t[1:2, :600].contiguous() for t in (x, dt)), A,
+                     *(t[1:2, :600].contiguous() for t in (B, C)), D,
+                     chunk=256)
+    assert torch.equal(y[1:2, :600], ya) and torch.equal(h[1:2], ha)
+    b, S, H, P, G, N = shape
+    proj = torch.randn((b, S, H * P + 2 * G * N), generator=g,
+                       device="cuda").to(torch.bfloat16)
+    xs, Bs, Cs = torch.split(proj, [H * P, G * N, G * N], dim=-1)
+    views = (xs.reshape(b, S, H, P), Bs.reshape(b, S, G, N),
+             Cs.reshape(b, S, G, N))
+    yv, hv = ssd_cuda(views[0], dt, A, views[1], views[2], D, chunk=256)
+    yc, hc = ssd_cuda(*(t.contiguous() for t in views[:1]), dt, A,
+                      *(t.contiguous() for t in views[1:]), D, chunk=256)
+    assert torch.equal(yv, yc) and torch.equal(hv, hc)
 
 
 def drift_readings(seeds=(0, 1)) -> list[dict]:
