@@ -61,6 +61,11 @@ Phases, one JSON line each; any failure exits non-zero:
                from the updated state, ssd_ref itself, the state and
                y_inter rounded to bf16, the state pass without its decay,
                cum carried across chunks) must fail the one-ulp tolerance;
+               a long-chunk-decay case ([4, 1024] at the same tiles, dt and
+               A as Mamba-2 initialises them, so slow heads carry their
+               state across whole chunks) passes it too, and the same
+               controls fail there, cum across chunks on the state itself
+               (the bf16 state is reported there, not gated);
                a prompt of 1277 tokens gives bit-equal rows and state alone
                ([1, 1277]) and in a [4, 2048] bucket; strided views of one
                projection give bit-equal results to contiguous copies.
@@ -77,12 +82,26 @@ Phases, one JSON line each; any failure exits non-zero:
                planted controls (sums in bf16, group g+1 reading group g's
                weights) must fail.
   7. serve   - granite-8b at full width and depth (random weights from a
-               seeded torch.Generator, bf16) served by ServeEngine; every
-               request must finish with valid tokens, and the pod-GEMM
-               launch count must be 7 x 36 + 1 = 253 per forward, each on
-               splitk (M <= 64) or wgmma (M > 64), none on wmma. The
-               paged and moe phases hold their pod-GEMM launches to the
-               same rule.
+               seeded torch.Generator, bf16) served by ServeEngine, whose
+               bucketed prefills and decode chunks replay CUDA graphs
+               (serve/graphs.py); every request must finish with valid
+               tokens, and the pod-GEMM launch count must be 7 x 36 + 1 =
+               253 per forward, each on splitk (M <= 64) or wgmma (M >
+               64), none on wmma. The paged and moe phases hold their
+               pod-GEMM launches to the same rule. Every serve phase
+               (7, 9, 11, 13) then serves the same requests through an
+               eager engine (ServeEngine(eager=True)) in the same run:
+               tokens, every host read (first tokens and packed decode
+               chunks) bit for bit, host syncs and launch counts by
+               mainloop must be equal, the graphs within
+               max_prefill_compiles and log2(decode_chunk) + 1; a second
+               pass of each engine gives its steady figures (decode
+               ms/step, prefill ms/call, tokens/s; the graphed one
+               captures nothing), and one decode chunk of each is traced
+               with torch.profiler (idle_share: 1 - kernel time over the
+               chunk's wall), with capture seconds, graph count, the graph
+               pool's bytes and whether one decode step's logits are
+               bit-equal graphed and eager.
   8. oracle  - the same requests through the per-token ReferenceEngine.
                Random weights at 36 layers turn a last-bit difference into
                different tokens, so agreement is reported there and the
@@ -181,7 +200,9 @@ from repro_torch.models.layers import (apply_norm, apply_rope, embed,  # noqa: E
                                        pod_dense)
 from repro_torch.runtime import no_tf32  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.serve import engine as engine_mod  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.serve.graphs import GraphPool, StepRunner  # noqa: E402
 from repro_torch.serve.reference import ReferenceEngine  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
@@ -760,26 +781,51 @@ def phase_flash() -> None:
 # 5. ssd vs plain
 # --------------------------------------------------------------------------
 
+# the long-chunk-decay case: mamba2's tiles at chunk 256 with dt and A as
+# Mamba-2 initialises them (ssd_inputs, "mamba2_init"), where the state
+# carried across a whole chunk survives in the slow heads
+SSD_DECAY = (SLOTS, 1024, 32, 64, 1, 128, 256)
 SSD_CASES = [
     # b, S, H, P, G, N, chunk: the four of tests/test_kernels.py
     (2, 64, 4, 16, 1, 32, 16), (1, 100, 2, 8, 2, 16, 32),
     (1, 32, 4, 16, 4, 8, 32), (2, 48, 8, 32, 1, 64, 16),
     # mamba2-370m's heads: a ragged S, and G > 1
     (2, 1000, 32, 64, 1, 128, 256), (2, 512, 32, 64, 4, 128, 256),
+    SSD_DECAY,
 ]
 SSD_SERVED = (SLOTS, 2048, 32, 64, 1, 128)   # mamba2's largest prefill
 SSD_FAULTS = ("state_not_carried", "mask_after_exp",
               "y_inter_from_updated_state")
 
 
-def ssd_inputs(shape, dtype, g, device="cuda"):
-    """x, B, C randn in dtype; dt = softplus(randn) and A = -exp(U(-0.5,
-    0.5)), f32, as mamba2's init gives them (dt ~ 0.8, A ~ -1), so the
-    exponent above a 256-token chunk's diagonal overflows f32; D U(0, 1)."""
+def ssd_inputs(shape, dtype, g, device="cuda", dt_law: str = "softplus"):
+    """x, B, C randn in dtype; D U(0, 1). dt and A (f32) by `dt_law`:
+
+    * "softplus": dt = softplus(randn) and A = -exp(U(-0.5, 0.5)), as the
+      served model's init gives them (dt ~ 0.8, A ~ -1): the exponent
+      above a 256-token chunk's diagonal overflows f32, and exp(cum_end)
+      of a whole chunk underflows to 0, so no state survives a chunk;
+    * "mamba2_init": as Mamba-2's reference implementation initialises
+      them by default (arXiv:2405.21060: A = -U(1, 16) per head, dt
+      log-uniform in [0.001, 0.1] per head), with a per-token jitter
+      exp(N(0, 1/16)) kept in that range. Slow heads (dt |A| well below 0.34) keep exp(cum_end) above 0
+      and carry their state across whole chunks; fast ones overflow the
+      masked exponent, as "softplus" does."""
     b, S, H, P, G, N = shape
     x = torch.randn((b, S, H, P), generator=g, device=device).to(dtype)
-    dt = F.softplus(torch.randn((b, S, H), generator=g, device=device))
-    A = -torch.exp(torch.rand(H, generator=g, device=device) - 0.5)
+    if dt_law == "softplus":
+        dt = F.softplus(torch.randn((b, S, H), generator=g, device=device))
+        A = -torch.exp(torch.rand(H, generator=g, device=device) - 0.5)
+    elif dt_law == "mamba2_init":
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        rate = torch.exp(lo + (hi - lo) * torch.rand(
+            (b, 1, H), generator=g, device=device))
+        jitter = torch.exp(0.25 * torch.randn((b, S, H), generator=g,
+                                              device=device))
+        dt = (rate * jitter).clamp(1e-3, 1e-1)
+        A = -(1 + 15 * torch.rand(H, generator=g, device=device))
+    else:
+        raise ValueError(f"unknown dt law {dt_law!r}")
     B = torch.randn((b, S, G, N), generator=g, device=device).to(dtype)
     C = torch.randn((b, S, G, N), generator=g, device=device).to(dtype)
     D = torch.rand(H, generator=g, device=device)
@@ -856,7 +902,10 @@ def phase_ssd() -> None:
     for dtype in (torch.float32, torch.bfloat16):
         cls = str(dtype)[6:]
         for (b, S, H, P, G, N, chunk) in SSD_CASES:
-            x, dt, A, B, C, D = ssd_inputs((b, S, H, P, G, N), dtype, g)
+            case = (b, S, H, P, G, N, chunk)
+            x, dt, A, B, C, D = ssd_inputs(
+                case[:6], dtype, g, dt_law="mamba2_init"
+                if case == SSD_DECAY else "softplus")
             plan = ssd_mod.ssd_plan(P, N, chunk, dtype)
             before = dict(ssd_mod.ssd_cuda.mainloop_launches)
             got = ssd_ops.ssd(x, dt, A, B, C, D, chunk=chunk)
@@ -916,34 +965,47 @@ def phase_ssd() -> None:
             failures.append(f"f32 control {fault} passes {tol}: {e}")
     cases += 1
     del args, got, ref, whole
-    served = ssd_served_shape(g)
-    for name, e in served["excess"].items():
-        if not e <= 1.0:
-            failures.append(f"served shape {name}: excess {e}")
-    if served["mainloop"] != "chunked":
-        failures.append(f"served shape ran {served['mainloop']}")
-    for fault, e in served["controls"].items():
-        # a control fails when y or h does; NaN (mask after exp) fails
-        if all(v <= 1.0 for v in e.values()):
-            failures.append(f"control {fault} passes ssd_bf16_kernel: {e}")
+    served = ssd_controls(g, SSD_SERVED, "softplus")
+    decay = ssd_controls(g, SSD_DECAY[:6], "mamba2_init")
+    for label, case in (("served shape", served), ("decay case", decay)):
+        for name, e in case["excess"].items():
+            if not e <= 1.0:
+                failures.append(f"{label} {name}: excess {e}")
+        if case["mainloop"] != "chunked":
+            failures.append(f"{label} ran {case['mainloop']}")
+        for fault, e in case["controls"].items():
+            # a control fails when y or h does; NaN (mask after exp) fails
+            if all(v <= 1.0 for v in e.values()):
+                failures.append(f"{label}: control {fault} passes "
+                                f"ssd_bf16_kernel: {e}")
+    # where exp(cum_end) stays above 0, cum carried across chunk
+    # boundaries breaks the carried state itself, not only y_inter
+    if not decay["controls"]["cum_across_chunks"]["h"] > 1.0:
+        failures.append(f"decay case: cum_across_chunks passes on h: "
+                        f"{decay['controls']['cum_across_chunks']}")
     same = ssd_rows_and_strides(g)
     failures += [f"{k} not bit-equal: {v}" for k, v in same.items()
                  if not all(v.values())]
-    emit("ssd", cases=cases + 1, mainloop_by_case=mainloops, worst=worst,
-         served_shape=served, bit_equal=same, f32_served_shape=f32_served,
+    emit("ssd", cases=cases + 2, mainloop_by_case=mainloops, worst=worst,
+         served_shape=served, decay_case=decay, bit_equal=same,
+         f32_served_shape=f32_served,
          tolerances={k: [t.rtol, t.atol] for k, t in TOLERANCES.items()
                      if k.startswith("ssd")}, failures=failures)
     check(not failures, f"{len(failures)} ssd checks failed")
 
 
-def ssd_served_shape(g) -> dict:
-    """The kernel at mamba2's served prefill, [4, 2048, 32, 64], N = 128,
-    chunk 256, bf16, against both plain versions, and the planted
-    controls against ssd_kernel_ref. Two controls are ssd_ref itself and
-    the state and y_inter rounded to bf16: neither may pass for the
-    kernel's f32 state. The last two plant faults of the chunked
-    mainloop's order (CHUNKED_FAULTS)."""
-    args = ssd_inputs(SSD_SERVED, torch.bfloat16, g)
+def ssd_controls(g, shape, dt_law: str) -> dict:
+    """The kernel at mamba2's tiles (N = 128, chunk 256, bf16) on inputs
+    of `shape` drawn by `dt_law`, against both plain versions, and the
+    planted controls against ssd_kernel_ref. Two controls are ssd_ref
+    itself and the state and y_inter rounded to bf16: neither may pass
+    for the kernel's f32 state. The last two plant faults of the chunked
+    mainloop's order (CHUNKED_FAULTS). At the served shape ("softplus")
+    every control is gated; at the long-chunk-decay case ("mamba2_init")
+    all but the bf16 state, which a small state can pass (ssd_planted):
+    it is reported there, with the share of chunks whose exp(cum_end)
+    stays above 0 and above 1e-3."""
+    args = ssd_inputs(shape, torch.bfloat16, g, dt_law=dt_law)
     before = ssd_mod.ssd_cuda.mainloop_launches["chunked"]
     y, h = ssd_ops.ssd(*args, chunk=256)
     ran_chunked = ssd_mod.ssd_cuda.mainloop_launches["chunked"] == before + 1
@@ -954,7 +1016,13 @@ def ssd_served_shape(g) -> dict:
     cy, ch = ssd_kernel_ref(*(t.cpu() for t in args), chunk=256)
     tight, loose = (TOLERANCES["ssd_bf16_kernel"],
                     TOLERANCES["ssd_bf16_reference"])
-    out = {"shape": list(SSD_SERVED) + [256],
+    b, S, H = shape[:3]
+    cum_end = (args[1].reshape(b, S // 256, 256, H) * args[2]).sum(2)
+    out = {"shape": list(shape) + [256], "dt_law": dt_law,
+           "exp_cum_end_share": {
+               "above_0": float((torch.exp(cum_end) > 0).float().mean()),
+               "above_1e-3": float((torch.exp(cum_end) > 1e-3).float()
+                                   .mean())},
            "mainloop": "chunked" if ran_chunked else "not chunked",
            "excess": {"y_vs_kernel_ref": tight.excess(y, ky),
                       "h_vs_kernel_ref": tight.excess(h, kh),
@@ -975,8 +1043,11 @@ def ssd_served_shape(g) -> dict:
     # the bf16 state and y_inter without that rounding
     out["bf16_state_ssd_ref_worst_y_row"] = worst_row(ry, ky, tight, 256)
     py, ph = ssd_planted(*args, chunk=256, fault="state_in_bf16")
-    out["controls"]["state_in_bf16"] = {"y": tight.excess(py, ky),
-                                        "h": tight.excess(ph, kh)}
+    bf16_state = {"y": tight.excess(py, ky), "h": tight.excess(ph, kh)}
+    if dt_law == "softplus":
+        out["controls"]["state_in_bf16"] = bf16_state
+    else:
+        out["reported_controls"] = {"state_in_bf16": bf16_state}
     # the chunked mainloop's own order: the state pass without its decay,
     # cum carried across chunk boundaries
     for fault in CHUNKED_FAULTS:
@@ -1184,6 +1255,254 @@ def phase_grouped() -> None:
 
 
 # --------------------------------------------------------------------------
+# graphed against eager, in every serve phase
+# --------------------------------------------------------------------------
+
+def launch_table() -> dict:
+    """Every kernel wrapper's launches and launches by mainloop."""
+    return {name: {"launches": fn.launches,
+                   "by_mainloop": dict(fn.mainloop_launches)}
+            for name, fn in (("pod_gemm", sg.systolic_gemm_cuda),
+                             ("gemm_nt", sg.systolic_gemm_nt_cuda),
+                             ("grouped", sg.grouped_systolic_gemm_cuda),
+                             ("flash", fa.flash_attention_cuda),
+                             ("ssd", ssd_mod.ssd_cuda))}
+
+
+def counted_serve(engine, reqs: list[Request], step_hook=None) -> dict:
+    """Serve reqs on `engine` from zeroed launch counts, one step() a
+    quantum (step_hook(engine) after each). Returns the wall seconds, the
+    counted host syncs, every launch count (launch_table) and every host
+    read the engine made: each prefill's first tokens and each packed
+    decode chunk, copied."""
+    reads = []
+    real = engine_mod.to_host
+
+    def recording(t):
+        out = real(t)
+        reads.append(out.copy())
+        return out
+    reset_launch_counts()
+    syncs0 = HOST_SYNCS.count
+    engine_mod.to_host = recording
+    try:
+        t0 = time.perf_counter()
+        for r in reqs:
+            engine.submit(r)
+        for _ in range(1000):
+            if not engine.queue and not any(engine.active):
+                break
+            engine.step()
+            if step_hook is not None:
+                step_hook(engine)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        engine_mod.to_host = real
+    check(not engine.queue and not any(engine.active),
+          "requests still pending after 1000 steps")
+    return {"wall_s": wall, "syncs": HOST_SYNCS.count - syncs0,
+            "launches": launch_table(), "reads": reads}
+
+
+def pass_figures(engine, run: dict, reqs: list[Request], st0: dict) -> dict:
+    """One pass's serve figures from the engine's stats since `st0`:
+    prefill ms per call and decode ms per step over the calls that did not
+    warm up and capture (those count in capture_s), tokens/s over the
+    pass's whole wall."""
+    st = {k: v - st0.get(k, 0) for k, v in engine.stats.items()
+          if not isinstance(v, bool)}
+    prefills = st["prefill_calls"] - st["capture_prefills"]
+    steps = st["decode_steps"] - st["capture_steps"]
+    generated = sum(len(r.out) for r in reqs)
+    return {"wall_s": run["wall_s"], "tokens_per_s": generated / run["wall_s"],
+            "host_syncs": run["syncs"], "prefill_calls": st["prefill_calls"],
+            "prefill_ms_per_call": (1e3 * st["prefill_s"] / prefills
+                                    if prefills else None),
+            "decode_chunks": st["chunks"], "decode_steps": st["decode_steps"],
+            "decode_ms_per_step": (1e3 * st["decode_s"] / steps
+                                   if steps else None),
+            "capture_s": st["capture_s"], "graphs": st["graphs"],
+            "captured_prefills": st["capture_prefills"],
+            "captured_decode_steps": st["capture_steps"]}
+
+
+def profile_decode_chunk(engine, vocab: int, label: str) -> dict:
+    """One full decode chunk (decode_chunk steps, every slot live) under
+    torch.profiler: the device's kernel time summed from the trace over
+    the chunk's wall, and idle_share = 1 - that share. A chunk before it
+    admits and captures what is new; the chunk after it is timed without
+    the profiler (its wall beside the profiled one: the profiler's own
+    cost on the host)."""
+    from torch.profiler import ProfilerActivity, profile
+    n = engine.decode_chunk
+    reqs = [Request(rid=10_000 + i, prompt=(np.arange(8) + 3 * i) % vocab,
+                    max_new_tokens=3 * n + 1) for i in range(engine.slots)]
+    for r in reqs:
+        engine.submit(r)
+    engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.step()
+    torch.cuda.synchronize()
+    unprofiled = time.perf_counter() - t0
+    engine.run_to_completion()
+    check(all(r.done for r in reqs), f"{label}: profiled requests not done")
+    path = _build.REPO_ROOT / "build" / "profiles" / f"{label}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    device = {"kernel": [0.0, 0], "gpu_memcpy": [0.0, 0],
+              "gpu_memset": [0.0, 0]}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("ph") == "X" and e.get("cat") in device:
+            device[e["cat"]][0] += float(e.get("dur", 0.0)) / 1e3
+            device[e["cat"]][1] += 1
+    kernel_ms = device["kernel"][0]
+    out = {"steps": n, "wall_ms": 1e3 * wall,
+           "unprofiled_wall_ms": 1e3 * unprofiled,
+           "kernel_ms": kernel_ms, "kernels": device["kernel"][1],
+           "memcpy_ms": device["gpu_memcpy"][0],
+           "memset_ms": device["gpu_memset"][0]}
+    if device["kernel"][1]:
+        out["idle_share"] = 1.0 - kernel_ms / (1e3 * wall)
+        out["idle_share_of_unprofiled_wall"] = \
+            1.0 - kernel_ms / (1e3 * unprofiled)
+    else:
+        out["idle_share"] = "not measured (the trace holds no kernel)"
+    return out
+
+
+def cache_tensors(cache: dict) -> list[torch.Tensor]:
+    return [getattr(c, f.name) for node in cache.values()
+            for c in node.values() for f in dataclasses.fields(c)]
+
+
+def decode_logits_graphed_vs_eager(model, params, engine) -> dict:
+    """One decode step over the engine's cache (as it is after serving),
+    eager and as a graph replay from the same state: whether the logits
+    are bit-equal (cuBLAS may pick another algorithm under capture, e.g.
+    for dbrx's f32 router). The cache is restored afterwards."""
+    cache = engine.cache
+    tensors = cache_tensors(cache)
+    saved = [t.clone() for t in tensors]
+
+    def restore():
+        for t, v in zip(tensors, saved):
+            t.copy_(v)
+    B = engine.slots
+    toks = torch.arange(1, B + 1, device="cuda") % model.cfg.vocab
+    pos = torch.arange(B, device="cuda") * 97 + 5
+
+    def body(toks, pos):
+        return model.decode_step(params, toks, cache, pos)[0]
+    eager = body(toks, pos).clone()
+    restore()
+    runner = StepRunner(body, {"toks": toks, "pos": pos},
+                        GraphPool(torch.device("cuda")))
+    runner()                                    # warm-up and capture
+    restore()
+    graphed = runner().clone()
+    torch.cuda.synchronize()
+    restore()
+    return {"bit_equal": torch.equal(eager, graphed),
+            "max_abs_diff": float((eager.float() - graphed.float()).abs()
+                                  .max()),
+            "argmax_equal": torch.equal(eager.argmax(-1),
+                                        graphed.argmax(-1))}
+
+
+def graphed_vs_eager(phase: str, model, params, eng, run: dict,
+                     reqs: list[Request], make_requests, engine_kw: dict
+                     ) -> dict:
+    """The phase's graphed engine `eng` (first pass `run` over `reqs`,
+    already gated on today's launch and sync formulas) against an eager
+    engine on the same requests, in the same run:
+
+    * gates: equal tokens; every host read (first tokens, packed decode
+      chunks) equal bit for bit; equal host syncs; equal launch counts by
+      kernel and mainloop; prefill graphs at most max_prefill_compiles,
+      decode graphs at most log2(decode_chunk) + 1, none in the eager
+      engine; a second pass of the graphed engine captures nothing and
+      gives the same tokens and reads;
+    * reported for both engines: the second pass's figures (every call a
+      replay when graphed), the first pass's capture seconds and graph
+      count, one profiled decode chunk's idle share; for the graphed one
+      each runner's warm-up, capture and instantiation seconds, the graph
+      pool's bytes and the static lane caches' bytes; and whether one
+      decode step's logits are bit-equal graphed and eager."""
+    cfg = model.cfg
+    eager = ServeEngine(model, params, eager=True, **engine_kw)
+    e_reqs = make_requests(cfg.vocab)
+    e_run = counted_serve(eager, e_reqs)
+    tokens = [r.out for r in reqs]
+    check(tokens == [r.out for r in e_reqs],
+          f"{phase}: graphed tokens differ from eager: "
+          f"{[r.rid for r, e in zip(reqs, e_reqs) if r.out != e.out]}")
+    first_diff = next((i for i, (a, b) in enumerate(zip(run["reads"],
+                                                        e_run["reads"]))
+                       if not np.array_equal(a, b)), None)
+    check(len(run["reads"]) == len(e_run["reads"]) and first_diff is None,
+          f"{phase}: graphed host reads differ from eager at read "
+          f"{first_diff} of {len(run['reads'])}")
+    check(run["syncs"] == e_run["syncs"],
+          f"{phase}: host syncs graphed {run['syncs']} != eager "
+          f"{e_run['syncs']}")
+    check(run["launches"] == e_run["launches"],
+          f"{phase}: launches graphed {run['launches']} != eager "
+          f"{e_run['launches']}")
+    decode_bound = int(math.log2(eng.decode_chunk)) + 1
+    prefill_graphs = eng.prefill_compiles if eng.bucketed else 0
+    check(eng.decode_compiles <= decode_bound and
+          (not eng.bucketed or eng.prefill_compiles
+           <= eng.max_prefill_compiles),
+          f"{phase}: {eng.prefill_compiles} prefill / "
+          f"{eng.decode_compiles} decode graphs past the bounds "
+          f"{eng.max_prefill_compiles} / {decode_bound}")
+    check(eng.stats["graphs"] == prefill_graphs + eng.decode_compiles and
+          eager.stats["graphs"] == 0,
+          f"{phase}: graphs {eng.stats['graphs']} (eager "
+          f"{eager.stats['graphs']}) for {prefill_graphs} prefill and "
+          f"{eng.decode_compiles} decode runners")
+    runner_seconds = {f"prefill {b}": r.seconds
+                      for b, r in sorted(eng._prefill_runners.items())}
+    runner_seconds.update({f"decode {n}": r.seconds
+                           for n, r in sorted(eng._decode_runners.items())})
+    out = {"graphed": {"first_pass": pass_figures(eng, run, reqs, {}),
+                       "graph_pool_bytes": eng.graph_pool_bytes(),
+                       "static_lane_cache_bytes": sum(
+                           t.nbytes for lane in eng._lane_caches.values()
+                           for t in cache_tensors(lane)),
+                       "prefill_graphs": prefill_graphs,
+                       "decode_graphs": eng.decode_compiles,
+                       "runner_seconds": runner_seconds},
+           "eager": {"first_pass": pass_figures(eager, e_run, e_reqs, {})}}
+    for label, engine in (("graphed", eng), ("eager", eager)):
+        st0 = dict(engine.stats)
+        again = make_requests(cfg.vocab)
+        run2 = counted_serve(engine, again)
+        out[label]["second_pass"] = pass_figures(engine, run2, again, st0)
+        check([r.out for r in again] == tokens and
+              all(np.array_equal(a, b) for a, b in
+                  zip(run2["reads"], run["reads"])),
+              f"{phase}: {label} second pass differs from the first")
+    check(out["graphed"]["second_pass"]["graphs"] == 0,
+          f"{phase}: the graphed engine's second pass captured "
+          f"{out['graphed']['second_pass']['graphs']} graphs")
+    for label, engine in (("graphed", eng), ("eager", eager)):
+        out[label]["decode_chunk_profile"] = profile_decode_chunk(
+            engine, cfg.vocab, f"{phase}-{label}")
+    out["decode_logits"] = decode_logits_graphed_vs_eager(model, params,
+                                                          eng)
+    return out
+
+
+# --------------------------------------------------------------------------
 # 7. serve and 8. oracle
 # --------------------------------------------------------------------------
 
@@ -1210,15 +1529,13 @@ def phase_serve(model, params):
                       decode_chunk=DECODE_CHUNK),
           [Request(rid=-1, prompt=np.arange(8), max_new_tokens=2)])
     reqs = make_requests(cfg.vocab)
-    eng = ServeEngine(model, params, slots=SLOTS, max_len=MAX_LEN,
-                      decode_chunk=DECODE_CHUNK)
-    reset_launch_counts()
-    syncs0 = HOST_SYNCS.count
-    wall = serve(eng, reqs)
+    kw = dict(slots=SLOTS, max_len=MAX_LEN, decode_chunk=DECODE_CHUNK)
+    eng = ServeEngine(model, params, **kw)
+    run = counted_serve(eng, reqs)
+    wall, syncs = run["wall_s"], run["syncs"]
     launches = sg.systolic_gemm_cuda.launches
     by_mainloop = hopper_mainloops("serve")
-    syncs = HOST_SYNCS.count - syncs0
-    st = eng.stats
+    st = dict(eng.stats)     # the first pass's (graphed_vs_eager serves more)
     for r in reqs:
         check(r.done and r.state == "done",
               f"request {r.rid} ended {r.state} ({r.reason})")
@@ -1232,15 +1549,15 @@ def phase_serve(model, params):
     check(syncs == st["prefill_calls"] + st["chunks"],
           f"host syncs {syncs} != prefill groups + decode chunks")
     generated = sum(len(r.out) for r in reqs)
+    pair = graphed_vs_eager("serve", model, params, eng, run, reqs,
+                            make_requests, kw)
     emit("serve", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
          slots=SLOTS, max_len=MAX_LEN, decode_chunk=DECODE_CHUNK,
          prompt_lens=[len(r.prompt) for r in reqs], max_new_tokens=MAX_NEW,
          requests_done=len(reqs), tokens_generated=generated,
-         wall_s=wall, tokens_per_s=generated / wall,
-         prefill_calls=st["prefill_calls"],
-         prefill_ms_per_call=1e3 * st["prefill_s"] / st["prefill_calls"],
+         wall_s=wall, prefill_calls=st["prefill_calls"],
          decode_chunks=st["chunks"], decode_steps=st["decode_steps"],
-         decode_ms_per_step=1e3 * st["decode_s"] / st["decode_steps"],
+         graphed_vs_eager=pair,
          host_syncs=syncs, pod_gemm_launches=launches,
          pod_gemm_by_mainloop=by_mainloop,
          launches_per_forward=per_forward)
@@ -1344,27 +1661,19 @@ def phase_serve_paged(model, params):
     torch.cuda.synchronize()
     start_bytes = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    syncs0 = HOST_SYNCS.count
-    peak = None
-    t0 = time.perf_counter()
-    for r in reqs:
-        eng.submit(r)
-    for _ in range(1000):
-        if not eng.queue and not any(eng.active):
-            break
-        eng.step()
-        stats = eng.paged_kv_stats()
-        if peak is None or stats["mapped_bytes"] > peak["mapped_bytes"]:
-            peak = stats
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    peaks = []
+
+    def page_stats(engine):
+        stats = engine.paged_kv_stats()
+        if not peaks or stats["mapped_bytes"] > peaks[-1]["mapped_bytes"]:
+            peaks.append(stats)
+    run = counted_serve(eng, reqs, step_hook=page_stats)
+    wall, syncs, peak = run["wall_s"], run["syncs"], peaks[-1]
     gemm_launches = sg.systolic_gemm_cuda.launches
     by_mainloop = hopper_mainloops("serve_paged")
     flash_launches = fa.flash_attention_cuda.launches
     flash_by_mainloop = flash_mainloops("serve_paged")
-    syncs = HOST_SYNCS.count - syncs0
-    st = eng.stats
+    st = dict(eng.stats)     # the first pass's (graphed_vs_eager serves more)
     # the prefill's dense transient lane cache at the largest bucket, and
     # the device's peak over the run above what the weights and the pool
     # already held (transient cache, activations, logits)
@@ -1392,15 +1701,15 @@ def phase_serve_paged(model, params):
     check(syncs == st["prefill_calls"] + st["chunks"],
           f"host syncs {syncs} != prefill groups + decode chunks")
     generated = sum(len(r.out) for r in reqs)
+    pair = graphed_vs_eager("serve_paged", model, params, eng, run, reqs,
+                            make_paged_requests, PAGED)
     emit("serve_paged", arch=cfg.name, n_layers=cfg.n_layers,
          attention_impl=model.impl, **PAGED,
          prompt_lens=[len(r.prompt) for r in reqs], max_new_tokens=MAX_NEW,
          requests_done=len(reqs), tokens_generated=generated,
-         wall_s=wall, tokens_per_s=generated / wall,
-         prefill_calls=st["prefill_calls"],
-         prefill_ms_per_call=1e3 * st["prefill_s"] / st["prefill_calls"],
+         wall_s=wall, prefill_calls=st["prefill_calls"],
          decode_chunks=st["chunks"], decode_steps=st["decode_steps"],
-         decode_ms_per_step=1e3 * st["decode_s"] / st["decode_steps"],
+         graphed_vs_eager=pair,
          host_syncs=syncs, pod_gemm_launches=gemm_launches,
          pod_gemm_by_mainloop=by_mainloop,
          flash_launches=flash_launches,
@@ -1537,14 +1846,6 @@ def flash_mainloops(phase: str) -> dict:
     return by
 
 
-def launch_counts() -> dict:
-    return {"pod_gemm": sg.systolic_gemm_cuda.launches,
-            "gemm_nt": sg.systolic_gemm_nt_cuda.launches,
-            "grouped": sg.grouped_systolic_gemm_cuda.launches,
-            "flash": fa.flash_attention_cuda.launches,
-            "ssd": ssd_mod.ssd_cuda.launches}
-
-
 def phase_serve_ssm(model, params):
     """mamba2-370m through bucketed prefill (SSD kernel) and fused decode
     (recurrent torch ops), every LM head on the NT kernel."""
@@ -1555,9 +1856,8 @@ def phase_serve_ssm(model, params):
                    % cfg.vocab, max_new_tokens=2)])
     reqs = make_paged_requests(cfg.vocab)
     eng = ServeEngine(model, params, **SSM_SERVE)
-    reset_launch_counts()
-    syncs0 = HOST_SYNCS.count
-    wall = serve(eng, reqs)
+    run = counted_serve(eng, reqs)
+    wall, syncs = run["wall_s"], run["syncs"]
     launches = {"pod_gemm": sg.systolic_gemm_cuda.launches,
                 "gemm_nt": sg.systolic_gemm_nt_cuda.launches,
                 "flash": fa.flash_attention_cuda.launches,
@@ -1566,8 +1866,7 @@ def phase_serve_ssm(model, params):
     launches["gemm_nt_by_mainloop"] = hopper_mainloops("serve_ssm", "nt")
     # every SSD call on chunked (bf16 at mamba2's tiles)
     launches["ssd_by_mainloop"] = dict(ssd_mod.ssd_cuda.mainloop_launches)
-    syncs = HOST_SYNCS.count - syncs0
-    st = eng.stats
+    st = dict(eng.stats)     # the first pass's (graphed_vs_eager serves more)
     for r in reqs:
         check(r.done and r.state == "done",
               f"ssm request {r.rid} ended {r.state} ({r.reason})")
@@ -1590,15 +1889,15 @@ def phase_serve_ssm(model, params):
     check(syncs == st["prefill_calls"] + st["chunks"],
           f"host syncs {syncs} != prefill groups + decode chunks")
     generated = sum(len(r.out) for r in reqs)
+    pair = graphed_vs_eager("serve_ssm", model, params, eng, run, reqs,
+                            make_paged_requests, SSM_SERVE)
     emit("serve_ssm", arch=cfg.name, n_layers=cfg.n_layers,
          d_model=cfg.d_model, ssd_impl=model.ssd_impl, **SSM_SERVE,
          prompt_lens=[len(r.prompt) for r in reqs], max_new_tokens=MAX_NEW,
          requests_done=len(reqs), tokens_generated=generated,
-         wall_s=wall, tokens_per_s=generated / wall,
-         prefill_calls=st["prefill_calls"],
-         prefill_ms_per_call=1e3 * st["prefill_s"] / st["prefill_calls"],
+         wall_s=wall, prefill_calls=st["prefill_calls"],
          decode_chunks=st["chunks"], decode_steps=st["decode_steps"],
-         decode_ms_per_step=1e3 * st["decode_s"] / st["decode_steps"],
+         graphed_vs_eager=pair,
          host_syncs=syncs, launches=launches,
          largest_bucket=max(eng._bucket(len(r.prompt)) for r in reqs),
          ssm_state_bytes_per_lane=eng.cache["layers"]["ssm"].lane_bytes())
@@ -1662,20 +1961,18 @@ def phase_serve_moe(model, params):
     torch.cuda.synchronize()
     start_bytes = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    syncs0 = HOST_SYNCS.count
     try:
-        wall = serve(eng, reqs)
+        run = counted_serve(eng, reqs)
     finally:
         del model.prefill
-    launches = launch_counts()
+    wall, syncs = run["wall_s"], run["syncs"]
+    launches = {k: v["launches"] for k, v in run["launches"].items()}
     launches["pod_gemm_by_mainloop"] = hopper_mainloops("serve_moe")
     launches["grouped_by_mainloop"] = grouped_by = dict(
         sg.grouped_systolic_gemm_cuda.mainloop_launches)
     launches["flash_by_mainloop"] = flash_mainloops("serve_moe")
-    syncs = HOST_SYNCS.count - syncs0
     peak = torch.cuda.max_memory_allocated()
-    st = eng.stats
+    st = dict(eng.stats)     # the first pass's (graphed_vs_eager serves more)
     for r in reqs:
         check(r.done and r.state == "done",
               f"moe request {r.rid} ended {r.state} ({r.reason})")
@@ -1713,17 +2010,17 @@ def phase_serve_moe(model, params):
     check(syncs == st["prefill_calls"] + st["chunks"],
           f"host syncs {syncs} != prefills + decode chunks")
     generated = sum(len(r.out) for r in reqs)
+    pair = graphed_vs_eager("serve_moe", model, params, eng, run, reqs,
+                            make_paged_requests, MOE_SERVE)
     emit("serve_moe", arch=cfg.name, n_layers=L, d_model=cfg.d_model,
          experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
          attention_impl=model.impl, **MOE_SERVE,
          prompt_lens=[len(r.prompt) for r in reqs], max_new_tokens=MAX_NEW,
          requests_done=len(reqs), tokens_generated=generated,
-         wall_s=wall, tokens_per_s=generated / wall,
-         bucketed=eng.bucketed, prefill_shapes=shapes,
+         wall_s=wall, bucketed=eng.bucketed, prefill_shapes=shapes,
          prefill_calls=st["prefill_calls"],
-         prefill_ms_per_call=1e3 * st["prefill_s"] / st["prefill_calls"],
          decode_chunks=st["chunks"], decode_steps=st["decode_steps"],
-         decode_ms_per_step=1e3 * st["decode_s"] / st["decode_steps"],
+         graphed_vs_eager=pair,
          host_syncs=syncs, launches=launches,
          launches_per_forward=per_forward,
          gib_allocated_at_start=start_bytes / 2 ** 30,

@@ -122,16 +122,30 @@ def _vector_ready(t: torch.Tensor) -> bool:
 
 # Per device: the chunked mainloop's f32 workspace (each chunk's state,
 # then h_prev in place; exp(cum_end) after them), grown on demand. Launches
-# on one device share one stream, as the pod GEMM's split-K workspace.
+# on one device share one stream, as the pod GEMM's split-K workspace, and
+# as there, growing raises during a CUDA graph capture (the graph would
+# keep writing the replaced tensor): a shape runs eagerly first.
 _WORKSPACE: dict[torch.device, torch.Tensor] = {}
 
 
 def _workspace(device: torch.device, floats: int) -> torch.Tensor:
     ws = _WORKSPACE.get(device)
     if ws is None or ws.numel() < floats:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"the SSD workspace would grow (to {floats} floats) during "
+                f"CUDA graph capture; run the shape eagerly before "
+                f"capturing it")
         ws = torch.empty(floats, dtype=torch.float32, device=device)
         _WORKSPACE[device] = ws
     return ws
+
+
+def workspaces(device: torch.device) -> tuple[torch.Tensor, ...]:
+    """The chunked mainloop's workspace on `device` now (none before a
+    chunked launch): what a graph captured with it must keep alive."""
+    ws = _WORKSPACE.get(device)
+    return () if ws is None else (ws,)
 
 
 def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

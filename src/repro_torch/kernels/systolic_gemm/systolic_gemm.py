@@ -138,19 +138,37 @@ def _lib() -> ctypes.CDLL:
 
 # Per device: the split-K workspace (f32 partials, grown on demand) and the
 # strips' arrival counters (zeroed once here; every launch leaves them 0).
+# Growing replaces a tensor, so it must not happen while a CUDA graph is
+# captured: the graph would keep writing the freed one. A shape runs
+# eagerly first (serve/graphs.py warms up before it captures), and a graph
+# keeps a reference to the tensors it captured (`workspaces`).
 _SPLITK_SCRATCH: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _splitk_scratch(device: torch.device, floats: int, strips: int):
     ws, counters = _SPLITK_SCRATCH.get(device, (None, None))
-    if ws is None or ws.numel() < floats:
+    grow_ws = ws is None or ws.numel() < floats
+    grow_counters = counters is None or counters.numel() < strips
+    if (grow_ws or grow_counters) and \
+            torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"the split-K workspace would grow (to {floats} floats, "
+            f"{strips} counters) during CUDA graph capture; run the shape "
+            f"eagerly before capturing it")
+    if grow_ws:
         ws = torch.empty(max(floats, 1 << 20), dtype=torch.float32,
                          device=device)
-    if counters is None or counters.numel() < strips:
+    if grow_counters:
         counters = torch.zeros(max(strips, 4096), dtype=torch.int32,
                                device=device)
     _SPLITK_SCRATCH[device] = (ws, counters)
     return ws, counters
+
+
+def workspaces(device: torch.device) -> tuple[torch.Tensor, ...]:
+    """The split-K workspace and counters on `device` now (none before a
+    split-K launch): what a graph captured with them must keep alive."""
+    return _SPLITK_SCRATCH.get(device, ())
 
 
 def _check_vec(name: str, t: torch.Tensor, shape: tuple, device) -> None:

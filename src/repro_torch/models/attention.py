@@ -21,8 +21,10 @@ NEG_INF = -1e30
 
 def _scale_q(q, scale: float):
     # the reference multiplies by a weakly typed scalar, which JAX casts to
-    # q's dtype first; a 0-d tensor of q's dtype rounds the same way
-    return q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    # q's dtype first; a 0-d tensor of q's dtype rounds the same way. It is
+    # filled on the device: a CUDA graph must not capture a copy from host
+    # memory
+    return q * torch.full((), scale, dtype=q.dtype, device=q.device)
 
 
 def _gqa_scores(q, k):

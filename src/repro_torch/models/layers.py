@@ -99,8 +99,8 @@ def apply_norm(p: dict, x, kind: str):
 def rope_freqs(head_dim: int, theta: float, device=None):
     exps = -torch.arange(0, head_dim, 2, dtype=torch.float32,
                          device=device) / head_dim
-    return torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                  device=device), exps)
+    return torch.pow(torch.full((), theta, dtype=torch.float32,
+                                device=device), exps)
 
 
 def apply_rope(x, positions, theta: float):

@@ -23,6 +23,17 @@ prefill into free slots, and decode step-locked with the rest of the batch.
     powers of two.
   * Host syncs: exactly one counted read (runtime.to_host) per prefill
     group (one request, exact-length) and one per decode chunk.
+  * Compiled steps (serve/graphs.py, the counterpart of the reference's
+    jit caches): every bucketed prefill runs through one StepRunner per
+    bucket and every decode chunk through one per chunk length. On the
+    card each runner captures one CUDA graph at its first call and replays
+    it after; the host copies a call's tokens, lengths, slots, positions,
+    budgets and alive mask into the runner's static buffers first. The
+    prefill's transient lane cache is static too, one per bucket, and the
+    graph resets it before use; the lanes reach their slots through a
+    device slot tensor (-1: pad lane), so nothing of a group is baked into
+    a graph. Exact-length prefill stays eager (one shape per prompt
+    length). `eager=True` runs the same runners eagerly on the card.
   * Paging (paged=True): the KV cache is a PagedKVCache over a shared pool
     of kv_pages pages, allocated host-side by serve/paging.PagePool at the
     syncs the engine already has. A request is admitted only when its
@@ -47,6 +58,8 @@ next prefill.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 import time
 from typing import Optional
 
@@ -57,6 +70,7 @@ from ..models.attention import KVCache, PagedKVCache
 from ..models.model import Model
 from ..models.ssm import SSMCache
 from ..runtime import to_host
+from .graphs import GraphPool, StepRunner
 from .paging import PagePool
 
 MIN_BUCKET = 8          # smallest prefill bucket (the reference's default)
@@ -130,25 +144,110 @@ def _lane_tensors(c) -> tuple:
     return c.k, c.v, c.length
 
 
-def _write_node_lane(dst, src, slot: int, g: int) -> None:
-    """Copy lane g of cache node `src` into slot `slot` of `dst`, in place
-    (the caches are stacked, lane axis second: [L, B, ...])."""
-    for dst_t, src_t in zip(_lane_tensors(dst), _lane_tensors(src)):
-        dst_t[:, slot] = src_t[:, g]
-
-
-def _write_lane(big: dict, lane: dict, slot: int, g: int = 0) -> None:
-    """Copy lane g of every node of `lane` into slot `slot` of `big`."""
+def _write_lane(big: dict, lane: dict, slot: int) -> None:
+    """Copy lane 0 of every node of the 1-lane cache `lane` into slot
+    `slot` of `big`, in place (the caches are stacked, lane axis second:
+    [L, B, ...])."""
     for name, node in big.items():
         for key, c in node.items():
-            _write_node_lane(c, lane[name][key], slot, g)
+            for dst_t, src_t in zip(_lane_tensors(c),
+                                    _lane_tensors(lane[name][key])):
+                dst_t[:, slot] = src_t[:, 0]
+
+
+def _copy_lanes(dst, src, slot_ids: torch.Tensor) -> None:
+    """Lane g of cache node `src` into slot slot_ids[g] of `dst`, in place,
+    for every lane with slot_ids[g] >= 0 (lane axis second: [L, B, ...]),
+    routed on the device. A pad lane (-1) goes to lane 0's slot, which
+    lane 0 (always a real one) then writes again: index_copy_ leaves the
+    winner among duplicate indices unspecified."""
+    idx = torch.where(slot_ids >= 0, slot_ids, slot_ids[:1])
+    for dst_t, src_t in zip(_lane_tensors(dst), _lane_tensors(src)):
+        dst_t.index_copy_(1, idx, src_t)
+        dst_t.index_copy_(1, slot_ids[:1], src_t[:, :1])
+
+
+def _reset(cache: dict) -> None:
+    """Every tensor of a dense lane cache back to its init value (zero),
+    in place."""
+    for node in cache.values():
+        for c in node.values():
+            for t in _lane_tensors(c):
+                t.zero_()
+
+
+# The step bodies a StepRunner runs (serve/graphs.py). They take what they
+# read as arguments and never the engine, so a runner does not keep its
+# engine, and with it the weights, alive in a reference cycle.
+
+def _prefill_body(model: Model, params, cache: dict, lane_cache: dict,
+                  tokens, true_lens, slot_ids, dest=None):
+    """A bucket's prefill: one forward over a fixed [slots, bucket] token
+    batch into the bucket's static lane cache, reset first (a previous
+    group's KV past the true lengths, conv window and SSM state must not
+    leak in): per-lane last-real-position argmax (-1 where those logits are
+    not finite), the length fixup, then each real lane into its slot of
+    `cache` (slot_ids, -1 on pad lanes), or, paged, a page-granular
+    scatter of the KV into the pool along `dest`. Every input is a device
+    tensor: nothing of the group is a host value."""
+    _reset(lane_cache)
+    logits, lane_cache = model.forward(params, {"tokens": tokens},
+                                       cache=lane_cache, true_lens=true_lens)
+    idx = torch.clamp_min(true_lens - 1, 0)
+    last = logits[torch.arange(tokens.shape[0], device=tokens.device), idx]
+    first = torch.argmax(last, dim=-1)
+    first = torch.where(torch.isfinite(last).all(dim=-1), first, -1)
+    _fix_lengths(lane_cache, true_lens)
+    for name, node in cache.items():
+        for key, c in node.items():
+            src = lane_cache[name][key]
+            if isinstance(c, PagedKVCache):
+                c.scatter_prefill(src, dest, slot_ids, true_lens)
+            else:               # dense KV, or SSM state (lane-resident)
+                _copy_lanes(c, src, slot_ids)
+    return first
+
+
+def _decode_body(model: Model, params, cache: dict, eos_id: Optional[int],
+                 toks, pos, bud, alive, n: int):
+    """A chunk length's decode: n decode steps, all on the device (the
+    inputs are the runner's static buffers, never written). Returns one
+    packed tensor: the per-step tokens [n, slots], emit masks [n, slots],
+    then (emitted, live lanes at the end) and the per-lane non-finite
+    flags [slots], so the chunk is read back in one sync."""
+    emitted = torch.zeros((), dtype=torch.int64, device=toks.device)
+    bad = torch.zeros_like(alive)
+    seq, emits = [], []
+    for _ in range(n):
+        logits, _ = model.decode_step(params, toks, cache, pos)
+        ok = torch.isfinite(logits).all(dim=-1)
+        bad = bad | (alive & ~ok)
+        nxt = torch.argmax(logits, dim=-1)
+        emit = alive & ok
+        toks = torch.where(emit, nxt, toks)
+        bud = bud - emit.long()
+        done = bud <= 0
+        if eos_id is not None:
+            done = done | (nxt == eos_id)
+        alive = alive & ~done & ok
+        pos = pos + 1
+        emitted = emitted + emit.sum()
+        seq.append(toks)
+        emits.append(emit.long())
+    stats = torch.stack([emitted, alive.sum()])
+    return torch.cat([torch.stack(seq).flatten(),
+                      torch.stack(emits).flatten(), stats, bad.long()])
 
 
 class ServeEngine:
     def __init__(self, model: Model, params, slots: int = 4,
                  max_len: int = 512, eos_id: Optional[int] = None,
                  decode_chunk: int = 8, paged: bool = False,
-                 page_size: int = 16, kv_pages: Optional[int] = None):
+                 page_size: int = 16, kv_pages: Optional[int] = None,
+                 eager: bool = False):
+        """eager=True runs the step runners eagerly on the card too (no
+        CUDA graphs): the run a graphed one is held against. On the CPU
+        every runner runs eagerly either way."""
         self.model = model
         self.params = params
         self.slots = slots
@@ -179,11 +278,24 @@ class ServeEngine:
         self.positions = np.zeros(slots, np.int64)
         self.budgets = np.zeros(slots, np.int64)
         self.queue: list[Request] = []
+        # the compiled-step cache: runners by bucket and by chunk length,
+        # one graph pool for all of them on the card unless eager
+        self._graphs: Optional[GraphPool] = None
+        if self.device.type == "cuda" and not eager:
+            self._graphs = GraphPool(self.device)
+        self._prefill_runners: dict[int, StepRunner] = {}
+        self._lane_caches: dict[int, dict] = {}
+        self._decode_runners: dict[int, StepRunner] = {}
+        # prefill shapes hit: buckets, or prompt lengths (exact-length)
+        self._buckets_seen: set[int] = set()
         # host-side tallies: device calls, forwards and their wall seconds
-        # (each call ends in its host sync, so the wall covers the device)
+        # (each call ends in its host sync, so the wall covers the device).
+        # A call that warmed a runner up and captured its graph counts as a
+        # call, its wall goes to capture_s (and its steps to capture_*)
         self.stats = {"bucketed": self.bucketed, "prefill_calls": 0,
                       "prefill_s": 0.0, "chunks": 0, "decode_steps": 0,
-                      "decode_s": 0.0}
+                      "decode_s": 0.0, "graphs": 0, "capture_s": 0.0,
+                      "capture_prefills": 0, "capture_steps": 0}
 
     # -- request flow --------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -200,6 +312,85 @@ class ServeEngine:
 
     def _free_slots(self) -> list[int]:
         return [i for i, r in enumerate(self.active) if r is None]
+
+    # -- compiled steps ---------------------------------------------------
+    @property
+    def prefill_compiles(self) -> int:
+        """Distinct prefill shapes: one runner (one CUDA graph on the card)
+        per bucket hit on the bucketed path, at most max_prefill_compiles;
+        distinct prompt lengths on the exact-length path, which compiles
+        one per length in the reference (unbounded by construction)."""
+        if self.bucketed:
+            return len(self._prefill_runners)
+        return len(self._buckets_seen)
+
+    @property
+    def max_prefill_compiles(self) -> int:
+        return max(1, int(math.log2(self.max_len)))
+
+    @property
+    def decode_compiles(self) -> int:
+        """Decode runners, one per pow2 chunk length: at most
+        log2(decode_chunk) + 1."""
+        return len(self._decode_runners)
+
+    def graph_pool_bytes(self) -> int:
+        """Device bytes the engine's graph pool holds (0 without graphs)."""
+        return 0 if self._graphs is None else self._graphs.held_bytes()
+
+    def _run(self, runner: StepRunner, **feed) -> tuple:
+        """One step through `runner`, read back in the call's ONE host
+        sync: (host array, wall seconds, whether it warmed up and
+        captured)."""
+        captured = runner.captures
+        t_start = time.perf_counter()
+        out = to_host(runner(**feed))
+        seconds = time.perf_counter() - t_start
+        if captured:
+            self.stats["graphs"] = self._graphs.graphs
+            self.stats["capture_s"] = self._graphs.capture_s
+        return out, seconds, captured
+
+    def _prefill_runner(self, bucket: int) -> StepRunner:
+        """The bucket's runner, made at its first use: static tokens [slots,
+        bucket], true lengths, slot ids (and, paged, the lanes' destination
+        pages), and the bucket's static transient lane cache."""
+        runner = self._prefill_runners.get(bucket)
+        if runner is not None:
+            return runner
+        dev, B = self.device, self.slots
+        inputs = {"tokens": torch.zeros((B, bucket), dtype=torch.int64,
+                                        device=dev),
+                  "true_lens": torch.ones(B, dtype=torch.int64, device=dev),
+                  "slot_ids": torch.full((B,), -1, dtype=torch.int64,
+                                         device=dev)}
+        if self._pool is None:
+            lane = self.model.init_cache(B, self.max_len)
+        else:
+            # paged: the transient spans the bucket's whole pages only
+            pages = -(-bucket // self._pool.page_size)
+            inputs["dest"] = torch.full((B, pages), self._pool.sentinel,
+                                        dtype=torch.int64, device=dev)
+            lane = self.model.init_cache(B, pages * self._pool.page_size)
+        self._lane_caches[bucket] = lane
+        body = functools.partial(_prefill_body, self.model, self.params,
+                                 self.cache, lane)
+        runner = StepRunner(body, inputs, self._graphs)
+        self._prefill_runners[bucket] = runner
+        return runner
+
+    def _decode_runner(self, n: int) -> StepRunner:
+        runner = self._decode_runners.get(n)
+        if runner is None:
+            dev, B = self.device, self.slots
+            inputs = {k: torch.zeros(B, dtype=torch.int64, device=dev)
+                      for k in ("toks", "pos", "bud")}
+            inputs["alive"] = torch.zeros(B, dtype=torch.bool, device=dev)
+            body = functools.partial(_decode_body, self.model, self.params,
+                                     self.cache, self.eos_id, n=n)
+            runner = StepRunner(body, inputs, self._graphs)
+            self._decode_runners[n] = runner
+        return runner
 
     def _bucket(self, prompt_len: int) -> int:
         b = max(MIN_BUCKET, prompt_len)
@@ -247,10 +438,12 @@ class ServeEngine:
                        bucket: int) -> None:
         toks = np.zeros((self.slots, bucket), np.int64)
         true_lens = np.ones(self.slots, np.int64)       # pad lanes: len 1
+        slot_ids = np.full(self.slots, -1, np.int64)    # -1: pad lane
         for g, r in enumerate(reqs):
             toks[g, :len(r.prompt)] = r.prompt
             true_lens[g] = len(r.prompt)
-        dest = None
+        slot_ids[:len(slot_list)] = slot_list
+        feed = dict(tokens=toks, true_lens=true_lens, slot_ids=slot_ids)
         if self._pool is not None:
             # map each lane's prompt pages; row g of the LANE-indexed
             # destination table names lane g's pages over the bucket
@@ -263,13 +456,15 @@ class ServeEngine:
                 self._pool.map_to(s, len(reqs[g].prompt))
                 own = self._pool.owned(s)
                 dest[g, :len(own)] = own
-        t_start = time.perf_counter()
-        first = self._prefill_batched(
-            torch.from_numpy(toks).to(self.device),
-            torch.from_numpy(true_lens).to(self.device), slot_list, dest)
-        first = to_host(first)                           # the ONE host sync
+            feed["dest"] = dest
+        self._buckets_seen.add(bucket)
+        first, seconds, captured = self._run(self._prefill_runner(bucket),
+                                             **feed)     # the ONE host sync
         self.stats["prefill_calls"] += 1
-        self.stats["prefill_s"] += time.perf_counter() - t_start
+        if captured:
+            self.stats["capture_prefills"] += 1
+        else:
+            self.stats["prefill_s"] += seconds
         for g, (r, s) in enumerate(zip(reqs, slot_list)):
             if first[g] < 0:      # non-finite last-position logits
                 reject(r, "non-finite-logits")
@@ -282,47 +477,6 @@ class ServeEngine:
             self.budgets[s] = self._clamped_budget(r)
             self._retire_if_full(s)
 
-    def _prefill_batched(self, tokens, true_lens, slot_list: list[int],
-                         dest: Optional[np.ndarray] = None):
-        """One prefill over a fixed [slots, bucket] token batch into a
-        transient dense lane cache: per-lane last-real-position argmax (-1
-        where those logits are not finite), the length fixup, then an
-        in-place copy of each real lane into its slot, or, paged, a
-        page-granular scatter into the pool along `dest`. Slot ids are host
-        values, so the dense copy needs no device-side masking. Paged, the
-        transient spans the bucket's whole pages only (dest's columns)."""
-        if dest is None:
-            lane_cache = self.model.init_cache(self.slots, self.max_len)
-        else:
-            lane_cache = self.model.init_cache(
-                self.slots, dest.shape[1] * self._pool.page_size)
-        logits, lane_cache = self.model.forward(
-            self.params, {"tokens": tokens}, cache=lane_cache,
-            true_lens=true_lens)
-        idx = torch.clamp_min(true_lens - 1, 0)
-        last = logits[torch.arange(self.slots, device=self.device), idx]
-        first = torch.argmax(last, dim=-1)
-        first = torch.where(torch.isfinite(last).all(dim=-1), first, -1)
-        _fix_lengths(lane_cache, true_lens)
-        if dest is not None:
-            slot_ids = np.full(self.slots, -1, np.int64)    # -1: pad lane
-            slot_ids[:len(slot_list)] = slot_list
-            dev = self.device
-            dest_t = torch.from_numpy(dest).to(dev)
-            slot_t = torch.from_numpy(slot_ids).to(dev)
-            for name, node in self.cache.items():
-                for key, c in node.items():
-                    src = lane_cache[name][key]
-                    if isinstance(c, PagedKVCache):
-                        c.scatter_prefill(src, dest_t, slot_t, true_lens)
-                    else:                   # SSM state: lane-resident
-                        for g, s in enumerate(slot_list):
-                            _write_node_lane(c, src, s, g)
-            return first
-        for g, s in enumerate(slot_list):
-            _write_lane(self.cache, lane_cache, s, g)
-        return first
-
     # -- exact-length prefill -------------------------------------------
     def _prefill_into(self, slot: int, req: Request) -> None:
         """Prefill one request, [1, S], into a fresh 1-lane cache, then copy
@@ -330,6 +484,7 @@ class ServeEngine:
         in one host read; a non-finite one rejects the request and leaves
         the slot untouched."""
         t_start = time.perf_counter()
+        self._buckets_seen.add(len(req.prompt))
         lane_cache = self.model.init_cache(1, self.max_len)
         tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                  device=self.device)[None, :]
@@ -373,36 +528,6 @@ class ServeEngine:
         self.active[i] = None
 
     # -- fused decode loop ------------------------------------------------
-    def _decode_chunk(self, toks, pos, bud, alive, n: int):
-        """n decode steps, all on the device. Returns one packed tensor:
-        the per-step tokens [n, slots], emit masks [n, slots], then
-        (emitted, live lanes at the end) and the per-lane non-finite flags
-        [slots], so the chunk is read back in one sync."""
-        eos = self.eos_id
-        emitted = torch.zeros((), dtype=torch.int64, device=self.device)
-        bad = torch.zeros(self.slots, dtype=torch.bool, device=self.device)
-        seq, emits = [], []
-        for _ in range(n):
-            logits, _ = self.model.decode_step(self.params, toks, self.cache,
-                                               pos)
-            ok = torch.isfinite(logits).all(dim=-1)
-            bad = bad | (alive & ~ok)
-            nxt = torch.argmax(logits, dim=-1)
-            emit = alive & ok
-            toks = torch.where(emit, nxt, toks)
-            bud = bud - emit.long()
-            done = bud <= 0
-            if eos is not None:
-                done = done | (nxt == eos)
-            alive = alive & ~done & ok
-            pos = pos + 1
-            emitted = emitted + emit.sum()
-            seq.append(toks)
-            emits.append(emit.long())
-        stats = torch.stack([emitted, alive.sum()])
-        return torch.cat([torch.stack(seq).flatten(),
-                          torch.stack(emits).flatten(), stats, bad.long()])
-
     def _chunk_len(self, live: list[int]) -> int:
         # queue waiting -> sync at the soonest lane completion (admit
         # early); queue drained -> run to the latest lane (fewest syncs)
@@ -437,17 +562,15 @@ class ServeEngine:
         for i in live:
             toks[i] = self.active[i].out[-1]
             alive0[i] = True
-        dev = self.device
-        t_start = time.perf_counter()
-        packed = self._decode_chunk(
-            torch.from_numpy(toks).to(dev),
-            torch.from_numpy(self.positions.copy()).to(dev),
-            torch.from_numpy(self.budgets.copy()).to(dev),
-            torch.from_numpy(alive0).to(dev), n)
-        packed = to_host(packed)                         # the ONE host sync
+        packed, seconds, captured = self._run(
+            self._decode_runner(n), toks=toks, pos=self.positions,
+            bud=self.budgets, alive=alive0)             # the ONE host sync
         self.stats["chunks"] += 1
         self.stats["decode_steps"] += n
-        self.stats["decode_s"] += time.perf_counter() - t_start
+        if captured:
+            self.stats["capture_steps"] += n
+        else:
+            self.stats["decode_s"] += seconds
         k = n * self.slots
         seq = packed[:k].reshape(n, self.slots)
         emits = packed[k:2 * k].reshape(n, self.slots).astype(bool)

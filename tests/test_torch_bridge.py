@@ -30,6 +30,7 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     __import__(m.name)
 import chip_smoke
 assert sys.modules["jax"] is None and sys.modules["repro"] is None
+assert "repro_torch.serve.graphs" in sys.modules
 print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
 """
 
@@ -41,8 +42,8 @@ def test_port_and_chip_smoke_import_without_jax():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
     # every module was imported: flash attention, paging, the SSD kernel
-    # package, the SSM model and the MoE model included
-    assert int(proc.stdout.split()[1]) >= 31
+    # package, the SSM model, the MoE model and the step runners included
+    assert int(proc.stdout.split()[1]) >= 32
 
 
 def _leaves(tree, prefix=""):
