@@ -23,7 +23,8 @@ Phases, one JSON line each; any failure exits non-zero:
                1 (wgmma and splitk sum K in one order), in the NN form at
                granite's q and dbrx's k and in the NT form at mamba2's
                head; and in the grouped form at dbrx's up projection (G =
-               16) at M = 399, 320, 129 and 65, all on wgmma.
+               16) at M = 399, 320, 129 and 65, all on wgmma. hymba-1.5b's
+               ragged head (N = 32001, wmma) at M = 4 and 1024.
   3. gemm_nt - the same for the transposed-weight kernel (w [N, K], the
                tied LM head), with mamba2's head [4, 1024] x [50280, 1024]^T
                among the shapes (a 104-column ragged tail) and its NT
@@ -37,7 +38,9 @@ Phases, one JSON line each; any failure exits non-zero:
                shortest prompts), Sq != Skv, D = 192, and the wgmma
                mainloop's edges (Sq and Skv at 127, 128, 129; a kv_len
                tail inside a key tile and on its edge; a window across two
-               key tiles; B > 1 with ragged S; D = 64 and 128), within
+               key tiles; B > 1 with ragged S; D = 64 and 128), hymba-
+               1.5b's heads (25 over 5, D 64) with its 1024-token window
+               at [4, 2048] and [1, 1277] and global at [4, 2048], within
                runtime.TOLERANCES, each case with its mainloop
                (flash_plan); bf16 also against the Pallas kernel's own
                arithmetic at the kernel's key tile (flash_bf16_tiled_served:
@@ -54,10 +57,12 @@ Phases, one JSON line each; any failure exits non-zero:
                drift, y and final state: the cases of tests/test_kernels.py
                in f32 and bf16, mamba2's [4, 2048, 32, 64] (N 128, chunk
                256; in bf16 and in f32, where the kernel runs 128-token
-               sub-chunks), a ragged S and G > 1, each on the mainloop
-               ssd_plan picks (bf16 at mamba2's tiles on chunked, the rest
-               on serial). At the served shape seven planted controls (no
-               state carried across chunks, the mask after exp, y_inter
+               sub-chunks), a ragged S and G > 1, hymba-1.5b's [4, 2048,
+               50, 64] at N 16 with the served model's dt and with
+               Mamba-2's (slow heads carry their state across chunks),
+               each on the mainloop ssd_plan picks (bf16 at mamba2's tiles
+               on chunked, the rest on serial). At the served shape
+               seven planted controls (no state carried across chunks, the mask after exp, y_inter
                from the updated state, ssd_ref itself, the state and
                y_inter rounded to bf16, the state pass without its decay,
                cum carried across chunks) must fail the one-ulp tolerance;
@@ -148,15 +153,44 @@ Phases, one JSON line each; any failure exits non-zero:
                cannot tell them apart. Agreement reported at MOE_LAYERS,
                the margin rule held at the first difference anywhere in the
                batch on ORACLE_LAYERS layers of the same weights.
- 15. kernels - each kernel's time at the served shapes beside its bound,
+ 15. serve_hybrid - hymba-1.5b at full width and depth (32 layers, d
+               1600, 25 heads over 5 of 64, a 50-head Mamba-2 mixer beside
+               the attention in every layer, a 1024-token window except in
+               the global layers 0, 15 and 31, vocab 32001, untied; random
+               bf16 weights) as Model(attention_impl="pallas",
+               ssd_impl="pallas", use_pallas=True), served on the paged
+               phase's prompts (the 1277- and 957-token ones cross the
+               window in prefill, and their decode wraps the ring) by a
+               dense ServeEngine (slots 4, max_len 2048, decode_chunk 8;
+               graphed against eager as every serve phase) and by a paged
+               one (the paged phase's pool for the global layers; rings
+               and SSM state lane-resident), two graphed passes: every
+               request done, paged tokens equal to dense and the pool
+               drained, 225 pod-GEMM launches per forward (the head, N =
+               32001, on wmma; the rest on splitk or wgmma by M), 32 flash
+               launches per prefill on wgmma (the window of each: 29
+               windowed, 3 global) and 32 SSD launches on serial, none per
+               decode step, no NT or grouped launch, one host sync per
+               prefill group and decode chunk; weights, rings, global KV,
+               SSM state and graph pools' bytes and the decode floor.
+ 16. hybrid_oracle - the same requests through the per-token
+               ReferenceEngine (exact-length prefill: the ring's roll):
+               agreement reported at 32 layers, the margin rule held on
+               ORACLE_LAYERS layers of the same weights (glob0 and the
+               first layer of swa1).
+ 17. kernels - each kernel's time at the served shapes beside its bound,
                its plain version and one PyTorch call (a yardstick only);
-               the pod GEMM at granite-8b's and dbrx-132b's shapes, flash
-               at granite's [4, 256] and [4, 2048] and dbrx's [1, 1277]
-               prefills (mainloop, key tile and TFLOP/s each), the NT
+               the pod GEMM at granite-8b's, dbrx-132b's and hymba-1.5b's
+               shapes (hymba's head on wmma at M = 4 and 8192), flash
+               at granite's [4, 256] and [4, 2048], dbrx's [1, 1277] and
+               hymba's [4, 2048] windowed and global prefills (mainloop,
+               key tile and TFLOP/s each; the window's bound counts the
+               keys inside it, SDPA takes it as a mask), the NT
                head up to a [4, 2048] prefill, SSD at [4, 256] and [4,
                2048] on its mainloop with the serial mainloop timed beside
-               it, the grouped experts' up and down at M = 320; launches
-               by mainloop from the served runs.
+               it and hymba's [4, 2048] on serial, the grouped experts' up
+               and down at M = 320; launches by mainloop from the served
+               runs (hymba's under "hybrid" in each entry).
 
 The last lines are the card's name and power limit, the kernels line, and
 {"ok": true, "device": {...}}.
@@ -185,6 +219,7 @@ from repro_torch import HOST_SYNCS, TOLERANCES  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fl_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref, flash_attention_tiled_ref)
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
@@ -229,6 +264,10 @@ SSM_SERVE = dict(slots=4, max_len=2048, decode_chunk=8)
 MOE_ARCH, MOE_LAYERS = "dbrx-132b", 8
 MOE_SERVE = dict(slots=4, max_len=2048, decode_chunk=8)
 MOE_ORACLE_REQUESTS = 4     # = slots: every decode batch fully live
+# hymba-1.5b at full width and depth (32 layers, 1.64 G parameters): the
+# paged phase's traffic, dense and paged for its three global layers
+HYBRID_ARCH = "hymba-1.5b"
+HYBRID_GEMMS_PER_LAYER = len(GEMMS_PER_LAYER)   # the SSM's in/out are einsums
 
 
 class SmokeFailure(RuntimeError):
@@ -323,9 +362,12 @@ def bf16_summed(x, w, k_step: int = 16) -> torch.Tensor:
 # 1032 (TMA-aligned, not a tile multiple) and K = 4104 (not a multiple of
 # 64); at M = 1000, N = K = 4104 (6 split ranges, the last short);
 # splitk where the 129 k-steps of K = 4104 do not split evenly (13
-# splits of 10, the last of 9), at M = 4 and 29 rows
+# splits of 10, the last of 9), at M = 4 and 29 rows; hymba-1.5b's
+# untied head, N = 32001 (not a multiple of 8: wmma), at decode and at a
+# prefill-sized M
 KERNEL_EDGES = [(65, 1024, 1032), (129, 4104, 4096), (1277, 4104, 1032),
-                (1000, 4104, 4104), (4, 4104, 4096), (29, 4104, 1032)]
+                (1000, 4104, 4104), (4, 4104, 4096), (29, 4104, 1032),
+                (4, 1600, 32001), (1024, 1600, 32001)]
 # where the split-K controls must fail, (M, K, N) at decode: NN at
 # granite-8b's q and head; NT at mamba2's head (one split) and where 129
 # k-steps split 13 ways, the last range short
@@ -572,6 +614,12 @@ FLASH_CASES = [
     (2, 384, 384, 4, 4, 64, True, 130, None),
     (3, 200, 200, 8, 2, 128, True, None, None),
     (3, 150, 150, 4, 2, 64, False, None, None),
+    # hymba-1.5b's heads (25 q heads over 5, D 64): its 1024-token window
+    # at the largest bucket and its longest prompt (windowed layers), and
+    # the largest bucket global (its three global layers)
+    (4, 2048, 2048, 25, 5, 64, True, 1024, None),
+    (1, 1277, 1277, 25, 5, 64, True, 1024, None),
+    (4, 2048, 2048, 25, 5, 64, True, None, None),
 ]
 
 
@@ -785,13 +833,21 @@ def phase_flash() -> None:
 # Mamba-2 initialises them (ssd_inputs, "mamba2_init"), where the state
 # carried across a whole chunk survives in the slow heads
 SSD_DECAY = (SLOTS, 1024, 32, 64, 1, 128, 256)
+# hymba-1.5b's largest prefill: 50 heads of P 64, N 16, chunk 256 (serial)
+SSD_HYBRID = (SLOTS, 2048, 50, 64, 1, 16, 256)
 SSD_CASES = [
-    # b, S, H, P, G, N, chunk: the four of tests/test_kernels.py
-    (2, 64, 4, 16, 1, 32, 16), (1, 100, 2, 8, 2, 16, 32),
-    (1, 32, 4, 16, 4, 8, 32), (2, 48, 8, 32, 1, 64, 16),
+    # b, S, H, P, G, N, chunk, dt law: the four of tests/test_kernels.py
+    (2, 64, 4, 16, 1, 32, 16, "softplus"),
+    (1, 100, 2, 8, 2, 16, 32, "softplus"),
+    (1, 32, 4, 16, 4, 8, 32, "softplus"),
+    (2, 48, 8, 32, 1, 64, 16, "softplus"),
     # mamba2-370m's heads: a ragged S, and G > 1
-    (2, 1000, 32, 64, 1, 128, 256), (2, 512, 32, 64, 4, 128, 256),
-    SSD_DECAY,
+    (2, 1000, 32, 64, 1, 128, 256, "softplus"),
+    (2, 512, 32, 64, 4, 128, 256, "softplus"),
+    SSD_DECAY + ("mamba2_init",),
+    # hymba's, with the served model's dt and with Mamba-2's (where slow
+    # heads carry their state across whole chunks)
+    SSD_HYBRID + ("softplus",), SSD_HYBRID + ("mamba2_init",),
 ]
 SSD_SERVED = (SLOTS, 2048, 32, 64, 1, 128)   # mamba2's largest prefill
 SSD_FAULTS = ("state_not_carried", "mask_after_exp",
@@ -901,20 +957,18 @@ def phase_ssd() -> None:
                          TOLERANCES["ssd_bf16_reference"])
     for dtype in (torch.float32, torch.bfloat16):
         cls = str(dtype)[6:]
-        for (b, S, H, P, G, N, chunk) in SSD_CASES:
-            case = (b, S, H, P, G, N, chunk)
-            x, dt, A, B, C, D = ssd_inputs(
-                case[:6], dtype, g, dt_law="mamba2_init"
-                if case == SSD_DECAY else "softplus")
+        for (b, S, H, P, G, N, chunk, law) in SSD_CASES:
+            x, dt, A, B, C, D = ssd_inputs((b, S, H, P, G, N), dtype, g,
+                                           dt_law=law)
             plan = ssd_mod.ssd_plan(P, N, chunk, dtype)
             before = dict(ssd_mod.ssd_cuda.mainloop_launches)
             got = ssd_ops.ssd(x, dt, A, B, C, D, chunk=chunk)
             ran = [m for m, n in ssd_mod.ssd_cuda.mainloop_launches.items()
                    if n != before[m]]
-            mainloops[f"{cls} {(b, S, H, P, G, N, chunk)}"] = plan
+            mainloops[f"{cls} {(b, S, H, P, G, N, chunk)} {law}"] = plan
             if ran != [plan]:
-                failures.append(f"{cls} {(b, S, H, P, G, N, chunk)} ran "
-                                f"{ran}, its plan is {plan}")
+                failures.append(f"{cls} {(b, S, H, P, G, N, chunk)} {law} "
+                                f"ran {ran}, its plan is {plan}")
             # the plain version at the chunk the kernel runs (in f32 at
             # mamba2's tiles: 128-token sub-chunks of the 256 asked for)
             ref = ssd_kernel_ref(x, dt, A, B, C, D, chunk=ssd_mod.run_chunk(
@@ -935,7 +989,8 @@ def phase_ssd() -> None:
                     if not bool(torch.isfinite(got_t.float()).all()) or \
                             not excess <= 1.0:
                         failures.append(f"{cls} {(b, S, H, P, G, N, chunk)} "
-                                        f"{out} vs {rname}: excess {excess}")
+                                        f"{law} {out} vs {rname}: excess "
+                                        f"{excess}")
             cases += 1
     # mamba2's served prefill in f32: the kernel runs 128-token sub-chunks
     # and is held to the plain version at that chunk; beside it, how far
@@ -1506,6 +1561,25 @@ def graphed_vs_eager(phase: str, model, params, eng, run: dict,
 # 7. serve and 8. oracle
 # --------------------------------------------------------------------------
 
+def check_served(phase: str, cfg, reqs: list[Request]) -> None:
+    """Every request done with MAX_NEW tokens inside the vocabulary."""
+    for r in reqs:
+        check(r.done and r.state == "done",
+              f"{phase} request {r.rid} ended {r.state} ({r.reason})")
+        check(len(r.out) == MAX_NEW,
+              f"{phase} request {r.rid}: {len(r.out)} tokens")
+        check(all(0 <= t < cfg.vocab for t in r.out),
+              f"{phase} request {r.rid}: token outside [0, {cfg.vocab})")
+
+
+def param_tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from param_tensors(v)
+    else:
+        yield tree
+
+
 def make_requests(vocab: int) -> list[Request]:
     rng = np.random.default_rng(0)
     lens = rng.integers(5, 201, N_REQUESTS)
@@ -1536,12 +1610,7 @@ def phase_serve(model, params):
     launches = sg.systolic_gemm_cuda.launches
     by_mainloop = hopper_mainloops("serve")
     st = dict(eng.stats)     # the first pass's (graphed_vs_eager serves more)
-    for r in reqs:
-        check(r.done and r.state == "done",
-              f"request {r.rid} ended {r.state} ({r.reason})")
-        check(len(r.out) == MAX_NEW, f"request {r.rid}: {len(r.out)} tokens")
-        check(all(0 <= t < cfg.vocab for t in r.out),
-              f"request {r.rid}: token outside [0, {cfg.vocab})")
+    check_served("dense", cfg, reqs)
     per_forward = len(GEMMS_PER_LAYER) * cfg.n_layers + 1
     forwards = st["prefill_calls"] + st["decode_steps"]
     check(launches == per_forward * forwards,
@@ -1579,22 +1648,38 @@ def first_differences(served, oracle, ref: ReferenceEngine) -> list[dict]:
     return diffs
 
 
-def first_layers(tree, n: int):
-    """Every stacked leaf of a segment's tree cut to its first n layers."""
+def layer_slice(tree, start: int, stop: int):
+    """Every stacked leaf of a segment's tree cut to layers [start, stop)."""
     if isinstance(tree, dict):
-        return {k: first_layers(v, n) for k, v in tree.items()}
-    return tree[:n]
+        return {k: layer_slice(v, start, stop) for k, v in tree.items()}
+    return tree[start:stop]
 
 
 def cut_depth(model, params, n_layers: int):
-    """The same full-width weights, first n_layers layers only (views). The
-    served models have one segment ("layers", or "moe" for dbrx)."""
-    (seg,) = model.segs
+    """The same full-width weights, first n_layers layers only (views). A
+    hybrid model keeps its global layers among them (the 2-layer cut of
+    hymba is glob0 and the first layer of swa1, as glob0 | swa_tail);
+    each segment of the cut takes its layers from the one segment of the
+    full model that holds them."""
     cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
-    cut = {k: v for k, v in params.items() if k != seg.name}
-    cut[seg.name] = first_layers(params[seg.name], n_layers)
-    return Model(cfg, attention_impl=model.impl, use_pallas=True,
-                 ssd_impl=model.ssd_impl), cut
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, global_attn_layers=tuple(
+            g for g in cfg.global_attn_layers if g < n_layers))
+    cut_model = Model(cfg, attention_impl=model.impl, use_pallas=True,
+                      ssd_impl=model.ssd_impl)
+    where = [(seg, i) for seg in model.segs for i in range(seg.n)]
+    cut = {k: v for k, v in params.items()
+           if k not in {seg.name for seg in model.segs}}
+    start = 0
+    for seg in cut_model.segs:
+        (full, i0), (last, i1) = where[start], where[start + seg.n - 1]
+        check(full == last and (full.kind, full.window) ==
+              (seg.kind, seg.window),
+              f"cut segment {seg} is not a run of one full segment "
+              f"({full}, {last})")
+        cut[seg.name] = layer_slice(params[full.name], i0, i1 + 1)
+        start += seg.n
+    return cut_model, cut
 
 
 def phase_oracle(model, params, served: list[Request]) -> None:
@@ -1682,13 +1767,7 @@ def phase_serve_paged(model, params):
     transient = (PAGED["slots"] * -(-bucket // ps) * ps
                  * peak["kv_bytes_per_token"])
     peak_over_start = torch.cuda.max_memory_allocated() - start_bytes
-    for r in reqs:
-        check(r.done and r.state == "done",
-              f"paged request {r.rid} ended {r.state} ({r.reason})")
-        check(len(r.out) == MAX_NEW,
-              f"paged request {r.rid}: {len(r.out)} tokens")
-        check(all(0 <= t < cfg.vocab for t in r.out),
-              f"paged request {r.rid}: token outside [0, {cfg.vocab})")
+    check_served("paged", cfg, reqs)
     eng._pool.assert_drained()
     check(eng.recycled >= 1, "no lane was recycled inside a chunk")
     per_forward = len(GEMMS_PER_LAYER) * cfg.n_layers + 1
@@ -1867,13 +1946,7 @@ def phase_serve_ssm(model, params):
     # every SSD call on chunked (bf16 at mamba2's tiles)
     launches["ssd_by_mainloop"] = dict(ssd_mod.ssd_cuda.mainloop_launches)
     st = dict(eng.stats)     # the first pass's (graphed_vs_eager serves more)
-    for r in reqs:
-        check(r.done and r.state == "done",
-              f"ssm request {r.rid} ended {r.state} ({r.reason})")
-        check(len(r.out) == MAX_NEW, f"ssm request {r.rid}: {len(r.out)} "
-                                     f"tokens")
-        check(all(0 <= t < cfg.vocab for t in r.out),
-              f"ssm request {r.rid}: token outside [0, {cfg.vocab})")
+    check_served("ssm", cfg, reqs)
     forwards = st["prefill_calls"] + st["decode_steps"]
     check(launches["gemm_nt"] == forwards,
           f"NT-GEMM launches {launches['gemm_nt']} != 1 x {forwards} "
@@ -1904,9 +1977,12 @@ def phase_serve_ssm(model, params):
     return reqs, launches
 
 
-def phase_ssm_oracle(model, params, served: list[Request]) -> None:
-    """Engine vs per-token oracle on mamba2: agreement reported at full
-    depth, the margin rule held on ORACLE_LAYERS layers of the same
+def phase_ssm_oracle(model, params, served: list[Request],
+                     phase: str = "ssm_oracle") -> None:
+    """Engine vs per-token oracle on mamba2 (and on hymba, as phase
+    hybrid_oracle: the oracle's exact-length prefill takes the ring's
+    roll, the engine's bucketed one its gather): agreement reported at
+    full depth, the margin rule held on ORACLE_LAYERS layers of the same
     weights (as phase_oracle)."""
     tol = TOLERANCES["token_margin"]
     cfg = model.cfg
@@ -1922,17 +1998,19 @@ def phase_ssm_oracle(model, params, served: list[Request]) -> None:
     cut_ref = ReferenceEngine(cut_model, cut_params, **oracle_kw)
     serve(cut_ref, cut_reqs)
     cut = first_differences(cut_served, cut_reqs, cut_ref)
-    emit("ssm_oracle", requests=len(reqs), oracle_wall_s=wall,
+    emit(phase, arch=cfg.name, requests=len(reqs), oracle_wall_s=wall,
          full_depth={"n_layers": cfg.n_layers,
                      "token_exact": len(reqs) - len(full),
                      "first_differences": full},
          cut_depth={"n_layers": ORACLE_LAYERS,
+                    "segments": [(sg_.name, sg_.n, sg_.window)
+                                 for sg_ in cut_model.segs],
                     "token_exact": len(reqs) - len(cut),
                     "first_differences": cut},
          margin_tolerance=f"{tol.atol} x max|logit|")
     for d in cut:
         check(d["margin"] <= tol.atol * d["max_abs_logit"],
-              f"{ORACLE_LAYERS}-layer mamba2 cut: request {d['rid']} "
+              f"{ORACLE_LAYERS}-layer {cfg.name} cut: request {d['rid']} "
               f"differs at token {d['step']} with oracle margin "
               f"{d['margin']} > {tol.atol} x max|logit| "
               f"{d['max_abs_logit']}")
@@ -1973,13 +2051,7 @@ def phase_serve_moe(model, params):
     launches["flash_by_mainloop"] = flash_mainloops("serve_moe")
     peak = torch.cuda.max_memory_allocated()
     st = dict(eng.stats)     # the first pass's (graphed_vs_eager serves more)
-    for r in reqs:
-        check(r.done and r.state == "done",
-              f"moe request {r.rid} ended {r.state} ({r.reason})")
-        check(len(r.out) == MAX_NEW, f"moe request {r.rid}: {len(r.out)} "
-                                     f"tokens")
-        check(all(0 <= t < cfg.vocab for t in r.out),
-              f"moe request {r.rid}: token outside [0, {cfg.vocab})")
+    check_served("moe", cfg, reqs)
     check(st["bucketed"] is False and eng.bucketed is False,
           "the moe engine took the bucketed prefill path")
     check(shapes == [[1, len(r.prompt)] for r in reqs],
@@ -2085,7 +2157,161 @@ def phase_moe_oracle(model, params) -> None:
 
 
 # --------------------------------------------------------------------------
-# 15. kernels line
+# 15. serve_hybrid and 16. hybrid_oracle
+# --------------------------------------------------------------------------
+
+def flash_windows_per_forward(model, params, S: int) -> list:
+    """The window of each flash launch of one eager [1, S] forward, in
+    layer order, as the model hands it to the kernel."""
+    windows = []
+    real = fl_ops.flash_attention_cuda
+
+    def spy(q, k, v, **kw):
+        windows.append(kw.get("window"))
+        return real(q, k, v, **kw)
+    fl_ops.flash_attention_cuda = spy
+    try:
+        tokens = torch.arange(S, device="cuda")[None] % model.cfg.vocab
+        model.forward(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    finally:
+        fl_ops.flash_attention_cuda = real
+    return windows
+
+
+def hybrid_launches(phase: str, cfg, st: dict, table: dict) -> dict:
+    """A served hymba run's launches (launch_table) against its counts per
+    forward: 7 pod GEMMs a layer and the untied head (the head, N = 32001,
+    on wmma; the rest on splitk or wgmma by M), flash and SSD once a layer
+    per prefill and never at decode (flash on wgmma, SSD on serial), no
+    NT or grouped launch. `st`: the run's engine stats."""
+    L = cfg.n_layers
+    forwards = st["prefill_calls"] + st["decode_steps"]
+    per_forward = HYBRID_GEMMS_PER_LAYER * L + 1
+    gemm = table["pod_gemm"]
+    by = gemm["by_mainloop"]
+    check(gemm["launches"] == per_forward * forwards,
+          f"{phase}: pod-GEMM launches {gemm['launches']} != {per_forward} "
+          f"x {forwards} forwards")
+    check(by["wmma"] == forwards and by["simt"] == 0 and
+          by["splitk"] + by["wgmma"] == (per_forward - 1) * forwards,
+          f"{phase}: pod-GEMM launches by mainloop {by}: the head's "
+          f"{forwards} on wmma, the rest on splitk or wgmma")
+    for name, mainloop in (("flash", "wgmma"), ("ssd", "serial")):
+        t = table[name]
+        check(t["launches"] == L * st["prefill_calls"] and
+              t["by_mainloop"][mainloop] == t["launches"],
+              f"{phase}: {name} launches {t} != {L} x "
+              f"{st['prefill_calls']} prefill calls, all on {mainloop}")
+    check(table["gemm_nt"]["launches"] == 0 and
+          table["grouped"]["launches"] == 0,
+          f"{phase}: hymba launched an NT or grouped GEMM: {table}")
+    return {"per_forward": {"pod_gemm": per_forward, "flash_per_prefill": L,
+                            "ssd_per_prefill": L}, **table}
+
+
+def cache_bytes(cache: dict) -> dict:
+    """Device bytes of a served cache's k, v, conv and state by kind:
+    sliding-window rings, global KV (dense, or the paged pool), SSM state
+    (conv window and state); lengths and page tables left out."""
+    out = {"rings": 0, "global_kv": 0, "ssm_state": 0}
+    for node in cache.values():
+        for c in node.values():
+            kind = {"RingKVCache": "rings", "SSMCache": "ssm_state"}.get(
+                type(c).__name__, "global_kv")
+            out[kind] += sum(getattr(c, f.name).nbytes
+                             for f in dataclasses.fields(c)
+                             if getattr(c, f.name).is_floating_point())
+    return out
+
+
+def phase_serve_hybrid(model, params):
+    """hymba through bucketed prefill (windowed and global flash, the SSD
+    kernel on serial, the ring gather) and fused decode (rings and a
+    recurrent SSM step in torch ops), every projection and the untied
+    head on the pod GEMM; dense, then paged for the global layers."""
+    cfg = model.cfg
+    dense_kw = dense_of(PAGED)
+    # warm-up at the largest bucket: lazy set-up stays out of the timings
+    serve(ServeEngine(model, params, **dense_kw),
+          [Request(rid=-1, prompt=np.arange(PAGED["max_len"] // 2 + 1)
+                   % cfg.vocab, max_new_tokens=2)])
+    windows = flash_windows_per_forward(model, params, 1100)
+    expect = [seg.window for seg in model.segs for _ in range(seg.n)]
+    check(windows == expect and len(windows) == cfg.n_layers and
+          windows.count(None) == len(cfg.global_attn_layers),
+          f"flash windows per forward {windows}, expected {expect}")
+    reqs = make_paged_requests(cfg.vocab)
+    eng = ServeEngine(model, params, **dense_kw)
+    run = counted_serve(eng, reqs)
+    st = dict(eng.stats)     # the first pass's (graphed_vs_eager serves more)
+    check_served("hybrid", cfg, reqs)
+    launches = hybrid_launches("serve_hybrid", cfg, st, run["launches"])
+    check(run["syncs"] == st["prefill_calls"] + st["chunks"],
+          f"host syncs {run['syncs']} != prefill groups + decode chunks")
+    pair = graphed_vs_eager("serve_hybrid", model, params, eng, run, reqs,
+                            make_paged_requests, dense_kw)
+    tokens = [r.out for r in reqs]
+
+    # paged for the global layers (rings and SSM state stay lane-resident):
+    # two graphed passes, each equal to the dense tokens, the pool drained
+    peng = ServeEngine(model, params, **PAGED)
+    paged = []
+    for _ in range(2):
+        preqs = make_paged_requests(cfg.vocab)
+        st0 = dict(peng.stats)
+        prun = counted_serve(peng, preqs)
+        check_served("hybrid paged", cfg, preqs)
+        check([r.out for r in preqs] == tokens,
+              f"hybrid paged tokens differ from dense: "
+              f"{[r.rid for r, t in zip(preqs, tokens) if r.out != t]}")
+        peng._pool.assert_drained()
+        figures = pass_figures(peng, prun, preqs, st0)
+        pst = {k: v - st0.get(k, 0) for k, v in peng.stats.items()
+               if not isinstance(v, bool)}
+        hybrid_launches("serve_hybrid paged", cfg, pst, prun["launches"])
+        check(prun["syncs"] == pst["prefill_calls"] + pst["chunks"],
+              f"paged host syncs {prun['syncs']} != prefill groups + "
+              f"decode chunks")
+        paged.append(figures)
+    check(paged[1]["graphs"] == 0,
+          f"the paged engine's second pass captured {paged[1]['graphs']}")
+    weights = sum(t.nbytes for t in param_tensors(params))
+    caches = cache_bytes(eng.cache)
+    floor_bytes = weights + sum(caches.values())
+    memory = {"weight_bytes": weights, "params": model.param_count(),
+              "dense_cache_bytes": caches,
+              "paged_cache_bytes": cache_bytes(peng.cache),
+              "paged_kv_stats": peng.paged_kv_stats(),
+              "graph_pool_bytes": {
+                  "dense": pair["graphed"]["graph_pool_bytes"],
+                  "paged": peng.graph_pool_bytes()},
+              "static_lane_cache_bytes": {
+                  "dense": pair["graphed"]["static_lane_cache_bytes"],
+                  "paged": sum(t.nbytes for lane in
+                               peng._lane_caches.values()
+                               for t in cache_tensors(lane))},
+              "decode_floor_ms": floor_bytes / HBM_BYTES_PER_S * 1e3,
+              "decode_floor_is": "weights and dense caches once at the "
+                                 "HBM rate"}
+    emit("serve_hybrid", arch=cfg.name, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, window=cfg.sliding_window,
+         global_layers=list(cfg.global_attn_layers),
+         segments=[(seg.name, seg.n, seg.window) for seg in model.segs],
+         attention_impl=model.impl, ssd_impl=model.ssd_impl, **PAGED,
+         prompt_lens=[len(r.prompt) for r in reqs], max_new_tokens=MAX_NEW,
+         requests_done=len(reqs), tokens_generated=sum(map(len, tokens)),
+         wall_s=run["wall_s"], prefill_calls=st["prefill_calls"],
+         decode_chunks=st["chunks"], decode_steps=st["decode_steps"],
+         host_syncs=run["syncs"], launches=launches,
+         flash_windows_per_forward=windows, graphed_vs_eager=pair,
+         paged_passes=paged, paged_recycled=peng.recycled, memory=memory,
+         largest_bucket=max(eng._bucket(len(r.prompt)) for r in reqs))
+    return reqs, launches
+
+
+# --------------------------------------------------------------------------
+# 17. kernels line
 # --------------------------------------------------------------------------
 
 def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
@@ -2171,22 +2397,31 @@ def pod_gemm_rows(cfg, phases, seed: int):
 
 
 def gemm_line(cfg, launches: int, by_mainloop: dict, moe_cfg,
-              moe_launches: int, moe_by_mainloop: dict) -> dict:
+              moe_launches: int, moe_by_mainloop: dict, hybrid_cfg,
+              hybrid_table: dict) -> dict:
     """granite-8b's pod GEMMs at decode (M = SLOTS) and a [SLOTS, 256]
     prefill, the line's own numbers; dbrx-132b's q/k/v/o and untied head
     at decode and at its longest exact-length prefill (M = 1277) under
-    "moe". Launches by mainloop are the served runs'."""
+    "moe"; hymba-1.5b's seven projections and untied head at decode and
+    at a [SLOTS, 2048] prefill (M = 8192) under "hybrid", the head
+    (N = 32001) on wmma. Launches by mainloop are the served runs'."""
     rows, totals, worst, per_fwd = pod_gemm_rows(
         cfg, (("decode", SLOTS, 20), ("prefill", SLOTS * 256, 5)), seed=2)
     moe_rows, moe_totals, moe_worst, moe_per_fwd = pod_gemm_rows(
         moe_cfg, (("decode", SLOTS, 20), ("prefill", 1277, 3)), seed=13)
+    h_rows, h_totals, h_worst, h_per_fwd = pod_gemm_rows(
+        hybrid_cfg, (("decode", SLOTS, 20), ("prefill", SLOTS * 2048, 3)),
+        seed=17)
+    head = [r for r in h_rows if r["gemm"] == "head"]
+    check(all(r["plan"][0] == "wmma" for r in head),
+          f"hymba's head ran {[r['plan'] for r in head]}, not wmma")
     dec = totals["decode"]
     return {
         "name": "systolic_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/systolic_gemm/csrc/systolic_gemm.cu",
         "replaces": "src/repro/kernels/systolic_gemm/systolic_gemm.py:121",
         "launches": launches, "launches_by_mainloop": by_mainloop,
-        "max_abs_err": max(worst, moe_worst),
+        "max_abs_err": max(worst, moe_worst, h_worst),
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": "bytes",
         "library_ms": dec["library_ms"],
@@ -2202,45 +2437,62 @@ def gemm_line(cfg, launches: int, by_mainloop: dict, moe_cfg,
                 "decode_forward": moe_totals["decode"],
                 "prefill_forward_1277": moe_totals["prefill"],
                 "shapes": moe_rows},
+        "hybrid": {"arch": hybrid_cfg.name, "n_layers": hybrid_cfg.n_layers,
+                   "launches": hybrid_table["launches"],
+                   "launches_by_mainloop": hybrid_table["by_mainloop"],
+                   "per_forward": h_per_fwd,
+                   "decode_forward": h_totals["decode"],
+                   "prefill_forward_8192": h_totals["prefill"],
+                   "head": head, "shapes": h_rows},
     }
 
 
 FLASH_SEQS = (256, 2048)     # granite-8b prefill buckets, B = SLOTS
 
 
-def flash_row(B, S, Hq, Hkv, D, iters: int, g, flush) -> dict:
-    """One causal bf16 launch [B, S, Hq over Hkv, D] on randn inputs:
-    checked against the naive and tiled plain versions, then timed beside
-    both and SDPA, with its plan and its rate."""
+def flash_row(B, S, Hq, Hkv, D, iters: int, g, flush,
+              window: int | None = None) -> dict:
+    """One causal bf16 launch [B, S, Hq over Hkv, D] (over the last
+    `window` keys, if given) on randn inputs: checked against the naive
+    and tiled plain versions, then timed beside both and SDPA (with the
+    window as a boolean mask: whichever backend PyTorch picks for it),
+    with its plan and its rate."""
     q, k, v = (torch.randn((B, S, h, D), generator=g,
                            device="cuda").to(torch.bfloat16)
                for h in (Hq, Hkv, Hkv))
     plan = fa.flash_plan(D, q.dtype)
-    got = fa.flash_attention_cuda(q, k, v, causal=True)
-    ref = flash_attention_ref(q, k, v, causal=True)
-    tiled = flash_attention_tiled_ref(q, k, v, causal=True,
-                                      block_k=plan.block_k)
+    mask = dict(causal=True, window=window)
+    got = fa.flash_attention_cuda(q, k, v, **mask)
+    ref = flash_attention_ref(q, k, v, **mask)
+    tiled = flash_attention_tiled_ref(q, k, v, block_k=plan.block_k, **mask)
     err = float((got.double() - ref.double()).abs().max())
     check(TOLERANCES["flash_bf16"].ok(got, ref)
           and TOLERANCES["flash_bf16_tiled_served"].ok(got, tiled),
-          f"flash {[B, S, Hq, Hkv, D]}: kernel disagrees (max_abs_err "
-          f"{err})")
+          f"flash {[B, S, Hq, Hkv, D]} window {window}: kernel disagrees "
+          f"(max_abs_err {err})")
     del got, ref, tiled
+    sdpa_mask = None
+    if window is not None:
+        pos = torch.arange(S, device="cuda")
+        sdpa_mask = (pos[None, :] <= pos[:, None]) & \
+            (pos[:, None] - pos[None, :] < window)
 
     def library(q=q, k=k, v=v):
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True)
-    # 4 D operations per unmasked (q, k) pair (QK^T and PV); q, k, v
-    # read once, o written once
-    flops = 4 * B * Hq * D * (S * (S + 1) // 2)
+            attn_mask=sdpa_mask, is_causal=sdpa_mask is None,
+            enable_gqa=True)
+    # 4 D operations per unmasked (q, k) pair (QK^T and PV): row i sees
+    # min(i + 1, window) keys; q, k, v read once, o written once
+    pairs = sum(min(i + 1, window or S) for i in range(S))
+    flops = 4 * B * Hq * D * pairs
     row = {
         "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D, "causal": True,
-        "mainloop": plan.mainloop, "block_k": plan.block_k,
-        "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True),
+        "window": window, "mainloop": plan.mainloop,
+        "block_k": plan.block_k,
+        "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, **mask),
                       iters, flush),
-        "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v,
-                                                        causal=True),
+        "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, **mask),
                             2, flush),
         "library_ms": time_ms(library, iters, flush),
         "max_abs_err": err,
@@ -2252,12 +2504,15 @@ def flash_row(B, S, Hq, Hkv, D, iters: int, g, flush) -> dict:
     return row
 
 
-def flash_line(cfg, by_mainloop: dict, moe_cfg, moe_by_mainloop: dict) -> dict:
+def flash_line(cfg, by_mainloop: dict, moe_cfg, moe_by_mainloop: dict,
+               hybrid_cfg, hybrid_table: dict) -> dict:
     """granite-8b's prefill attention at buckets 256 and 2048 (B = SLOTS),
     the line's own numbers (a forward's 36 launches at 2048), and dbrx-
-    132b's longest exact-length prefill, [1, 1277, 48 over 8, 128].
+    132b's longest exact-length prefill, [1, 1277, 48 over 8, 128]; under
+    "hybrid", hymba-1.5b's [SLOTS, 2048, 25 over 5, 64] with its window
+    and global, and their sum over a forward (29 windowed, 3 global).
     Launches by mainloop are the served runs' (granite paged; dbrx under
-    "moe")."""
+    "moe"; hymba dense under "hybrid")."""
     g = torch.Generator("cuda").manual_seed(4)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
     D = cfg.resolved_head_dim
@@ -2265,6 +2520,14 @@ def flash_line(cfg, by_mainloop: dict, moe_cfg, moe_by_mainloop: dict) -> dict:
                       flush) for S, iters in zip(FLASH_SEQS, (20, 5))]
     rows.append(flash_row(1, 1277, moe_cfg.n_heads, moe_cfg.n_kv_heads,
                           moe_cfg.resolved_head_dim, 10, g, flush))
+    hc = hybrid_cfg
+    h_rows = [flash_row(SLOTS, 2048, hc.n_heads, hc.n_kv_heads,
+                        hc.resolved_head_dim, 10, g, flush, window=w)
+              for w in (hc.sliding_window, None)]
+    n_global = len(hc.global_attn_layers)
+    n_window = hc.n_layers - n_global
+    h_forward = {k: n_window * h_rows[0][k] + n_global * h_rows[1][k]
+                 for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
     top, L = rows[1], cfg.n_layers
     return {
         "name": "flash_attention", "route": "cuda",
@@ -2275,7 +2538,13 @@ def flash_line(cfg, by_mainloop: dict, moe_cfg, moe_by_mainloop: dict) -> dict:
         "launches_by_mainloop": by_mainloop,
         "moe": {"arch": moe_cfg.name, "n_layers": moe_cfg.n_layers,
                 "launches_by_mainloop": moe_by_mainloop},
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "hybrid": {"arch": hc.name, "n_layers": hc.n_layers,
+                   "launches": hybrid_table["launches"],
+                   "launches_by_mainloop": hybrid_table["by_mainloop"],
+                   "forward_2048": {**h_forward, "windowed": n_window,
+                                    "global": n_global},
+                   "shapes": h_rows},
+        "max_abs_err": max(r["max_abs_err"] for r in rows + h_rows),
         "ms": L * top["ms"], "plain_ms": L * top["plain_ms"],
         "bound_ms": L * top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": L * top["library_ms"],
@@ -2287,7 +2556,8 @@ def flash_line(cfg, by_mainloop: dict, moe_cfg, moe_by_mainloop: dict) -> dict:
     }
 
 
-def gemm_nt_line(cfg, launches: int, by_mainloop: dict) -> dict:
+def gemm_nt_line(cfg, launches: int, by_mainloop: dict,
+                 hybrid: dict) -> dict:
     """The tied LM head of cfg (x [M, d] @ tok [vocab, d]^T, bf16 out) at
     decode (M = SLOTS), at a [SLOTS, 256] prefill and at the largest
     bucketed prefill, [SLOTS, 2048] (M = 8192: the head runs over every
@@ -2334,7 +2604,7 @@ def gemm_nt_line(cfg, launches: int, by_mainloop: dict) -> dict:
         "library_ms": dec["library_ms"],
         "ms_are": (f"one {cfg.name} LM head at decode, M={SLOTS} (one "
                    f"launch per forward; per-shape rows below, L2 flushed)"),
-        "shapes": rows,
+        "shapes": rows, "hybrid": hybrid,
     }
 
 
@@ -2376,41 +2646,53 @@ def ssd_split_ms(args, chunk: int, flush: torch.Tensor) -> dict:
     return split
 
 
-def ssd_line(cfg, launches: int, by_mainloop: dict) -> dict:
-    """mamba2's SSD call at [SLOTS, 256] and [SLOTS, 2048] (bf16), on the
-    mainloop ssd_plan picks, with the serial mainloop (the earlier design)
-    timed beside it on the same inputs; launches by mainloop are the served
-    run's."""
+def ssd_row(cfg, S: int, iters: int, g, flush) -> dict:
+    """cfg's SSD call at [SLOTS, S] (bf16) on the mainloop ssd_plan picks,
+    checked against the Pallas kernel's arithmetic, then timed beside the
+    serial mainloop and the plain version, with its bound and each
+    launch's device ms."""
     s = cfg.ssm
     H, P, N, chunk = s.n_heads(cfg.d_model), s.head_dim, s.d_state, \
         s.chunk_size
+    shape = (SLOTS, S, H, P, s.n_groups, N)
+    args = ssd_inputs(shape, torch.bfloat16, g)
+    y, h = ssd_mod.ssd_cuda(*args, chunk=chunk)
+    ky, kh = ssd_kernel_ref(*args, chunk=chunk)
+    tol = TOLERANCES["ssd_bf16_kernel"]
+    err = float((y.double() - ky.double()).abs().max())
+    check(tol.ok(y, ky) and tol.ok(h, kh),
+          f"ssd {cfg.name} S={S}: kernel disagrees (max_abs_err {err})")
+    row = {"b": SLOTS, "S": S, "H": H, "P": P, "G": s.n_groups, "N": N,
+           "chunk": chunk,
+           "mainloop": ssd_mod.ssd_plan(P, N, chunk, torch.bfloat16),
+           "ms": time_ms(lambda: ssd_mod.ssd_cuda(*args, chunk=chunk),
+                         iters, flush),
+           "serial_ms": time_ms(lambda: ssd_mod.ssd_cuda(
+               *args, chunk=chunk, mainloop="serial"), iters, flush),
+           "plain_ms": time_ms(lambda: ssd_kernel_ref(*args, chunk=chunk),
+                               2, flush),
+           "library_ms": None, "max_abs_err": err}
+    row["bound_ms"], row["bound_by"] = ssd_bound(*shape, chunk)
+    row["split_ms"] = ssd_split_ms(args, chunk, flush)
+    return row
+
+
+def ssd_line(cfg, launches: int, by_mainloop: dict, hybrid_cfg,
+             hybrid_table: dict) -> dict:
+    """mamba2's SSD call at [SLOTS, 256] and [SLOTS, 2048] (bf16), on the
+    mainloop ssd_plan picks, with the serial mainloop (the earlier design)
+    timed beside it on the same inputs; under "hybrid", hymba-1.5b's at
+    [SLOTS, 2048] (50 heads, N 16: serial) and its forward's 32 launches.
+    Launches by mainloop are the served runs'."""
     g = torch.Generator("cuda").manual_seed(9)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
-    rows, worst = [], 0.0
-    for S, iters in ((256, 20), (2048, 10)):
-        shape = (SLOTS, S, H, P, s.n_groups, N)
-        args = ssd_inputs(shape, torch.bfloat16, g)
-        y, h = ssd_mod.ssd_cuda(*args, chunk=chunk)
-        ky, kh = ssd_kernel_ref(*args, chunk=chunk)
-        tol = TOLERANCES["ssd_bf16_kernel"]
-        err = float((y.double() - ky.double()).abs().max())
-        check(tol.ok(y, ky) and tol.ok(h, kh),
-              f"ssd S={S}: kernel disagrees (max_abs_err {err})")
-        worst = max(worst, err)
-        row = {"b": SLOTS, "S": S, "H": H, "P": P, "G": s.n_groups, "N": N,
-               "chunk": chunk,
-               "mainloop": ssd_mod.ssd_plan(P, N, chunk, torch.bfloat16),
-               "ms": time_ms(lambda: ssd_mod.ssd_cuda(*args, chunk=chunk),
-                             iters, flush),
-               "serial_ms": time_ms(lambda: ssd_mod.ssd_cuda(
-                   *args, chunk=chunk, mainloop="serial"), iters, flush),
-               "plain_ms": time_ms(lambda: ssd_kernel_ref(*args,
-                                                          chunk=chunk),
-                                   2, flush),
-               "library_ms": None, "max_abs_err": err}
-        row["bound_ms"], row["bound_by"] = ssd_bound(*shape, chunk)
-        row["split_ms"] = ssd_split_ms(args, chunk, flush)
-        rows.append(row)
+    rows = [ssd_row(cfg, S, iters, g, flush)
+            for S, iters in ((256, 20), (2048, 10))]
+    h_row = ssd_row(hybrid_cfg, 2048, 10, g, flush)
+    check(h_row["mainloop"] == "serial",
+          f"hymba's SSD plan is {h_row['mainloop']}, not serial")
+    worst = max(r["max_abs_err"] for r in rows + [h_row])
+    hL = hybrid_cfg.n_layers
     top, L = rows[-1], cfg.n_layers
     return {
         "name": "ssd", "route": "cuda",
@@ -2427,10 +2709,17 @@ def ssd_line(cfg, launches: int, by_mainloop: dict) -> dict:
                    f"same inputs; per-shape rows below, L2 flushed; no "
                    f"single PyTorch call computes the chunk scan)"),
         "shapes": rows,
+        "hybrid": {"arch": hybrid_cfg.name, "n_layers": hL,
+                   "launches": hybrid_table["launches"],
+                   "launches_by_mainloop": hybrid_table["by_mainloop"],
+                   "forward_2048": {k: hL * h_row[k] for k in
+                                    ("ms", "plain_ms", "bound_ms")},
+                   "shapes": [h_row]},
     }
 
 
-def grouped_line(cfg, launches: int, by_mainloop: dict) -> dict:
+def grouped_line(cfg, launches: int, by_mainloop: dict,
+                 hybrid: dict) -> dict:
     """dbrx's expert GEMMs (bf16, bf16 out): one decode step's three
     projections at M = 1 row per expert (x MOE_LAYERS layers = 24
     launches), and the up and down projections of a 1024-token prefill at
@@ -2495,7 +2784,7 @@ def grouped_line(cfg, launches: int, by_mainloop: dict) -> dict:
                    f"{cfg.name} ({L} layers) decode step, M = 1 row per "
                    f"expert (per-shape rows below, the prefill rows per "
                    f"launch; L2 flushed)"),
-        "shapes": rows,
+        "shapes": rows, "hybrid": hybrid,
     }
 
 
@@ -2571,17 +2860,43 @@ def main() -> int:
         del moe_params
         torch.cuda.empty_cache()
 
+        hybrid_cfg = get_arch(HYBRID_ARCH)
+        t0 = time.perf_counter()
+        hybrid_model = Model(hybrid_cfg, attention_impl="pallas",
+                             ssd_impl="pallas", use_pallas=True)
+        hybrid_params = hybrid_model.init(
+            torch.Generator("cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        emit("init", arch=hybrid_cfg.name, params=hybrid_model.param_count(),
+             seconds=time.perf_counter() - t0,
+             gib_allocated=torch.cuda.memory_allocated() / 2 ** 30)
+        hybrid_served, hybrid = phase_serve_hybrid(hybrid_model,
+                                                   hybrid_params)
+        torch.cuda.synchronize()
+        phase_ssm_oracle(hybrid_model, hybrid_params, hybrid_served,
+                         phase="hybrid_oracle")
+        torch.cuda.synchronize()
+        del hybrid_params
+        torch.cuda.empty_cache()
+
         kernels = {"kernels": [gemm_line(
             cfg, launches, by_mainloop, moe_cfg, moe_launches["pod_gemm"],
-            moe_launches["pod_gemm_by_mainloop"]),
+            moe_launches["pod_gemm_by_mainloop"], hybrid_cfg,
+            hybrid["pod_gemm"]),
                                flash_line(cfg, flash_by_mainloop, moe_cfg,
-                                          moe_launches["flash_by_mainloop"]),
-                               gemm_nt_line(ssm_cfg, ssm_launches["gemm_nt"],
-                                            ssm_launches["gemm_nt_by_mainloop"]),
+                                          moe_launches["flash_by_mainloop"],
+                                          hybrid_cfg, hybrid["flash"]),
+                               gemm_nt_line(
+                                   ssm_cfg, ssm_launches["gemm_nt"],
+                                   ssm_launches["gemm_nt_by_mainloop"],
+                                   hybrid["gemm_nt"]),
                                ssd_line(ssm_cfg, ssm_launches["ssd"],
-                                        ssm_launches["ssd_by_mainloop"]),
-                               grouped_line(moe_cfg, moe_launches["grouped"],
-                                            moe_launches["grouped_by_mainloop"])]}
+                                        ssm_launches["ssd_by_mainloop"],
+                                        hybrid_cfg, hybrid["ssd"]),
+                               grouped_line(
+                                   moe_cfg, moe_launches["grouped"],
+                                   moe_launches["grouped_by_mainloop"],
+                                   hybrid["grouped"])]}
         torch.cuda.synchronize()
         gpu = gpu_name_and_power()
     except Exception:  # every phase failure ends the run non-zero

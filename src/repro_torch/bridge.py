@@ -5,6 +5,11 @@ cannot replay, so parity tests take the reference's own parameter tree,
 turned into numpy arrays by the caller, and convert it name for name.
 bf16 leaves arrive as ml_dtypes `bfloat16`; reading their bits as uint16
 and viewing them as torch.bfloat16 is bit-exact.
+
+The reference keeps a one-layer segment unstacked (no leading layer axis)
+where the port stacks every segment; `model_params_from_jax` adds that
+axis, segment by segment (hymba's global-attention segments are one layer
+each).
 """
 
 from __future__ import annotations
@@ -28,3 +33,21 @@ def params_from_jax(tree, device="cpu"):
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     return _leaf(tree, device)
+
+
+def model_params_from_jax(model, tree, device="cpu"):
+    """params_from_jax for `model` (a repro_torch Model): every leaf of a
+    one-layer segment gains the leading layer axis the port's schema has.
+    Equal to params_from_jax where every segment has more than one
+    layer."""
+    out = params_from_jax(tree, device)
+    for seg in model.segs:
+        if seg.n == 1:
+            out[seg.name] = _stack_one(out[seg.name])
+    return out
+
+
+def _stack_one(tree):
+    if isinstance(tree, dict):
+        return {k: _stack_one(v) for k, v in tree.items()}
+    return tree[None]

@@ -167,6 +167,88 @@ class KVCache:
 
 
 @dataclasses.dataclass
+class RingKVCache:
+    """Sliding-window ring buffer (window-sized memory for the SWA layers of
+    the hybrid family), updated in place. `k`/`v`: [(L,) B, W, H, D], token
+    p of a lane in slot p % W; `length`: [(L,) B] tokens seen per lane.
+    Not a KVCache: the engine's length fixup must leave its lengths alone
+    (a bucketed prefill sets them to the true lengths itself)."""
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
+
+    @staticmethod
+    def zeros(batch, window, n_kv, head_dim, dtype=torch.bfloat16,
+              layers: int | None = None, device=None):
+        shape = (batch, window, n_kv, head_dim)
+        lshape: tuple[int, ...] = (batch,)
+        if layers:
+            shape = (layers,) + shape
+            lshape = (layers, batch)
+        return RingKVCache(torch.zeros(shape, dtype=dtype, device=device),
+                           torch.zeros(shape, dtype=dtype, device=device),
+                           torch.zeros(lshape, dtype=torch.int64,
+                                       device=device))
+
+    @property
+    def window(self) -> int:
+        return self.k.shape[-3]
+
+    def layer(self, i: int) -> "RingKVCache":
+        """Layer i of a stacked cache, as views: writes land in the stack."""
+        return RingKVCache(self.k[i], self.v[i], self.length[i])
+
+    def append_token(self, k_new, v_new) -> None:
+        """Decode-step write of [B, 1, H, D] into each lane's slot
+        length % W, in place; `length` advances by 1."""
+        rows = torch.arange(k_new.shape[0], device=k_new.device)
+        slot = self.length % self.window
+        self.k[rows, slot] = k_new[:, 0].to(self.k.dtype)
+        self.v[rows, slot] = v_new[:, 0].to(self.v.dtype)
+        self.length += 1
+
+    def positions(self) -> torch.Tensor:
+        """Absolute position held in each slot per lane, [B, W] (-1 where
+        the slot is invalid: never written, or older than the window)."""
+        W = self.window
+        slots = torch.arange(W, device=self.length.device)[None, :]
+        newest = (self.length - 1)[:, None]                  # [B, 1]
+        pos = newest - (newest % W - slots) % W
+        return torch.where((pos >= 0) & (pos > newest - W), pos, -1)
+
+    def fill_prefill(self, k, v, true_lens=None) -> None:
+        """Prefill of [B, S, H, D] keys and values, in place. With
+        true_lens [B] (a right-padded bucket), each lane's last-window
+        real tokens are gathered into their slots (token p -> slot p % W;
+        slot s holds the newest real position congruent to s, and a slot
+        older than the window or before position 0 is zero), and `length`
+        becomes true_lens. Without (exact length), the last W tokens are
+        kept, rolled so that token p lands in slot p % W, and `length`
+        becomes S. Nothing is read back to the host."""
+        W = self.window
+        B, S = k.shape[0], k.shape[1]
+        if true_lens is not None:
+            last = (true_lens - 1)[:, None]                      # [B, 1]
+            slots = torch.arange(W, device=k.device)[None, :]    # [1, W]
+            pos = last - (last - slots) % W                      # [B, W]
+            valid = ((pos >= 0) & (pos > last - W))[..., None, None]
+            idx = pos.clamp(0, S - 1)
+            rows = torch.arange(B, device=k.device)[:, None]
+            for buf, new in ((self.k, k), (self.v, v)):
+                buf.copy_(torch.where(valid, new[rows, idx], 0))
+            self.length.copy_(true_lens)
+            return
+        for buf, new in ((self.k, k), (self.v, v)):
+            kept = new[:, -W:]
+            if kept.shape[1] < W:        # S < W: the tokens sit at slot p
+                buf.zero_()
+                buf[:, :kept.shape[1]] = kept
+            else:
+                buf.copy_(torch.roll(kept, S % W, dims=1))
+        self.length.fill_(S)
+
+
+@dataclasses.dataclass
 class PagedKVCache:
     """Pooled (paged) KV cache for serving, updated in place: device memory
     scales with the pages mapped, not `slots x max_len`.

@@ -5,6 +5,8 @@ repro/models/model.py).
                   use_pallas=True)                             # on the card
     # or Model(get_arch("mamba2-370m"), ssd_impl="pallas", use_pallas=True)
     # or Model(get_arch("dbrx-132b"), attention_impl="pallas", use_pallas=True)
+    # or Model(get_arch("hymba-1.5b"), attention_impl="pallas",
+    #          ssd_impl="pallas", use_pallas=True)
     params = model.init(torch.Generator("cuda").manual_seed(0))
     logits, cache = model.prefill(params, batch, model.init_cache(4, 512))
     logits, cache = model.decode_step(params, tok, cache, position)
@@ -22,7 +24,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..runtime import resolve_device
-from .attention import KVCache, PagedKVCache
+from .attention import KVCache, PagedKVCache, RingKVCache
 from .layers import (apply_norm, embed, embed_schema, init_from_schema,
                      norm_schema, param_count, unembed)
 from .ssm import SSMCache
@@ -33,7 +35,7 @@ def _index(tree, i: int):
     """Layer i of a stacked parameter or cache tree (views, no copies)."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
-    if isinstance(tree, (KVCache, PagedKVCache, SSMCache)):
+    if isinstance(tree, (KVCache, PagedKVCache, RingKVCache, SSMCache)):
         return tree.layer(i)
     return tree[i]
 
@@ -85,7 +87,7 @@ class Model:
     # -- forward -----------------------------------------------------------
     def _run_segment(self, seg: Segment, p_seg, x, positions, cache_seg,
                      true_lens=None):
-        kw = dict(positions=positions, impl=self.impl,
+        kw = dict(positions=positions, window=seg.window, impl=self.impl,
                   ssd_impl=self.ssd_impl, use_pallas=self.use_pallas,
                   true_lens=true_lens)
         for i in range(seg.n):
@@ -99,8 +101,10 @@ class Model:
         """Returns (logits, cache). With a cache, prefill (S > 1) or decode
         (S == 1) writes into it in place and the same object comes back.
         true_lens [B]: per-lane valid lengths of a right-padded (bucketed)
-        prefill; the SSM blocks mask their state updates with it, so the
-        padding is inert (models/ssm.py::apply_ssm)."""
+        prefill; the SSM blocks mask their state updates with it and the
+        ring caches gather each lane's last-window real tokens, so the
+        padding is inert (models/ssm.py::apply_ssm,
+        attention.py::RingKVCache.fill_prefill)."""
         tokens = batch["tokens"]
         S = tokens.shape[1]
         if positions is None:
@@ -127,13 +131,20 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    page_size: int | None = None,
-                   kv_pages: int | None = None) -> dict:
-        """page_size/kv_pages set builds a *paged* cache: every KVCache
+                   kv_pages: int | None = None,
+                   ring_len: int | None = None) -> dict:
+        """Per segment: ssm, an SSMCache; dense and moe, a KVCache; hybrid,
+        an SSMCache beside a RingKVCache of min(window, ring_len) slots in
+        a window segment and a KVCache in a global one. ring_len defaults
+        to max_len; the paged engine's prefill transient spans a bucket's
+        pages only but keeps the engine's ring width.
+
+        page_size/kv_pages set builds a *paged* cache: every KVCache
         becomes a PagedKVCache over a shared kv_pages-page pool
-        (serve/paging.PagePool owns the host-side allocation). SSM state is
-        fixed-size per lane, so it stays lane-resident either way. Only the
-        bucketed-prefill families page: their prefill scatters whole pages
-        of a padded bucket into the pool."""
+        (serve/paging.PagePool owns the host-side allocation). SSM state
+        and rings are fixed-size per lane, so they stay lane-resident
+        either way. Only the bucketed-prefill families page: their prefill
+        scatters whole pages of a padded bucket into the pool."""
         cfg = self.cfg
         if (page_size is None) != (kv_pages is None):
             raise ValueError("page_size and kv_pages must be set together")
@@ -141,22 +152,30 @@ class Model:
             raise ValueError(
                 f"paged KV cache requires a bucketed-prefill family "
                 f"(dense/ssm/hybrid), not {cfg.family}")
-        if cfg.family == "ssm":
-            return {seg.name: {"ssm": SSMCache.zeros(
-                        cfg, batch, layers=seg.n, dtype=dtype,
-                        device=self.device)}
-                    for seg in self.segs}
         hd = cfg.resolved_head_dim
-        if page_size is not None:
-            return {seg.name: {"attn": PagedKVCache.zeros(
-                        batch, max_len, cfg.n_kv_heads, hd, n_pages=kv_pages,
-                        page_size=page_size, dtype=dtype, layers=seg.n,
-                        device=self.device)}
-                    for seg in self.segs}
-        return {seg.name: {"attn": KVCache.zeros(
-                    batch, max_len, cfg.n_kv_heads, hd, dtype, layers=seg.n,
-                    device=self.device)}
-                for seg in self.segs}
+        dev = self.device
+        ring_len = max_len if ring_len is None else ring_len
+
+        def kv(n):
+            if page_size is not None:
+                return PagedKVCache.zeros(
+                    batch, max_len, cfg.n_kv_heads, hd, n_pages=kv_pages,
+                    page_size=page_size, dtype=dtype, layers=n, device=dev)
+            return KVCache.zeros(batch, max_len, cfg.n_kv_heads, hd, dtype,
+                                 layers=n, device=dev)
+        caches: dict = {}
+        for seg in self.segs:
+            node: dict = {}
+            if seg.kind != "ssm":
+                node["attn"] = kv(seg.n) if seg.window is None else \
+                    RingKVCache.zeros(batch, min(seg.window, ring_len),
+                                      cfg.n_kv_heads, hd, dtype,
+                                      layers=seg.n, device=dev)
+            if seg.kind in ("ssm", "hybrid"):
+                node["ssm"] = SSMCache.zeros(cfg, batch, layers=seg.n,
+                                             dtype=dtype, device=dev)
+            caches[seg.name] = node
+        return caches
 
     def prefill(self, params, batch, cache: dict):
         """Run the prompt, filling `cache` in place. Returns (last-position

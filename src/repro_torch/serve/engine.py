@@ -10,7 +10,9 @@ prefill into free slots, and decode step-locked with the rest of the batch.
     causal masking keeps padded keys out of real rows, and the length
     fixup masks the padded cache slots until decode overwrites them. The
     SSM state takes the per-lane true lengths (dt-masked updates, a conv
-    window gathered at the true length), so padding is inert there too.
+    window gathered at the true length), and so does a sliding-window ring
+    cache (each lane's last-window real tokens gathered into their ring
+    slots), so padding is inert there too.
   * Exact-length prefill, for the families whose prefill padding is not
     inert (`Model.bucketed_prefill_ok` False: MoE, where padding tokens
     would take expert capacity from real ones): one request per prefill,
@@ -47,8 +49,10 @@ prefill into free slots, and decode step-locked with the rest of the batch.
     (_release_slot). In-chunk recycling (always on when paged) re-runs
     admission at the chunk's own sync, so a lane that died mid-chunk is
     handed to queued work without an idle chunk. Paging adds no host
-    sync. SSM state is fixed-size per lane and stays lane-resident: nothing
-    of it is paged (paged_kv_stats reports it as resident_lane_bytes).
+    sync. SSM state and ring caches are fixed-size per lane and stay
+    lane-resident: nothing of them is paged (paged_kv_stats reports them
+    as resident_lane_bytes), and the transient's rings have the engine's
+    width.
 
 The caches are updated in place. A dead lane keeps decoding inertly to
 the end of its chunk; its KV or SSM state is overwritten by the lane's
@@ -66,7 +70,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..models.attention import KVCache, PagedKVCache
+from ..models.attention import KVCache, PagedKVCache, RingKVCache
 from ..models.model import Model
 from ..models.ssm import SSMCache
 from ..runtime import to_host
@@ -124,7 +128,8 @@ def reject(req: Request, reason: str) -> None:
 
 def _fix_lengths(cache: dict, true_lens: torch.Tensor) -> None:
     """Reset every KVCache's per-lane lengths from the padded bucket length
-    to the true prompt lengths, in place."""
+    to the true prompt lengths, in place. A RingKVCache is not a KVCache:
+    its bucketed prefill has set its lengths already."""
     for node in cache.values():
         for c in node.values():
             if isinstance(c, KVCache):
@@ -139,6 +144,8 @@ def _paged_nodes(cache: dict):
 
 
 def _lane_tensors(c) -> tuple:
+    """The tensors of a lane-resident cache node (KVCache, RingKVCache or
+    SSMCache), lane axis second."""
     if isinstance(c, SSMCache):
         return c.conv, c.state
     return c.k, c.v, c.length
@@ -367,11 +374,13 @@ class ServeEngine:
         if self._pool is None:
             lane = self.model.init_cache(B, self.max_len)
         else:
-            # paged: the transient spans the bucket's whole pages only
+            # paged: the transient's dense KV spans the bucket's whole
+            # pages only; its rings keep the engine's width, slot for slot
             pages = -(-bucket // self._pool.page_size)
             inputs["dest"] = torch.full((B, pages), self._pool.sentinel,
                                         dtype=torch.int64, device=dev)
-            lane = self.model.init_cache(B, pages * self._pool.page_size)
+            lane = self.model.init_cache(B, pages * self._pool.page_size,
+                                         ring_len=self.max_len)
         self._lane_caches[bucket] = lane
         body = functools.partial(_prefill_body, self.model, self.params,
                                  self.cache, lane)
@@ -606,9 +615,9 @@ class ServeEngine:
         """Host-side page-pool accounting (no device sync). KV bytes come
         from the paged caches' dtypes and shapes; `dense_bytes` is what the
         same caches would cost as slots x max_len dense lanes. The pool's
-        scratch page is not a page: totals count n_pages. SSM state is
-        fixed-size and lane-resident (nothing to page): it is reported as
-        resident_lane_bytes, for all slots."""
+        scratch page is not a page: totals count n_pages. SSM state and
+        ring caches are fixed-size and lane-resident (nothing to page):
+        they are reported as resident_lane_bytes, for all slots."""
         pool = self._pool
         if pool is None:
             raise ValueError("paged_kv_stats requires paged=True")
@@ -616,8 +625,10 @@ class ServeEngine:
                       // ((pool.n_pages + 1) * pool.page_size)
                       for c in _paged_nodes(self.cache))
         resident = sum(c.lane_bytes() * self.slots
+                       if isinstance(c, SSMCache) else c.k.nbytes + c.v.nbytes
                        for node in self.cache.values()
-                       for c in node.values() if isinstance(c, SSMCache))
+                       for c in node.values()
+                       if isinstance(c, (SSMCache, RingKVCache)))
         live_tokens = sum(int(self.positions[i])
                           for i, r in enumerate(self.active)
                           if r is not None)

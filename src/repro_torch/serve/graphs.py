@@ -80,6 +80,12 @@ class GraphPool:
     and the seconds their warm-up calls and captures took."""
 
     def __init__(self, device: torch.device):
+        # the kernel wrappers key their workspaces by a tensor's device,
+        # which names its index ("cuda:0"); an engine's device may not
+        # ("cuda"), and under that key a runner would find no workspace
+        # to keep alive, and a later growth would free one its graph uses
+        if device.index is None:
+            device = torch.device(device.type, torch.cuda.current_device())
         self.device = device
         self.handle = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(device)

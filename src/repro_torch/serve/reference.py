@@ -1,7 +1,9 @@
 """Reference serving engine: the per-token oracle (counterpart of
 repro/serve/reference.py, fifo admission).
 
-One exact-length prefill per request and one host read per decoded token.
+One exact-length prefill per request (for a sliding-window ring cache:
+the last window of the prompt rolled into its slots) and one host read
+per decoded token.
 `Request.out` holds max_new_tokens greedy tokens (the first from prefill),
 truncated at eos_id inclusive: the contract ServeEngine shares. The oracle
 also keeps, per request, the top-1 minus top-2 logit margin and the

@@ -14,7 +14,7 @@ import torch
 from repro.configs import get_arch, reduced
 from repro.models.model import Model as JaxModel
 from repro_torch import HOST_SYNCS, resolve_device, to_host
-from repro_torch.bridge import params_from_jax
+from repro_torch.bridge import model_params_from_jax, params_from_jax
 from repro_torch.configs import get_arch as t_get_arch, reduced as t_reduced
 from repro_torch.kernels.systolic_gemm import ops
 from repro_torch.models.model import Model
@@ -84,6 +84,47 @@ def test_bridge_keeps_the_moe_router_in_f32():
     bf16 experts, bit for bit."""
     tp = _bridge_bit_exact("dbrx-132b")
     assert tp["moe"]["moe"]["router"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "mamba2-370m", "dbrx-132b"])
+def test_model_aware_bridge_is_params_from_jax_on_stacked_segments(arch):
+    """Every segment of these has more than one layer: the model-aware
+    form converts exactly as params_from_jax does, to the port's schema."""
+    tp = _bridge_bit_exact(arch)
+    cfg = reduced(get_arch(arch))
+    jp = jax.tree.map(np.asarray, JaxModel(cfg).init(jax.random.PRNGKey(0)))
+    model = Model(t_reduced(t_get_arch(arch)), device="cpu")
+    assert all(seg.n > 1 for seg in model.segs)
+    got = dict(_leaves(model_params_from_jax(model, jp)))
+    assert got.keys() == dict(_leaves(tp)).keys()
+    for name, t in _leaves(tp):
+        assert torch.equal(got[name], t), name
+
+
+def test_model_aware_bridge_stacks_one_layer_segments():
+    """reduced(hymba): glob0 | swa_tail, one layer each, which the
+    reference keeps unstacked. Each of their leaves gains the leading
+    layer axis of the port's schema, bits unchanged; embed and ln_f are
+    converted as they are."""
+    cfg = reduced(get_arch("hymba-1.5b"))
+    jp = jax.tree.map(np.asarray, JaxModel(cfg).init(jax.random.PRNGKey(0)))
+    model = Model(t_reduced(t_get_arch("hymba-1.5b")), device="cpu")
+    assert [(s.name, s.n) for s in model.segs] == [("glob0", 1),
+                                                   ("swa_tail", 1)]
+    tp = model_params_from_jax(model, jp)
+    schema = dict(_leaves(model.schema()))
+    jleaves = dict(_leaves(jp))
+    tleaves = dict(_leaves(tp))
+    assert set(tleaves) == set(jleaves) == set(schema)
+    for name, a in jleaves.items():
+        t = tleaves[name]
+        stacked = name.split("/")[1] in ("glob0", "swa_tail")
+        assert tuple(t.shape) == schema[name].shape == (
+            (1,) + a.shape if stacked else a.shape), name
+        bits = np.int16 if a.dtype.itemsize == 2 else np.int32
+        got = t.view(torch.int16 if bits is np.int16 else torch.int32)
+        assert np.array_equal(got.numpy().reshape(a.shape), a.view(bits)), \
+            name
 
 
 def test_port_init_follows_the_schema():

@@ -353,6 +353,36 @@ def test_second_pass_over_captured_shapes_allocates_nothing(cuda_device,
 
 
 @pytest.mark.gpu
+def test_runner_keeps_the_workspace_it_captured_alive(cuda_device):
+    """A pool made for the device an engine names ("cuda", no index)
+    holds the split-K workspace and counters a graph writes, so a larger
+    shape that grows the workspace afterwards frees neither, and the
+    replay still equals an eager call. (The workspaces are keyed by a
+    tensor's device, "cuda:0".)"""
+    from repro_torch.kernels.systolic_gemm import systolic_gemm as sg
+    g = torch.Generator("cuda").manual_seed(0)
+    w = torch.randn((4096, 4096), generator=g, device="cuda").to(
+        torch.bfloat16)
+    x = torch.randn((64, 4096), generator=g, device="cuda").to(
+        torch.bfloat16)
+    assert sg.nn_plan(4, 4096, 4096, torch.bfloat16, True).splits > 1
+    sg._SPLITK_SCRATCH.clear()
+    runner = graphs.StepRunner(lambda x: sg.systolic_gemm_cuda(x, w),
+                               {"x": x[:4].clone()},
+                               graphs.GraphPool(torch.device("cuda")))
+    runner()                                    # warm-up and capture
+    held = runner._held
+    assert held and all(a is b for a, b in
+                        zip(held, sg.workspaces(x.device)))
+    sg.systolic_gemm_cuda(x, w)                 # M = 64 grows the workspace
+    assert sg.workspaces(x.device)[0] is not held[0]
+    torch.cuda.empty_cache()
+    got = runner().clone()
+    torch.cuda.synchronize()
+    assert torch.equal(got, sg.systolic_gemm_cuda(x[:4].contiguous(), w))
+
+
+@pytest.mark.gpu
 def test_capture_of_a_host_read_raises(cuda_device):
     """A body that reads the device from the host cannot be captured: the
     runner raises and keeps no graph; it never runs eager instead. (Last
