@@ -178,7 +178,35 @@ Phases, one JSON line each; any failure exits non-zero:
                agreement reported at 32 layers, the margin rule held on
                ORACLE_LAYERS layers of the same weights (glob0 and the
                first layer of swa1).
- 17. kernels - each kernel's time at the served shapes beside its bound,
+ 17. serve_controls - run after phase 10 on granite-8b's weights at full
+               width (Model(cfg, use_pallas=True); the flash model for the
+               paged engine): the overload case of tests/test_admission.py
+               (slots 2, decode_chunk 8, 12 requests of 5-8 tokens, 6 new,
+               deadlines 0.8 and 7.0 s alternating) under a VirtualClock
+               with ChaosConfig(seed=0, service_seconds=0.05), under fifo,
+               edf and slo-aware: every request terminal, no slot held,
+               edf and slo-aware above fifo in SLO attainment. The serve
+               phase's requests with the defaults and with metrics and a
+               trace recorder on, real clock: equal tokens, host syncs,
+               graphs and launches by kernel and mainloop, one span per
+               device call; a second pass gives effective_tops_summary per
+               phase (prefill, decode), the token wait p50/p99 and tok/s.
+               The paged engine (edf) with ChaosConfig(seed=3, p_fault=0.3,
+               p_slow=0.3), max_retries 3: faults injected, every request
+               done with the chaos-free run's tokens, runners and graphs
+               equal to its, no page or slot held; with transient_tries 5
+               (retries exhausted) requests end rejected device-fault and
+               nothing leaks. The wave-model predictor's host ms per new
+               key at full width. Two planted controls must fail their
+               gates: an engine whose call writes before the injector
+               raises (token equality after retry), and a metrics hook
+               that reads a device tensor (the sync count).
+ 18. launch_serve - repro_torch.launch.serve.main in-process (reduced
+               granite-8b, edf, deadline 5 s, chaos seed 1, metrics, a
+               trace file under build/): it returns, it launched the
+               pod GEMM and flash kernels, and the trace file holds one
+               span per device call.
+ 19. kernels - each kernel's time at the served shapes beside its bound,
                its plain version and one PyTorch call (a yardstick only);
                the pod GEMM at granite-8b's, dbrx-132b's and hymba-1.5b's
                shapes (hymba's head on wmma at M = 4 and 8192), flash
@@ -198,7 +226,10 @@ The last lines are the card's name and power limit, the kernels line, and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
+import io
 import json
 import math
 import re
@@ -235,10 +266,17 @@ from repro_torch.models.layers import (apply_norm, apply_rope, embed,  # noqa: E
                                        pod_dense)
 from repro_torch.runtime import no_tf32  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.obs.drift import effective_tops_summary  # noqa: E402
+from repro_torch.obs.metrics import MetricsRegistry  # noqa: E402
 from repro_torch.serve import engine as engine_mod  # noqa: E402
+from repro_torch.serve.admission import (POLICIES, AdmissionConfig,  # noqa: E402
+                                         WaveLatencyPredictor)
+from repro_torch.serve.chaos import (ChaosConfig, TransientDeviceError,  # noqa: E402
+                                     VirtualClock)
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.graphs import GraphPool, StepRunner  # noqa: E402
 from repro_torch.serve.reference import ReferenceEngine  # noqa: E402
+from repro_torch.tenancy.trace import ServeTraceRecorder  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -1888,6 +1926,321 @@ def phase_paged_oracle(model, params, served: list[Request]) -> None:
 
 
 # --------------------------------------------------------------------------
+# 17. serve_controls and 18. launch_serve
+# --------------------------------------------------------------------------
+
+# tests/test_admission.py's overload case: 2 slots, virtual time
+OVERLOAD = dict(slots=2, max_len=64, decode_chunk=8)
+CHAOS = dict(seed=3, p_fault=0.3, p_slow=0.3)
+EXHAUSTED_REQUESTS = 4      # the paged prompts of three buckets
+
+
+class EarlyWriteEngine(ServeEngine):
+    """Planted control: each attempt runs the call, which writes the
+    runner's static buffers and the caches in place, before the injector
+    may raise. A retried decode chunk then runs on caches the failed
+    attempt already advanced, so the tokens must differ from a clean
+    run's."""
+
+    def _device_call(self, kind, fn):
+        while True:
+            out = fn()
+            try:
+                self._chaos.before(kind)
+                return out
+            except TransientDeviceError:
+                continue
+
+
+def overload_requests(vocab: int) -> list[Request]:
+    """12 prompts of 5-8 tokens, 6 new tokens each, deadlines 0.8 and 7.0
+    s alternating (tests/test_admission.py)."""
+    rng = np.random.default_rng(11)
+    reqs = []
+    for i in range(12):
+        p = rng.integers(0, vocab, int(rng.integers(5, 9)))
+        reqs.append(Request(rid=i, prompt=p, max_new_tokens=6,
+                            deadline_s=0.8 if i % 2 else 7.0))
+    return reqs
+
+
+def check_drained(phase: str, engine, reqs: list[Request]) -> None:
+    """Every request terminal, no slot held, and (paged) no page in use
+    or reserved."""
+    check(not engine.queue and not any(engine.active),
+          f"{phase}: a slot is still held or a request still queued")
+    check(all(r.finished for r in reqs),
+          f"{phase}: requests not terminal: "
+          f"{[(r.rid, r.state) for r in reqs if not r.finished]}")
+    if engine._pool is not None:
+        engine._pool.assert_drained()
+
+
+def overload_attainment(model, params) -> dict:
+    """fifo, edf and slo-aware on the overload case under a VirtualClock:
+    edf and slo-aware must beat fifo in SLO attainment."""
+    out = {}
+    for policy in POLICIES:
+        clock = VirtualClock()
+        eng = ServeEngine(model, params, clock=clock,
+                          admission=AdmissionConfig(policy=policy),
+                          chaos=ChaosConfig(seed=0, service_seconds=0.05),
+                          **OVERLOAD)
+        reqs = overload_requests(model.cfg.vocab)
+        wall = serve(eng, reqs)
+        check_drained(f"overload {policy}", eng, reqs)
+        out[policy] = {"slo_attainment": eng.admission.slo_attainment,
+                       "counts": dict(eng.admission.counts),
+                       "virtual_s": clock.t, "wall_s": wall,
+                       "graphs": eng.stats["graphs"]}
+    att = {p: out[p]["slo_attainment"] for p in POLICIES}
+    check(att["edf"] > att["fifo"] and att["slo-aware"] > att["fifo"],
+          f"overload: edf and slo-aware must beat fifo in attainment {att}")
+    return out
+
+
+PREDICTOR_TRIALS = 3
+
+
+def predictor_host_cost(cfg, reqs: list[Request]) -> dict:
+    """The slo-aware predictor's host milliseconds for each new (prompt
+    bucket, tokens) key of the served requests at full width, one reading
+    per trial (each trial a fresh predictor, so every key is new again),
+    and the slowest hit. A pricing allocates enough to set off Python's
+    garbage collector; `full_gc_ms` lists the full (generation 2)
+    collections that fell inside a reading, by key."""
+    new_key_ms, hit_ms, full_gc_ms = {}, [], []
+    started, pauses = [0.0], []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started[0] = time.perf_counter()
+        elif info["generation"] == 2:
+            pauses.append(1e3 * (time.perf_counter() - started[0]))
+
+    gc.callbacks.append(on_gc)
+    try:
+        for _ in range(PREDICTOR_TRIALS):
+            pred, seen = WaveLatencyPredictor(cfg), set()
+            for r in reqs:
+                key = f"{pred._bucket(len(r.prompt))}x{r.max_new_tokens}"
+                n_pauses = len(pauses)
+                t0 = time.perf_counter()
+                pred.model_seconds(len(r.prompt), r.max_new_tokens)
+                t1 = time.perf_counter()
+                pred.model_seconds(len(r.prompt), r.max_new_tokens)
+                hit_ms.append(1e3 * (time.perf_counter() - t1))
+                if key not in seen:
+                    seen.add(key)
+                    new_key_ms.setdefault(key, []).append(1e3 * (t1 - t0))
+                    full_gc_ms += [[key, ms] for ms in pauses[n_pauses:]]
+    finally:
+        gc.callbacks.remove(on_gc)
+    every = [ms for readings in new_key_ms.values() for ms in readings]
+    return {"new_key_ms": new_key_ms,
+            "new_key_ms_range": [min(every), max(every)],
+            "full_gc_ms": full_gc_ms, "hit_ms_max": max(hit_ms)}
+
+
+def controls_off_and_on(model, params) -> tuple[dict, list]:
+    """The serve phase's requests with the defaults and with metrics and
+    a tracer on, real clock: equal tokens, host syncs, graphs and launches
+    by kernel and mainloop. Steady passes in turns (off, on, on, off)
+    time the instrumentation on the host; the two instrumented ones, with
+    fresh sinks, give the effective TOPS per phase and the token wait.
+    Planted: a metrics hook that reads a device tensor must fail the sync
+    gate. Returns the figures and the default engine's tokens."""
+    cfg = model.cfg
+    kw = dict(slots=SLOTS, max_len=MAX_LEN, decode_chunk=DECODE_CHUNK)
+    off = ServeEngine(model, params, **kw)
+    off_reqs = make_requests(cfg.vocab)
+    off_run = counted_serve(off, off_reqs)
+    metrics, tracer = MetricsRegistry(), ServeTraceRecorder()
+    on = ServeEngine(model, params, metrics=metrics, tracer=tracer, **kw)
+    on_reqs = make_requests(cfg.vocab)
+    on_run = counted_serve(on, on_reqs)
+    by_mainloop = hopper_mainloops("serve_controls")
+    tokens = [r.out for r in off_reqs]
+    check([r.out for r in on_reqs] == tokens,
+          "serve_controls: metrics and tracer changed the tokens")
+    check(on_run["syncs"] == off_run["syncs"],
+          f"serve_controls: host syncs with metrics and tracer "
+          f"{on_run['syncs']} != {off_run['syncs']} without")
+    check(on.stats["graphs"] == off.stats["graphs"],
+          f"serve_controls: graphs {on.stats['graphs']} with controls != "
+          f"{off.stats['graphs']} without")
+    check(on_run["launches"] == off_run["launches"],
+          f"serve_controls: launches {on_run['launches']} with controls != "
+          f"{off_run['launches']} without")
+    check(len(tracer.spans) == on_run["syncs"],
+          f"serve_controls: {len(tracer.spans)} spans for "
+          f"{on_run['syncs']} device calls")
+    # steady passes (every call a replay) in turns off, on, on, off: the
+    # instrumentation's host cost; the on engine's sinks start afresh
+    metrics, tracer = MetricsRegistry(), ServeTraceRecorder()
+    on.metrics = on.admission.metrics = metrics
+    on.tracer = tracer
+    graphs = (off.stats["graphs"], on.stats["graphs"])
+    steady = {"off": [], "on": []}
+    for label in ("off", "on", "on", "off"):
+        engine = off if label == "off" else on
+        st0 = dict(engine.stats)
+        again = make_requests(cfg.vocab)
+        run = counted_serve(engine, again)
+        check([r.out for r in again] == tokens,
+              f"serve_controls: a steady {label} pass changed the tokens")
+        steady[label].append(pass_figures(engine, run, again, st0))
+    check((off.stats["graphs"], on.stats["graphs"]) == graphs,
+          "serve_controls: a steady pass captured a graph")
+    syncs = steady["on"][0]["host_syncs"]
+    check(len(tracer.spans) == 2 * syncs,
+          f"serve_controls: {len(tracer.spans)} spans for two passes of "
+          f"{syncs} device calls")
+    tops = [dataclasses.asdict(r)
+            for r in effective_tops_summary(tracer, cfg, metrics)]
+    check({r["phase"] for r in tops} == {"prefill", "decode"},
+          f"serve_controls: effective TOPS rows {tops}")
+    wait = metrics.histogram("serve.decode.token_wait_us").summary()
+    # planted: a metrics hook that reads the device costs a sync a chunk
+    real = on._observe_decode
+
+    def reading_hook(*args):
+        real(*args)
+        engine_mod.to_host(next(iter(on.cache.values()))["attn"].length)
+    on._observe_decode = reading_hook
+    try:
+        planted = counted_serve(on, make_requests(cfg.vocab))
+    finally:
+        del on._observe_decode
+    check(planted["syncs"] != syncs,
+          "planted control (a metrics hook reading a device tensor) "
+          "passed the sync gate")
+    return {"host_syncs": off_run["syncs"],
+            "graphs": off.stats["graphs"], "pod_gemm_by_mainloop":
+            by_mainloop, "steady_passes": steady,
+            "steady_decode_ms_per_step": {
+                k: [f["decode_ms_per_step"] for f in v]
+                for k, v in steady.items()},
+            "effective_tops": tops,
+            "token_wait_us": {k: wait[k] for k in ("count", "p50", "p99")},
+            "decode_tok_s": metrics.value("serve.decode.tok_s"),
+            "planted_metrics_read_syncs": [planted["syncs"], syncs]}, \
+        tokens
+
+
+def chaos_paged(model, params, clean_dense: list) -> dict:
+    """The paged engine (flash prefill, a pool of half the dense pages),
+    edf, real clock: clean, then with transient faults that heal (tokens,
+    runners and graphs equal, nothing leaked), then with faults that
+    exhaust the retries (requests rejected device-fault, nothing leaked).
+    Planted: an engine whose call writes before the injector raises must
+    fail token equality (dense, against the default engine's tokens)."""
+    cfg = model.cfg
+    kw = dict(PAGED, admission="edf")
+    clean = ServeEngine(model, params, **kw)
+    clean_reqs = make_paged_requests(cfg.vocab)
+    serve(clean, clean_reqs)
+    check_drained("chaos clean", clean, clean_reqs)
+    eng = ServeEngine(model, params, chaos=ChaosConfig(**CHAOS),
+                      max_retries=3, **kw)
+    reqs = make_paged_requests(cfg.vocab)
+    wall = serve(eng, reqs)
+    check_drained("chaos", eng, reqs)
+    injected = dict(eng._chaos.injected)
+    check(injected["faults"] > 0, f"chaos: no fault injected {injected}")
+    check(all(r.state == "done" for r in reqs),
+          f"chaos: {[(r.rid, r.state, r.reason) for r in reqs]}")
+    check([r.out for r in reqs] == [r.out for r in clean_reqs],
+          "chaos: tokens differ from the chaos-free run")
+    runners = (eng.prefill_compiles, eng.decode_compiles,
+               eng.stats["graphs"])
+    clean_runners = (clean.prefill_compiles, clean.decode_compiles,
+                     clean.stats["graphs"])
+    check(runners == clean_runners,
+          f"chaos: runners and graphs {runners} != {clean_runners} clean")
+    del clean, eng
+    ex = ServeEngine(model, params, chaos=ChaosConfig(**CHAOS,
+                                                      transient_tries=5),
+                     max_retries=3, **kw)
+    ex_reqs = make_paged_requests(cfg.vocab)[:EXHAUSTED_REQUESTS]
+    serve(ex, ex_reqs)
+    check_drained("chaos exhausted", ex, ex_reqs)
+    rejected = [r for r in ex_reqs if r.state == "rejected"]
+    check(rejected and all(r.reason == "device-fault" for r in rejected),
+          f"chaos exhausted: {[(r.rid, r.state, r.reason) for r in ex_reqs]}")
+    exhausted = {"states": [(r.rid, r.state, r.reason) for r in ex_reqs],
+                 "injected": dict(ex._chaos.injected)}
+    del ex
+    planted = EarlyWriteEngine(model, params, chaos=ChaosConfig(**CHAOS),
+                               slots=SLOTS, max_len=MAX_LEN,
+                               decode_chunk=DECODE_CHUNK)
+    planted_reqs = make_requests(cfg.vocab)
+    serve(planted, planted_reqs)
+    check(planted._chaos.injected["faults"] > 0,
+          "planted early write: no fault injected")
+    check([r.out for r in planted_reqs] != clean_dense,
+          "planted control (writes before the injector raises) passed "
+          "token equality after retry")
+    return {"wall_s": wall, "injected": injected,
+            "runners_prefill_decode_graphs": runners,
+            "exhausted": exhausted,
+            "planted_early_write_unequal": [
+                r.rid for r, t in zip(planted_reqs, clean_dense)
+                if r.out != t]}
+
+
+def phase_serve_controls(model, flash_model, params) -> None:
+    t0 = time.perf_counter()
+    overload = overload_attainment(model, params)
+    t1 = time.perf_counter()
+    controls, tokens = controls_off_and_on(model, params)
+    t2 = time.perf_counter()
+    chaos = chaos_paged(flash_model, params, tokens)
+    t3 = time.perf_counter()
+    emit("serve_controls", gpu=gpu_name_and_power(),
+         overload=overload, controls_off_and_on=controls, chaos=chaos,
+         predictor_host_cost=predictor_host_cost(
+             model.cfg, make_requests(model.cfg.vocab)),
+         wall_s={"overload": t1 - t0, "controls": t2 - t1,
+                 "chaos": t3 - t2, "total": time.perf_counter() - t0})
+
+
+def phase_launch_serve() -> None:
+    """repro_torch.launch.serve in-process at reduced granite-8b, edf,
+    deadlines, chaos, metrics and a trace file: one span per device
+    call, and the run through the pod GEMM and flash kernels."""
+    from repro_torch.launch import serve as launch
+    path = _build.REPO_ROOT / "build" / "serve_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        launch.main(["--arch", "granite-8b", "--reduced", "--metrics",
+                     "--trace-out", str(path), "--policy", "edf",
+                     "--deadline", "5", "--chaos-seed", "1"])
+    launches = {"pod_gemm": KERNELS["nn"].launches,
+                "flash": fa.flash_attention_cuda.launches}
+    wall = time.perf_counter() - t0
+    check(launches["pod_gemm"] > 0 and launches["flash"] > 0,
+          f"launch_serve: the launcher ran no pod-GEMM or no flash kernel "
+          f"{launches}")
+    lines = out.getvalue().splitlines()
+    start = lines.index("metrics snapshot:") + 1
+    end = lines.index("}", start)
+    counters = json.loads("\n".join(lines[start:end + 1]))["counters"]
+    calls = counters.get("serve.decode.chunks", 0) + sum(
+        v for k, v in counters.items()
+        if k.startswith("serve.prefill.calls"))
+    spans = [e for e in json.loads(path.read_text())["traceEvents"]
+             if e["ph"] == "X"]
+    check(calls > 0 and len(spans) == calls,
+          f"launch_serve: {len(spans)} spans for {calls} device calls")
+    emit("launch_serve", wall_s=wall, spans=len(spans), device_calls=calls,
+         launches=launches, summary=lines[start - 3:start - 1])
+
+
+# --------------------------------------------------------------------------
 # 11. serve_ssm and 12. ssm_oracle
 # --------------------------------------------------------------------------
 
@@ -2822,6 +3175,10 @@ def main() -> int:
         paged, flash_by_mainloop = phase_serve_paged(flash_model, params)
         torch.cuda.synchronize()
         phase_paged_oracle(flash_model, params, paged)
+        torch.cuda.synchronize()
+        phase_serve_controls(model, flash_model, params)
+        torch.cuda.synchronize()
+        phase_launch_serve()
         torch.cuda.synchronize()
         del params
         torch.cuda.empty_cache()

@@ -1,5 +1,6 @@
-"""Batched serving engine (counterpart of repro/serve/engine.py with fifo
-admission, no deadlines, no guard, no chaos; paging optional).
+"""Batched serving engine (counterpart of repro/serve/engine.py with its
+serving controls: admission policies, deadlines, chaos with retries,
+metrics and the tracer; paging optional; no SDC guard yet).
 
 The engine owns a fixed decode batch of `slots` lanes; requests queue,
 prefill into free slots, and decode step-locked with the rest of the batch.
@@ -15,9 +16,10 @@ prefill into free slots, and decode step-locked with the rest of the batch.
     slots), so padding is inert there too.
   * Exact-length prefill, for the families whose prefill padding is not
     inert (`Model.bucketed_prefill_ok` False: MoE, where padding tokens
-    would take expert capacity from real ones): one request per prefill,
-    [1, S], into a fresh 1-lane cache that is then copied into its slot.
-    `bucketed` says which path an engine takes.
+    would take expert capacity from real ones) or with
+    prefill_buckets=False: one request per prefill, [1, S], into a fresh
+    1-lane cache that is then copied into its slot. `bucketed` says which
+    path an engine takes.
   * Fused decode: a chunk of n decode steps runs as a Python loop whose
     tokens, positions, budgets and alive masks stay on the device; nothing
     is read back inside the loop. A lane whose budget runs out keeps
@@ -46,13 +48,32 @@ prefill into free slots, and decode step-locked with the rest of the batch.
     allocates [slots, bucket] lanes, not [slots, max_len]. Each decode
     chunk maps the pages its appends reach and pushes the page table
     host->device when it changed. Every way a lane ends returns its pages
-    (_release_slot). In-chunk recycling (always on when paged) re-runs
+    (_release_slot). In-chunk recycling (on by default when paged) re-runs
     admission at the chunk's own sync, so a lane that died mid-chunk is
     handed to queued work without an idle chunk. Paging adds no host
     sync. SSM state and ring caches are fixed-size per lane and stay
     lane-resident: nothing of them is paged (paged_kv_stats reports them
     as resident_lane_bytes), and the transient's rings have the engine's
     width.
+
+Overload and failure (serve/admission.py, serve/chaos.py), as in the
+reference: every submitted request reaches exactly one terminal state,
+`done`, `rejected` or `expired`; malformed requests raise InvalidRequest
+at submit. `admission=` picks the policy (fifo, edf or slo-aware: deadline
+order, a bounded queue, the wave model's predicted misses shed, budgets
+degraded under overload); deadlines expire at the chunk's existing host
+sync. `chaos=` injects a seeded fault schedule at the device-call
+boundary (_device_call): a transient fault retries with exponential
+backoff on the engine's clock, and retries exhausted reject the call's
+requests `device-fault` with their slots and pages freed; an EWMA
+slow-chunk detector halves the next chunk while the device is slow.
+`metrics=` (obs.metrics) and `tracer=` (tenancy.ServeTraceRecorder) read
+only what the chunk's one packed read already brought back: they add no
+host sync, no runner and no graph. Spans, deadlines, backoff, the EWMAs
+and the slo-aware calibration read the injectable `clock=`; `stats` stays
+real wall seconds. With the defaults (fifo, unbounded queue, no deadlines,
+no chaos, no metrics, no tracer) tokens, host syncs and runners are those
+of the engine without controls.
 
 The caches are updated in place. A dead lane keeps decoding inertly to
 the end of its chunk; its KV or SSM state is overwritten by the lane's
@@ -74,23 +95,17 @@ from ..models.attention import KVCache, PagedKVCache, RingKVCache
 from ..models.model import Model
 from ..models.ssm import SSMCache
 from ..runtime import to_host
+from ..train.fault import Ewma
+from .admission import (AdmissionConfig, AdmissionController,  # noqa: F401
+                        InvalidRequest, NEW, SLO_AWARE, ServeStalled,
+                        WaveLatencyPredictor)
+from .chaos import (FaultInjector, NumericalFault, PermanentFault,
+                    SlowChunkDetector, TransientDeviceError,
+                    check_lanes_finite)
 from .graphs import GraphPool, StepRunner
 from .paging import PagePool
 
 MIN_BUCKET = 8          # smallest prefill bucket (the reference's default)
-
-
-class InvalidRequest(ValueError):
-    """A request that must never reach the hot loop; `.field` names the
-    offending Request attribute."""
-
-    def __init__(self, field: str, msg: str):
-        super().__init__(f"{field}: {msg}")
-        self.field = field
-
-
-class ServeStalled(RuntimeError):
-    """run_to_completion ran out of steps with work still pending."""
 
 
 @dataclasses.dataclass
@@ -100,30 +115,27 @@ class Request:
     max_new_tokens: int = 16
     out: list = dataclasses.field(default_factory=list)
     done: bool = False
-    # new -> queued -> running -> done | rejected
-    state: str = "new"
+    # QoS envelope (serve/admission.py): deadline is seconds from submit
+    # on the engine's clock; priority breaks deadline ties (lower = more
+    # urgent). state walks new -> queued -> running -> one terminal state
+    # (done | rejected | expired); reason says why a request was shed.
+    deadline_s: Optional[float] = None
+    priority: int = 0
+    state: str = NEW
     reason: str = ""
+    # stamped by the admission controller
+    _seq: int = dataclasses.field(default=0, repr=False)
+    _submit_t: float = dataclasses.field(default=0.0, repr=False)
+    _admit_t: float = dataclasses.field(default=0.0, repr=False)
+    _deadline: Optional[float] = dataclasses.field(default=None, repr=False)
+    # runners built (prefill + decode) at admit time: a retire whose epoch
+    # grew saw a warm-up (and, on the card, a graph capture) inside its
+    # service wall, so its calibration sample is skipped
+    _jit_epoch: int = dataclasses.field(default=-1, repr=False)
 
-
-def validate(req: Request, max_len: int) -> None:
-    if len(req.prompt) == 0:
-        raise InvalidRequest("prompt", "empty prompt")
-    if len(req.prompt) > max_len:
-        raise InvalidRequest("prompt", f"prompt length {len(req.prompt)} "
-                                       f"exceeds max_len {max_len}")
-    if req.max_new_tokens <= 0:
-        raise InvalidRequest("max_new_tokens", f"token budget must be > 0, "
-                                               f"got {req.max_new_tokens}")
-
-
-def finish(req: Request) -> None:
-    req.done = True
-    req.state = "done"
-
-
-def reject(req: Request, reason: str) -> None:
-    req.state = "rejected"
-    req.reason = reason
+    @property
+    def finished(self) -> bool:
+        return self.state in ("done", "rejected", "expired")
 
 
 def _fix_lengths(cache: dict, true_lens: torch.Tensor) -> None:
@@ -249,25 +261,42 @@ def _decode_body(model: Model, params, cache: dict, eos_id: Optional[int],
 class ServeEngine:
     def __init__(self, model: Model, params, slots: int = 4,
                  max_len: int = 512, eos_id: Optional[int] = None,
-                 decode_chunk: int = 8, paged: bool = False,
-                 page_size: int = 16, kv_pages: Optional[int] = None,
-                 eager: bool = False):
-        """eager=True runs the step runners eagerly on the card too (no
-        CUDA graphs): the run a graphed one is held against. On the CPU
-        every runner runs eagerly either way."""
+                 tracer=None, decode_chunk: int = 8,
+                 prefill_buckets: bool = True,
+                 metrics=None, admission=None, chaos=None, clock=None,
+                 max_retries: int = 3, backoff_s: float = 1e-3,
+                 paged: bool = False, page_size: int = 16,
+                 kv_pages: Optional[int] = None, eager: bool = False):
+        """The reference's arguments and defaults (no src_len, no guard,
+        no min_bucket or recycle: MIN_BUCKET is fixed and lanes recycle
+        inside a chunk exactly when paged).
+        eager=True runs the step runners eagerly on the card too (no CUDA
+        graphs): the run a graphed one is held against. On the CPU every
+        runner runs eagerly either way."""
         self.model = model
         self.params = params
         self.slots = slots
         self.max_len = max_len
         self.eos_id = eos_id
+        # optional duck-typed event sink (tenancy.ServeTraceRecorder): gets
+        # on_prefill(rid, prompt_len) / on_decode(lanes, contexts) in the
+        # engine's step-locked order, and (if it defines on_span) one timed
+        # span per device call for the Perfetto export (obs/export.py)
+        self.tracer = tracer
+        # optional obs.metrics.MetricsRegistry, fed host values the engine
+        # already has at each sync
+        self.metrics = metrics
         self.decode_chunk = max(1, decode_chunk)
         self.device = model.device
-        self.bucketed = model.bucketed_prefill_ok
+        self.bucketed = bool(prefill_buckets) and model.bucketed_prefill_ok
         # paged=True swaps every KVCache for a PagedKVCache over a shared
-        # kv_pages-page pool (init_cache refuses it for the families that
-        # prefill exact-length); paged=False keeps the engine as it was
+        # kv_pages-page pool; paged=False keeps the engine as it was
         self._pool: Optional[PagePool] = None
         if paged:
+            if not self.bucketed:
+                raise ValueError(
+                    "paged serving requires the bucketed prefill path "
+                    "(dense/ssm/hybrid families with prefill_buckets=True)")
             if kv_pages is None:
                 # the default pool covers the dense worst case exactly;
                 # size it down to oversubscribe (admission queues on pages)
@@ -298,24 +327,175 @@ class ServeEngine:
         # host-side tallies: device calls, forwards and their wall seconds
         # (each call ends in its host sync, so the wall covers the device).
         # A call that warmed a runner up and captured its graph counts as a
-        # call, its wall goes to capture_s (and its steps to capture_*)
+        # call, its wall goes to capture_s (and its steps to capture_*).
+        # Real wall seconds, whatever clock the controls read.
         self.stats = {"bucketed": self.bucketed, "prefill_calls": 0,
                       "prefill_s": 0.0, "chunks": 0, "decode_steps": 0,
                       "decode_s": 0.0, "graphs": 0, "capture_s": 0.0,
                       "capture_prefills": 0, "capture_steps": 0}
+        # injectable clock (serve/chaos.VirtualClock in tests): spans,
+        # deadlines, backoff and the EWMAs read it, so failure scenarios
+        # replay deterministically
+        self._clock = clock if clock is not None else time.perf_counter
+        # admission policy: None/str/AdmissionConfig -> controller. The
+        # default AdmissionConfig() (fifo, unbounded queue, no deadlines)
+        # leaves the engine's decisions as they were without controls.
+        if admission is None:
+            admission = AdmissionConfig()
+        elif isinstance(admission, str):
+            admission = AdmissionConfig(policy=admission)
+        if isinstance(admission, AdmissionConfig):
+            predictor = None
+            if admission.policy == SLO_AWARE:
+                predictor = WaveLatencyPredictor(
+                    model.cfg, admission.design, admission.tdp,
+                    faulty_pods=admission.faulty_pods)
+            admission = AdmissionController(
+                admission, slots=slots, max_len=max_len,
+                predictor=predictor, metrics=metrics)
+        self.admission: AdmissionController = admission
+        if self._pool is not None:
+            # paged admission: free pages gate it; the controller rejects
+            # can-never-fit requests at submit and (slo-aware) sheds on
+            # predicted page exhaustion
+            self.admission.attach_pool(self._pool)
+        # chaos: a ChaosConfig arms the seeded fault injector plus the
+        # EWMA slow-chunk detector; None leaves every call a plain call.
+        # Its p_sdc acts only through the SDC guard, which is not ported.
+        if chaos is not None and not isinstance(chaos, FaultInjector):
+            chaos = FaultInjector(chaos, clock=clock)
+        self._chaos: Optional[FaultInjector] = chaos
+        self._slow_detect = SlowChunkDetector() if chaos is not None \
+            else None
+        self._chunk_cap: Optional[int] = None
+        self.max_retries = max(0, int(max_retries))
+        self.backoff_s = float(backoff_s)
+        # measured decode seconds per token (engine clock): the
+        # deadline-aware chunk sizing reads it
+        self._sec_per_tok = Ewma(alpha=0.3)
+        self._t0 = self._clock()
+
+    # -- fault boundary -------------------------------------------------
+    def _sleep(self, seconds: float) -> None:
+        if seconds <= 0:
+            return
+        if hasattr(self._clock, "sleep"):
+            self._clock.sleep(seconds)        # virtual time: no blocking
+        else:
+            time.sleep(seconds)
+
+    def _device_call(self, kind: str, fn):
+        """Run one device call through the fault boundary: the chaos
+        injector may stall or raise per its seeded schedule; transient
+        errors retry with exponential backoff up to `max_retries`, then
+        escalate to PermanentFault. The injector raises in before(kind),
+        ahead of fn(), and fn() makes the call's runner (if new), copies
+        its host inputs into the runner's static buffers and runs it: a
+        failed attempt has written nothing, so a retry re-copies the same
+        inputs into the same runner (no new runner, no new graph). With
+        chaos disarmed this is a plain call."""
+        if self._chaos is None:
+            return fn()
+        attempt = 0
+        while True:
+            try:
+                self._chaos.before(kind)
+                return fn()
+            except TransientDeviceError as err:
+                attempt += 1
+                if self.metrics is not None:
+                    self.metrics.counter("serve.chaos.retries",
+                                         kind=kind).inc()
+                if attempt > self.max_retries:
+                    raise PermanentFault(
+                        f"{kind} device call failed after {attempt} "
+                        f"attempts: {err}") from err
+                self._sleep(self.backoff_s * (2 ** (attempt - 1)))
+
+    def _reject_group(self, reqs: list, reason: str) -> None:
+        for r in reqs:
+            self.admission.reject(r, reason)
+        if self.metrics is not None:
+            self.metrics.counter("serve.chaos.permanent_faults").inc()
+
+    def _shed_non_finite(self, pairs: list, where: str) -> None:
+        """Finalize lanes whose logits went NaN/Inf: recompute would give
+        the same poison, so there is no retry; each request ends
+        ``rejected`` (``non-finite-logits``) and everyone else keeps
+        serving."""
+        try:
+            check_lanes_finite([(lane, True) for _, lane in pairs], where)
+        except NumericalFault:
+            for r, _ in pairs:
+                self.admission.reject(r, "non-finite-logits")
+            if self.metrics is not None:
+                self.metrics.counter("serve.numerical_faults",
+                                     where=where).inc(len(pairs))
+
+    # -- telemetry ------------------------------------------------------
+    def _span(self, name: str, cat: str, t_start: float, t_end: float,
+              **args) -> None:
+        """Emit a timed span to the tracer (engine-relative clock); no-op
+        unless the tracer understands spans (on_span)."""
+        if self.tracer is not None and hasattr(self.tracer, "on_span"):
+            self.tracer.on_span(name, ts=t_start - self._t0,
+                                dur=t_end - t_start, cat=cat, **args)
+
+    def _observe_prefill(self, path: str, tokens: int, lanes: int,
+                         seconds: float) -> None:
+        m = self.metrics
+        if m is None:
+            return
+        m.counter("serve.prefill.calls", path=path).inc()
+        m.counter("serve.prefill.tokens").inc(tokens)
+        m.counter("serve.prefill.seconds").inc(seconds)
+        m.histogram("serve.prefill.us").record(seconds * 1e6)
+        m.gauge("serve.prefill.lanes").set(lanes)
+        m.gauge("serve.queue_depth").set(len(self.queue))
+
+    def _observe_decode(self, n: int, lanes: int, emitted: int,
+                        live_end: int, seconds: float) -> None:
+        m = self.metrics
+        if m is None:
+            return
+        m.counter("serve.decode.chunks").inc()
+        m.counter("serve.decode.tokens").inc(emitted)
+        m.counter("serve.decode.seconds").inc(seconds)
+        m.histogram("serve.decode.chunk_len").record(n)
+        m.gauge("serve.slot_occupancy").set(lanes / self.slots)
+        m.gauge("serve.decode.live_lanes_end").set(live_end)
+        m.gauge("serve.queue_depth").set(len(self.queue))
+        if emitted:
+            # every token delivered at this chunk's host sync waited the
+            # chunk's full wall time
+            m.histogram("serve.decode.token_wait_us").record(
+                seconds * 1e6, n=emitted)
+        tok = m.counter("serve.decode.tokens").value
+        sec = m.counter("serve.decode.seconds").value
+        if sec > 0:
+            m.gauge("serve.decode.tok_s").set(tok / sec)
+
+    def _observe_paged(self) -> None:
+        m, pool = self.metrics, self._pool
+        if m is None or pool is None:
+            return
+        m.gauge("serve.paged.occupancy").set(pool.occupancy)
+        m.gauge("serve.paged.pages_in_use").set(pool.pages_in_use)
+        m.gauge("serve.paged.reserved_pages").set(pool.reserved_pages)
+        chunks = m.counter("serve.decode.chunks").value
+        if chunks:
+            m.gauge("serve.paged.recycle_rate").set(self.recycled / chunks)
 
     # -- request flow --------------------------------------------------
     def submit(self, req: Request) -> None:
-        validate(req, self.max_len)
-        req.state = "queued"
-        if self._pool is not None and self._pool.worst_pages(
-                len(req.prompt), self._clamped_budget(req)) > \
-                self._pool.n_pages:
-            # larger than the entire page pool: no amount of waiting lets
-            # this request reserve, so it fails at the door
-            reject(req, "pages-exhausted")
-            return
-        self.queue.append(req)
+        """Validate + enqueue. Raises InvalidRequest (typed, names the
+        offending field) for malformed requests; the admission policy may
+        shed instead (request ends ``rejected``: ``queue-full``,
+        ``shed-predicted-miss`` or, paged, ``pages-exhausted``)."""
+        if self.admission.on_submit(self.queue, req, self._clock()):
+            self.queue.append(req)
+        if self.metrics is not None:
+            self.metrics.gauge("serve.queue_depth").set(len(self.queue))
 
     def _free_slots(self) -> list[int]:
         return [i for i, r in enumerate(self.active) if r is None]
@@ -341,13 +521,21 @@ class ServeEngine:
         log2(decode_chunk) + 1."""
         return len(self._decode_runners)
 
+    def _jit_sizes(self) -> int:
+        """Runners built, prefill and decode: the counterpart of the
+        reference's jit cache sizes, the compile epoch of the slo-aware
+        calibration (a service interval that saw a runner's warm-up, and
+        on the card its graph capture, is not a clean sample). Exact-length
+        prefill builds no runner, as its reference jit is not counted."""
+        return len(self._prefill_runners) + len(self._decode_runners)
+
     def graph_pool_bytes(self) -> int:
         """Device bytes the engine's graph pool holds (0 without graphs)."""
         return 0 if self._graphs is None else self._graphs.held_bytes()
 
     def _run(self, runner: StepRunner, **feed) -> tuple:
         """One step through `runner`, read back in the call's ONE host
-        sync: (host array, wall seconds, whether it warmed up and
+        sync: (host array, real wall seconds, whether it warmed up and
         captured)."""
         captured = runner.captures
         t_start = time.perf_counter()
@@ -407,6 +595,10 @@ class ServeEngine:
         return min(b, self.max_len)
 
     def _admit(self) -> None:
+        # queue sweep first: expire queued-past-deadline, shed predicted
+        # misses (slo-aware), and order the queue per policy. Pure host
+        # work; a fifo queue with no deadlines passes through untouched.
+        self.admission.sweep(self.queue, self._clock())
         while self.queue:
             free = self._free_slots()
             if not free:
@@ -442,6 +634,17 @@ class ServeEngine:
                 return
             self._prefill_group(take, free[: len(take)], b)
 
+    def _activate(self, req: Request, slot: int, now: float) -> None:
+        """A prefilled request takes its slot: position, (possibly
+        degraded) budget, the admission stamps and its compile epoch."""
+        self.active[slot] = req
+        self.positions[slot] = len(req.prompt)
+        self.budgets[slot] = self.admission.clamp_budget(
+            req, self._clamped_budget(req), len(self.queue))
+        self.admission.note_admitted(req, now)
+        req._jit_epoch = self._jit_sizes()
+        self._retire_if_full(slot)
+
     # -- bucketed prefill ------------------------------------------------
     def _prefill_group(self, reqs: list[Request], slot_list: list[int],
                        bucket: int) -> None:
@@ -467,24 +670,45 @@ class ServeEngine:
                 dest[g, :len(own)] = own
             feed["dest"] = dest
         self._buckets_seen.add(bucket)
-        first, seconds, captured = self._run(self._prefill_runner(bucket),
-                                             **feed)     # the ONE host sync
+        t_start = self._clock()
+        try:
+            first, seconds, captured = self._device_call(
+                "prefill", lambda: self._run(self._prefill_runner(bucket),
+                                             **feed))   # the ONE host sync
+        except PermanentFault:
+            # the call never ran: shed the group (terminal `rejected`);
+            # its slots stay free and its pages return to the pool
+            self._reject_group(reqs, "device-fault")
+            self._release_group(slot_list, len(reqs))
+            return
+        t_end = self._clock()
         self.stats["prefill_calls"] += 1
         if captured:
             self.stats["capture_prefills"] += 1
         else:
             self.stats["prefill_s"] += seconds
+        if self.tracer is not None:
+            for r in reqs:       # successful work only enters the trace
+                self.tracer.on_prefill(r.rid, len(r.prompt),
+                                       t=t_start - self._t0)
+        n_tokens = int(sum(len(r.prompt) for r in reqs))
+        self._span(f"prefill/bucket{bucket}", "prefill", t_start, t_end,
+                   bucket=bucket, lanes=len(reqs), tokens=n_tokens,
+                   rids=[r.rid for r in reqs])
+        self._observe_prefill("bucketed", n_tokens, len(reqs),
+                              t_end - t_start)
+        # a lane whose last-position logits are not finite came back as a
+        # -1 first token: shed it before its slot is activated
+        poisoned = [(r, s) for g, (r, s) in enumerate(zip(reqs, slot_list))
+                    if first[g] < 0]
+        if poisoned:
+            self._shed_non_finite(poisoned, where="prefill")
+            for _, s in poisoned:        # never activated: free its pages
+                self._release_slot(s)
         for g, (r, s) in enumerate(zip(reqs, slot_list)):
-            if first[g] < 0:      # non-finite last-position logits
-                reject(r, "non-finite-logits")
-                self._release_slot(s)        # never activated: free pages
-                continue
-            r.out.append(int(first[g]))
-            r.state = "running"
-            self.active[s] = r
-            self.positions[s] = len(r.prompt)
-            self.budgets[s] = self._clamped_budget(r)
-            self._retire_if_full(s)
+            if first[g] >= 0:
+                r.out.append(int(first[g]))
+                self._activate(r, s, t_end)
 
     # -- exact-length prefill -------------------------------------------
     def _prefill_into(self, slot: int, req: Request) -> None:
@@ -492,30 +716,41 @@ class ServeEngine:
         that lane into `slot`. The first token and its finiteness come back
         in one host read; a non-finite one rejects the request and leaves
         the slot untouched."""
-        t_start = time.perf_counter()
-        self._buckets_seen.add(len(req.prompt))
+        S = len(req.prompt)
+        self._buckets_seen.add(S)
+        t_start = self._clock()
         lane_cache = self.model.init_cache(1, self.max_len)
         tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                  device=self.device)[None, :]
-        logits, lane_cache = self.model.prefill(self.params,
-                                                {"tokens": tokens},
-                                                lane_cache)
-        last = logits[0]
-        first = torch.where(torch.isfinite(last).all(), torch.argmax(last),
-                            -1)
-        first = int(to_host(first))                      # the ONE host sync
+
+        def call():
+            wall0 = time.perf_counter()
+            logits, lane = self.model.prefill(self.params,
+                                              {"tokens": tokens}, lane_cache)
+            last = logits[0]
+            first = torch.where(torch.isfinite(last).all(),
+                                torch.argmax(last), -1)
+            first = int(to_host(first))                  # the ONE host sync
+            return first, lane, time.perf_counter() - wall0
+        try:
+            first, lane_cache, seconds = self._device_call("prefill", call)
+        except PermanentFault:
+            self._reject_group([req], "device-fault")
+            return
         self.stats["prefill_calls"] += 1
-        self.stats["prefill_s"] += time.perf_counter() - t_start
+        self.stats["prefill_s"] += seconds
         if first < 0:
-            reject(req, "non-finite-logits")
+            self._shed_non_finite([(req, slot)], where="prefill")
             return
         _write_lane(self.cache, lane_cache, slot)
         req.out.append(first)
-        req.state = "running"
-        self.active[slot] = req
-        self.positions[slot] = len(req.prompt)
-        self.budgets[slot] = self._clamped_budget(req)
-        self._retire_if_full(slot)
+        t_end = self._clock()
+        if self.tracer is not None:
+            self.tracer.on_prefill(req.rid, S, t=t_start - self._t0)
+        self._span(f"prefill/exact{S}", "prefill", t_start, t_end,
+                   bucket=S, lanes=1, tokens=S, rids=[req.rid])
+        self._observe_prefill("exact", S, 1, t_end - t_start)
+        self._activate(req, slot, t_end)
 
     def _clamped_budget(self, req: Request) -> int:
         """Decode steps this request may take, clamped so that the lane
@@ -526,15 +761,21 @@ class ServeEngine:
     def _retire_if_full(self, slot: int) -> None:
         """A prompt that fills the cache retires with its prefill token."""
         if self.positions[slot] >= self.max_len:
-            finish(self.active[slot])
+            self.admission.finish(self.active[slot], now=self._clock())
             self._release_slot(slot)
 
     def _release_slot(self, i: int) -> None:
         """Clear a lane AND return its pages: the one retirement path for
-        every way a lane can end, so no path leaks a page."""
+        every way a lane can end (finish, expiry, shed, device fault), so
+        no path leaks a page."""
         if self._pool is not None:
-            self._pool.release(i)
+            self._pool.release(i, now=self._clock())
         self.active[i] = None
+
+    def _release_group(self, slot_list: list[int], n: int) -> None:
+        if self._pool is not None:
+            for s in slot_list[:n]:
+                self._pool.release(s, now=self._clock())
 
     # -- fused decode loop ------------------------------------------------
     def _chunk_len(self, live: list[int]) -> int:
@@ -544,7 +785,25 @@ class ServeEngine:
         need = min(rem) if self.queue else max(rem)
         room = min(int(self.max_len - self.positions[i]) for i in live)
         n = max(1, min(self.decode_chunk, need, max(1, room)))
-        return 1 << (n.bit_length() - 1)          # pow2 floor
+        if self._chunk_cap is not None:
+            # slow-chunk mitigation (chaos armed + detector flagged):
+            # shorter chunks while the device is slow, so deadline checks
+            # and admission come around sooner
+            n = min(n, self._chunk_cap)
+        deadlines = [self.active[i]._deadline for i in live
+                     if self.active[i]._deadline is not None]
+        spt = self._sec_per_tok.value
+        if deadlines and spt is not None and spt > 0:
+            # deadline-aware sizing: no chunk so long that the earliest
+            # deadline passes between host syncs (lanes without deadlines
+            # leave the chunk as it was)
+            slack = min(deadlines) - self._clock()
+            if slack <= 0:
+                n = 1                 # sync asap; expiry reclaims the lane
+            else:
+                n = max(1, min(n, int(slack / spt)))
+        # pow2 floor: <= log2(decode_chunk)+1 decode runners
+        return 1 << (n.bit_length() - 1)
 
     def step(self) -> int:
         """One scheduling quantum: admission, then one fused decode chunk.
@@ -571,9 +830,23 @@ class ServeEngine:
         for i in live:
             toks[i] = self.active[i].out[-1]
             alive0[i] = True
-        packed, seconds, captured = self._run(
-            self._decode_runner(n), toks=toks, pos=self.positions,
-            bud=self.budgets, alive=alive0)             # the ONE host sync
+        pos0 = self.positions.copy()
+        t_start = self._clock()
+        try:
+            packed, seconds, captured = self._device_call(
+                "decode", lambda: self._run(
+                    self._decode_runner(n), toks=toks, pos=pos0,
+                    bud=self.budgets, alive=alive0))    # the ONE host sync
+        except PermanentFault:
+            # the chunk never ran (the injector raises before the call):
+            # caches and positions are untouched. Shed the live lanes and
+            # free their slots so queued work keeps flowing.
+            self._reject_group([self.active[i] for i in live],
+                               "device-fault")
+            for i in live:
+                self._release_slot(i)
+            return len(live)
+        t_end = self._clock()
         self.stats["chunks"] += 1
         self.stats["decode_steps"] += n
         if captured:
@@ -583,7 +856,30 @@ class ServeEngine:
         k = n * self.slots
         seq = packed[:k].reshape(n, self.slots)
         emits = packed[k:2 * k].reshape(n, self.slots).astype(bool)
+        emitted, live_end = int(packed[2 * k]), int(packed[2 * k + 1])
         bad = packed[2 * k + 2:]
+        self._span(f"decode/chunk{n}", "decode", t_start, t_end,
+                   steps=n, lanes=len(live), tokens=emitted,
+                   live_end=live_end)
+        self._observe_decode(n, len(live), emitted, live_end,
+                             t_end - t_start)
+        if emitted > 0 and t_end > t_start:
+            self._sec_per_tok.observe((t_end - t_start) / emitted)
+            if self._slow_detect is not None:
+                # a flagged slow streak halves the next chunk; a healthy
+                # chunk lifts the cap again
+                flagged = self._slow_detect.observe(
+                    (t_end - t_start) / emitted)
+                self._chunk_cap = max(1, n // 2) if flagged else None
+        if self.tracer is not None:                   # step-locked replay
+            dt_step = (t_end - t_start) / n
+            for s in range(n):
+                lanes = [i for i in live if emits[s, i]]
+                if lanes:
+                    self.tracer.on_decode(
+                        len(lanes), [int(pos0[i]) + s for i in lanes],
+                        t=(t_start - self._t0) + s * dt_step)
+        jit_now = self._jit_sizes()
         for i in live:
             r = self.active[i]
             cnt = int(emits[:, i].sum())
@@ -593,13 +889,32 @@ class ServeEngine:
             hit_eos = (self.eos_id is not None and cnt > 0
                        and int(seq[cnt - 1, i]) == self.eos_id)
             if self.budgets[i] <= 0 or hit_eos:
-                finish(r)
+                if (self.admission.predictor is not None
+                        and jit_now == r._jit_epoch):
+                    # calibration: measured service time against the wave
+                    # model's prediction for the tokens the request
+                    # produced; skipped when a runner was built during its
+                    # service (the wall then holds a warm-up or capture)
+                    self.admission.observe_service(
+                        self.admission.predictor.model_seconds(
+                            len(r.prompt), max(1, len(r.out))),
+                        t_end - r._admit_t)
+                self.admission.finish(r, now=t_end)
                 self._release_slot(i)
-            elif bad[i]:
-                # logits went NaN/Inf: the lane stopped emitting at that
-                # step; tokens emitted before it are kept
-                reject(r, "non-finite-logits")
+        # non-finite lanes: a poisoned lane stopped emitting at the bad
+        # step, so it cannot have finished above; tokens emitted before it
+        # are kept
+        poisoned = [(self.active[i], i) for i in live
+                    if self.active[i] is not None and bad[i]]
+        if poisoned:
+            self._shed_non_finite(poisoned, where="decode")
+            for _, i in poisoned:
                 self._release_slot(i)
+        # deadlines at the chunk's existing host sync: completion above
+        # wins over expiry in the same chunk
+        for i in self.admission.expired_lanes(self.active, t_end):
+            self.admission.expire(self.active[i], "deadline-exceeded")
+            self._release_slot(i)
         if self.recycle and self.queue and \
                 any(r is None for r in self.active):
             # in-chunk lane recycling: a lane that died inside THIS chunk
@@ -609,6 +924,7 @@ class ServeEngine:
             self._admit()
             self.recycled += max(
                 0, sum(r is not None for r in self.active) - occupied)
+        self._observe_paged()
         return len(live)
 
     def paged_kv_stats(self) -> dict:
@@ -650,14 +966,16 @@ class ServeEngine:
         }
 
     def run_to_completion(self, max_steps: int = 10_000) -> None:
-        """Drive the engine until queue and slots drain; raises
-        ServeStalled if max_steps quanta pass with work pending."""
+        """Drive the engine until queue and slots drain. Raises
+        ServeStalled (naming the stuck request ids and states) if
+        max_steps quanta pass with work still pending."""
         for _ in range(max_steps):
             if not self.queue and not any(self.active):
                 return
             self.step()
-        if self.queue or any(self.active):
-            pending = [r.rid for r in self.queue] + \
-                [r.rid for r in self.active if r is not None]
-            raise ServeStalled(f"requests {pending} still pending after "
-                               f"{max_steps} steps")
+        if not self.queue and not any(self.active):
+            return
+        pending = {r.rid: r.state for r in self.queue}
+        pending.update({r.rid: r.state
+                        for r in self.active if r is not None})
+        raise ServeStalled(pending, max_steps)

@@ -1,7 +1,5 @@
 """Host-side page allocator for the paged KV cache (a copy of
-repro/serve/paging.py without the release-rate EWMA and
-`estimated_wait_s`, which only the reference's slo-aware page-exhaustion
-shed reads; that shed is not ported).
+repro/serve/paging.py; the sentinel maps to a scratch page here).
 
 The device half lives in ``models.attention.PagedKVCache`` (the pool
 tensors + the page table the device reads). This module owns every allocation
@@ -24,7 +22,11 @@ page exhaustion is an admission-time event, not a decode-time one.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
+
+from ..train.fault import Ewma
 
 
 class PageLeak(RuntimeError):
@@ -59,6 +61,11 @@ class PagePool:
         self._dirty = True          # device table needs a (re)push
         self.allocated_total = 0
         self.freed_total = 0
+        # pages-freed-per-second EWMA, fed by release() timestamps; the
+        # slo-aware page-exhaustion shed uses it to estimate how long a
+        # queued request would wait for its reservation.
+        self._free_rate = Ewma(alpha=0.3)
+        self._last_release_t: Optional[float] = None
 
     # -- introspection -----------------------------------------------------
     @property
@@ -129,16 +136,31 @@ class PagePool:
             self._dirty = True
         return grew
 
-    def release(self, slot: int) -> None:
+    def release(self, slot: int, now: Optional[float] = None) -> None:
         """Return all of `slot`'s pages to the free list and drop its
         reservation. Safe to call on an empty slot (no-op)."""
         own = self._owned[slot]
         if own:
+            freed = len(own)
             self._free.extend(reversed(own))
-            self.freed_total += len(own)
+            self.freed_total += freed
             own.clear()
             self._dirty = True
+            if now is not None:
+                if (self._last_release_t is not None
+                        and now > self._last_release_t):
+                    self._free_rate.observe(
+                        freed / (now - self._last_release_t))
+                self._last_release_t = now
         self._reserved[slot] = 0
+
+    def estimated_wait_s(self, pages: int) -> Optional[float]:
+        """Rough seconds until `pages` more pages free up, from the
+        release-rate EWMA; None before any rate sample exists."""
+        rate = self._free_rate.value
+        if rate is None or rate <= 0:
+            return None
+        return pages / rate
 
     # -- device table ------------------------------------------------------
     def table(self) -> np.ndarray:

@@ -1,5 +1,7 @@
 """Reference serving engine: the per-token oracle (counterpart of
-repro/serve/reference.py, fifo admission).
+repro/serve/reference.py, fifo admission through the same
+AdmissionController as ServeEngine: validation at submit and the terminal
+states).
 
 One exact-length prefill per request (for a sliding-window ring cache:
 the last window of the prompt rolled into its slots) and one host read
@@ -13,6 +15,7 @@ sync as the token, so a comparison can tell a near tie from a fault.
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -20,8 +23,8 @@ import torch
 
 from ..models.model import Model
 from ..runtime import to_host
-from .engine import (Request, ServeStalled, _write_lane, finish, reject,
-                     validate)
+from .admission import AdmissionConfig, AdmissionController, ServeStalled
+from .engine import Request, _write_lane
 
 
 def _pick(logits: torch.Tensor) -> torch.Tensor:
@@ -52,11 +55,12 @@ class ReferenceEngine:
         self.budgets = np.zeros(slots, np.int64)
         self.queue: list[Request] = []
         self.margins: dict[int, list[tuple[float, float]]] = {}
+        self.admission = AdmissionController(AdmissionConfig(), slots=slots,
+                                             max_len=max_len)
 
     def submit(self, req: Request) -> None:
-        validate(req, self.max_len)
-        req.state = "queued"
-        self.queue.append(req)
+        if self.admission.on_submit(self.queue, req, time.perf_counter()):
+            self.queue.append(req)
 
     def _free_slot(self) -> Optional[int]:
         for i, r in enumerate(self.active):
@@ -81,18 +85,18 @@ class ReferenceEngine:
                                                 lane_cache)
         tok, fin, margin, top = to_host(_pick(logits))[0]
         if not fin:
-            reject(req, "non-finite-logits")
+            self.admission.reject(req, "non-finite-logits")
             return
         _write_lane(self.cache, lane_cache, slot)
         req.out.append(int(tok))
         self.margins[req.rid] = [(float(margin), float(top))]
-        req.state = "running"
+        self.admission.note_admitted(req, time.perf_counter())
         self.active[slot] = req
         self.positions[slot] = S
         self.budgets[slot] = min(req.max_new_tokens - 1,
                                  max(0, self.max_len - S))
         if S >= self.max_len:
-            finish(req)
+            self.admission.finish(req)
             self.active[slot] = None
 
     def step(self) -> int:
@@ -112,7 +116,7 @@ class ReferenceEngine:
             r = self.active[i]
             tok, fin, margin, top = picked[i]
             if not fin:
-                reject(r, "non-finite-logits")
+                self.admission.reject(r, "non-finite-logits")
                 self.active[i] = None
                 continue
             r.out.append(int(tok))
@@ -121,7 +125,7 @@ class ReferenceEngine:
             self.budgets[i] -= 1
             if self.budgets[i] <= 0 or (self.eos_id is not None
                                         and int(tok) == self.eos_id):
-                finish(r)
+                self.admission.finish(r)
                 self.active[i] = None
         return len(live)
 
@@ -131,7 +135,7 @@ class ReferenceEngine:
                 return
             self.step()
         if self.queue or any(self.active):
-            pending = [r.rid for r in self.queue] + \
-                [r.rid for r in self.active if r is not None]
-            raise ServeStalled(f"requests {pending} still pending after "
-                               f"{max_steps} steps")
+            pending = {r.rid: r.state for r in self.queue}
+            pending.update({r.rid: r.state
+                            for r in self.active if r is not None})
+            raise ServeStalled(pending, max_steps)
