@@ -24,7 +24,13 @@ Phases, one JSON line each; any failure exits non-zero:
                granite's q and dbrx's k and in the NT form at mamba2's
                head; and in the grouped form at dbrx's up projection (G =
                16) at M = 399, 320, 129 and 65, all on wgmma. hymba-1.5b's
-               ragged head (N = 32001, wmma) at M = 4 and 1024.
+               ragged head (N = 32001, wmma) at M = 4 and 1024. Then
+               (kernel_dense_archs) minitron-8b's up with relu2 in the
+               epilogue at M = 4 and 8192 and nemotron-4-340b's decode
+               GEMMs at M = 4 (q, k/v, o, up with relu2, down, the
+               256000-row head), bf16 and f32 out within their
+               tolerances, each timed beside its plain version,
+               torch.matmul with the activation and its bound.
   3. gemm_nt - the same for the transposed-weight kernel (w [N, K], the
                tied LM head), with mamba2's head [4, 1024] x [50280, 1024]^T
                among the shapes (a 104-column ragged tail) and its NT
@@ -50,7 +56,9 @@ Phases, one JSON line each; any failure exits non-zero:
                late KV tiles only (a stale K tile, PV summed in bf16) must
                fail that tolerance. A prompt's rows must be bit-equal
                prefilled alone ([1, S]) and in a [4, 2S] bucket, at
-               granite's and dbrx's heads.
+               granite's and dbrx's heads. nemotron-4-340b's heads (96
+               over 8, D 192) at [4, 2048] on the mma mainloop, against
+               both plain versions, timed beside SDPA.
   5. ssd     - the SSD chunk-scan kernel against the Pallas kernel's own
                arithmetic (ssd_kernel_ref) at about one bf16 ulp and
                against the reference (ssd_ref, bf16 state) at its stated
@@ -206,7 +214,59 @@ Phases, one JSON line each; any failure exits non-zero:
                trace file under build/): it returns, it launched the
                pod GEMM and flash kernels, and the trace file holds one
                span per device call.
- 19. kernels - each kernel's time at the served shapes beside its bound,
+ 19. guard   - run after phase 18 on granite-8b's weights at full width:
+               the 253 pod GEMMs of a decode step and of a [4, 256]
+               forward under the SDC guard off, probe and abft (the
+               guarded GEMM: the raw kernel, on wmma at abft's ragged
+               [M+1, K] x [K, N+1], then the verdict and the epilogue in
+               torch ops), each against the plain version, timed with L2
+               flushed, with its launches by mainloop and torch.matmul on
+               the augmented operands; an element planted at a known
+               (row, col) located there and repaired within
+               gemm_bf16_f32out. Engines on the serve requests under a
+               VirtualClock (benchmarks/serving.py's SDC parameters):
+               guard "off" equal to phase 7's engine (tokens, host reads,
+               runners, graphs, launches, syncs); clean abft and probe
+               runs (syncs, chunks and graphs equal to off; capture_s,
+               graph pool bytes); abft with ChaosConfig(seed=7, p_sdc=0.5,
+               sdc_elems=1, transient_tries=1): injected, corrected, none
+               uncorrectable, nothing leaked, tokens equal to the clean
+               abft run's (a difference only under the margin rule,
+               listed); two elements a hit heal through retries, and a
+               planted verdict that ignores uncorrected output must fail
+               that token equality; p_sdc 0.9, two elements,
+               transient_tries 10, max_retries 1: sdc-uncorrectable
+               rejections and nothing leaked, dense and paged. Second
+               passes in turns (off, abft, abft, off, then probe) give
+               decode ms/step; one abft decode chunk is profiled. Probe
+               with single elements on granite's k (N = 1024) heals to
+               the clean probe run's tokens; on q (N = 4096) fewer hits
+               are detected than made, as the reference's tolerance says
+               (ROADMAP queue 3). One engine a mode serves every gate,
+               re-armed (a fresh clock, injector and guard events), and
+               no gate captures a graph.
+ 20. guard_ssm - run after phase 12 on mamba2-370m's weights (phase 11's
+               engine configuration; its one guarded GEMM is the tied
+               head, N = 50280): abft with two-element hits (p_sdc 0.6,
+               replayed once): decode chunks that fail the guard are
+               retried after the SSM state, conv window and lengths they
+               advanced are restored, and the tokens equal the clean abft
+               run's; a planted engine without the restore must fail
+               that. probe with single elements is reported: at N =
+               50280 its tolerance lies above any lone element.
+ 21. dense_archs - run after phase 16: yi-6b and minitron-8b at full
+               width and depth, nemotron-4-340b at full width cut to 4 of
+               96 layers (46.5 GB of weights), each as Model(
+               attention_impl="pallas", use_pallas=True) on the serve
+               requests, bucketed prefill and graphed decode: every
+               request done, (7 or 6) x layers + 1 pod-GEMM launches per
+               forward on splitk or wgmma, one flash launch per layer a
+               prefill (wgmma at D 128, mma at nemotron's 192), one host
+               sync per call, relu2 (minitron, nemotron) or SiLU (yi) in
+               one epilogue a layer; a second pass's figures, one
+               profiled decode chunk, the oracle's margin rule at
+               ORACLE_LAYERS layers of the same weights.
+ 22. kernels - each kernel's time at the served shapes beside its bound,
                its plain version and one PyTorch call (a yardstick only);
                the pod GEMM at granite-8b's, dbrx-132b's and hymba-1.5b's
                shapes (hymba's head on wmma at M = 4 and 8192), flash
@@ -218,7 +278,11 @@ Phases, one JSON line each; any failure exits non-zero:
                2048] on its mainloop with the serial mainloop timed beside
                it and hymba's [4, 2048] on serial, the grouped experts' up
                and down at M = 320; launches by mainloop from the served
-               runs (hymba's under "hybrid" in each entry).
+               runs (hymba's under "hybrid" in each entry); the pod GEMM's
+               entry adds granite's GEMMs under the guard ("guard": a
+               forward under off, probe and abft, launches by mainloop)
+               and the dense archs' shapes and served launches
+               ("dense_archs"), flash's nemotron's row.
 
 The last lines are the card's name and power limit, the kernels line, and
 {"ok": true, "device": {...}}.
@@ -257,6 +321,8 @@ from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd import ssd as ssd_mod  # noqa: E402
 from repro_torch.kernels.ssd.ref import (  # noqa: E402
     CHUNKED_FAULTS, ssd_chunked_ref, ssd_kernel_ref, ssd_ref)
+from repro_torch.kernels.systolic_gemm import guard as guard_mod  # noqa: E402
+from repro_torch.kernels.systolic_gemm import ops as sg_ops  # noqa: E402
 from repro_torch.kernels.systolic_gemm import systolic_gemm as sg  # noqa: E402
 from repro_torch.kernels.systolic_gemm.ref import (  # noqa: E402
     epilogue_ref, grouped_systolic_gemm_ref, splitk_partials, systolic_gemm_ref,
@@ -413,7 +479,7 @@ SPLITK_CONTROL_SHAPES = {"nn": [(4, 4096, 4096), (4, 4096, 49152)],
                          "nt": [(4, 1024, 50280), (4, 4104, 1032)]}
 
 
-def phase_kernel() -> None:
+def phase_kernel() -> dict:
     """A ragged small case, granite-8b's shapes, and dbrx-132b's q/o, k/v
     and untied head at decode (M = 4 lanes) and at its longest served
     exact-length prefill (M = 1277 rows, a prime); the mainloop edges of
@@ -427,6 +493,81 @@ def phase_kernel() -> None:
                transposed=False, seed=1)
     splitk_controls("nn", seed=14)
     rows_independent_of_m(seed=15)
+    dense = dense_arch_gemms(seed=23)
+    emit("kernel_dense_archs", **dense)
+    check(not dense["failures"],
+          f"{len(dense['failures'])} dense-arch GEMM checks failed")
+    return dense
+
+
+# the dense archs' served GEMMs (bf16, out bf16 as served): minitron-8b's
+# up with relu2 in the epilogue at decode and at a [4, 2048] prefill, and
+# nemotron-4-340b's at decode (its v as its k)
+DENSE_ARCH_GEMMS = [
+    ("minitron-8b", "up", SLOTS, 4096, 16384, "relu2"),
+    ("minitron-8b", "up", SLOTS * 2048, 4096, 16384, "relu2"),
+    ("nemotron-4-340b", "q", SLOTS, 18432, 18432, None),
+    ("nemotron-4-340b", "k", SLOTS, 18432, 1536, None),
+    ("nemotron-4-340b", "o", SLOTS, 18432, 18432, None),
+    ("nemotron-4-340b", "up", SLOTS, 18432, 73728, "relu2"),
+    ("nemotron-4-340b", "down", SLOTS, 73728, 18432, None),
+    ("nemotron-4-340b", "head", SLOTS, 18432, 256000, None),
+]
+
+
+def dense_arch_gemms(seed: int) -> dict:
+    """DENSE_ARCH_GEMMS on the pod GEMM against its plain version, bf16
+    out (gemm_bf16out) and f32 out (gemm_bf16_f32out), each timed with L2
+    flushed beside its plain version, torch.matmul with the same
+    activation, and its bound; nemotron's decode step summed over its 4
+    served layers and head."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    rows, failures = [], []
+    for arch, name, M, K, N, act in DENSE_ARCH_GEMMS:
+        x, w = gemm_inputs(M, K, N, torch.bfloat16, g)
+        row = {"arch": arch, "gemm": name, "M": M, "K": K, "N": N,
+               "activation": act,
+               "plan": list(sg.nn_plan(M, N, K, torch.bfloat16, True))}
+        for out_dtype, tol_name in ((torch.bfloat16, "gemm_bf16out"),
+                                    (torch.float32, "gemm_bf16_f32out")):
+            got = sg.systolic_gemm_cuda(x, w, activation=act,
+                                        out_dtype=out_dtype)
+            ref = systolic_gemm_ref(x, w, activation=act,
+                                    out_dtype=out_dtype)
+            tol = TOLERANCES[tol_name]
+            excess = tol.excess(got, ref)
+            row[f"excess_{tol_name}"] = excess
+            row["max_abs_err"] = max(row.get("max_abs_err", 0.0), float(
+                (got.double() - ref.double()).abs().max()))
+            if not excess <= 1.0:
+                failures.append(f"{arch} {name} {M}x{K}x{N} {tol_name} "
+                                f"excess {excess}")
+            del got, ref
+
+        def library(x=x, w=w, act=act):
+            y = torch.matmul(x, w)
+            return torch.square(torch.relu(y)) if act == "relu2" else y
+        iters = 10 if M <= 64 else 3
+        row["ms"] = time_ms(lambda: sg.systolic_gemm_cuda(
+            x, w, activation=act, out_dtype=torch.bfloat16), iters, flush)
+        row["plain_ms"] = time_ms(lambda: systolic_gemm_ref(
+            x, w, activation=act, out_dtype=torch.bfloat16), 2, flush)
+        row["library_ms"] = time_ms(library, iters, flush)
+        row["bound_ms"], row["bound_by"] = bound(
+            2 * M * N * K, 2 * (M * K + K * N + M * N))
+        rows.append(row)
+        del x, w
+    nem = {r["gemm"]: r for r in rows if r["arch"] == "nemotron-4-340b"}
+    layers = dict(DENSE_ARCHS)["nemotron-4-340b"]
+    per_layer = {"q": 1, "k": 2, "o": 1, "up": 1, "down": 1}
+    decode = {key: layers * sum(n * nem[g][key] for g, n in
+                                per_layer.items()) + nem["head"][key]
+              for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {"rows": rows, "nemotron_decode_step": {
+        "n_layers": layers, "gemms": 6 * layers + 1, **decode},
+        "failures": failures}
+
 
 
 def last_split_dropped(x, w, splits: int) -> torch.Tensor:
@@ -773,7 +914,7 @@ def plain_masked(q, k, v, ok, kv_head):
     return torch.einsum("bhqk,bkhd->bqhd", p, v[:, :, kv_head]).to(q.dtype)
 
 
-def phase_flash() -> None:
+def phase_flash() -> dict:
     """Every case is read before any verdict. The kernel's `excess` must
     stay at or below 1 in each class; each control's must exceed 1 in every
     case where it differs from the right mask (causal cases for the
@@ -856,11 +997,19 @@ def phase_flash() -> None:
     rows = flash_rows_alone_and_bucketed(g)
     failures += [f"rows differ alone and in a bucket: {r}" for r in rows
                  if not r["equal"]]
-    emit("flash", cases=cases + 1, by_mainloop=by_mainloop, worst=worst,
+    # nemotron-4-340b's prefill heads (96 over 8, D 192) at a [4, 2048]
+    # bucket: the mma mainloop, against both plain versions and SDPA
+    nemotron = flash_row(SLOTS, 2048, 96, 8, 192, 5, g, torch.empty(
+        64 * 2 ** 20, dtype=torch.int32, device="cuda"))
+    if nemotron["mainloop"] != "mma":
+        failures.append(f"nemotron's D = 192 ran {nemotron['mainloop']}")
+    emit("flash", cases=cases + 2, by_mainloop=by_mainloop, worst=worst,
          control=control, served_shape=served, rows_alone_vs_bucket=rows,
+         nemotron=nemotron,
          tolerances={k: [t.rtol, t.atol] for k, t in TOLERANCES.items()
                      if k.startswith("flash")}, failures=failures)
     check(not failures, f"{len(failures)} flash checks failed")
+    return nemotron
 
 
 # --------------------------------------------------------------------------
@@ -1656,6 +1805,11 @@ def phase_serve(model, params):
     check(syncs == st["prefill_calls"] + st["chunks"],
           f"host syncs {syncs} != prefill groups + decode chunks")
     generated = sum(len(r.out) for r in reqs)
+    # what the guard phase's guard="off" engine must equal (a first pass)
+    base = {"tokens": [r.out for r in reqs], "reads": run["reads"],
+            "syncs": syncs, "launches": run["launches"],
+            "graphs": st["graphs"], "runners": (eng.prefill_compiles,
+                                                eng.decode_compiles)}
     pair = graphed_vs_eager("serve", model, params, eng, run, reqs,
                             make_requests, kw)
     emit("serve", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
@@ -1668,7 +1822,7 @@ def phase_serve(model, params):
          host_syncs=syncs, pod_gemm_launches=launches,
          pod_gemm_by_mainloop=by_mainloop,
          launches_per_forward=per_forward)
-    return reqs, launches, by_mainloop
+    return reqs, launches, by_mainloop, base
 
 
 def first_differences(served, oracle, ref: ReferenceEngine) -> list[dict]:
@@ -1720,6 +1874,31 @@ def cut_depth(model, params, n_layers: int):
     return cut_model, cut
 
 
+def cut_oracle(model, params, label: str) -> list[dict]:
+    """The margin rule at ORACLE_LAYERS: the first layers of the same
+    full-width weights served by a ServeEngine and by the per-token
+    ReferenceEngine on the serve requests; every request whose tokens
+    differ must do so after a near tie of the oracle. Returns those
+    first differences."""
+    tol = TOLERANCES["token_margin"]
+    cut_model, cut_params = cut_depth(model, params, ORACLE_LAYERS)
+    cut_served = make_requests(model.cfg.vocab)
+    serve(ServeEngine(cut_model, cut_params, slots=SLOTS, max_len=MAX_LEN,
+                      decode_chunk=DECODE_CHUNK), cut_served)
+    cut_reqs = make_requests(model.cfg.vocab)
+    cut_ref = ReferenceEngine(cut_model, cut_params, slots=SLOTS,
+                              max_len=MAX_LEN)
+    serve(cut_ref, cut_reqs)
+    cut = first_differences(cut_served, cut_reqs, cut_ref)
+    for d in cut:
+        check(d["margin"] <= tol.atol * d["max_abs_logit"],
+              f"{label} {ORACLE_LAYERS}-layer cut: request {d['rid']} "
+              f"differs at token {d['step']} with oracle margin "
+              f"{d['margin']} > {tol.atol} x max|logit| "
+              f"{d['max_abs_logit']}")
+    return cut
+
+
 def phase_oracle(model, params, served: list[Request]) -> None:
     """Engine vs per-token oracle. With random weights, 36 layers amplify a
     last-bit difference into different logits (tests/test_torch_model.py
@@ -1731,15 +1910,7 @@ def phase_oracle(model, params, served: list[Request]) -> None:
     ref = ReferenceEngine(model, params, slots=SLOTS, max_len=MAX_LEN)
     wall = serve(ref, reqs)
     full = first_differences(served, reqs, ref)
-    cut_model, cut_params = cut_depth(model, params, ORACLE_LAYERS)
-    cut_served = make_requests(model.cfg.vocab)
-    serve(ServeEngine(cut_model, cut_params, slots=SLOTS, max_len=MAX_LEN,
-                      decode_chunk=DECODE_CHUNK), cut_served)
-    cut_reqs = make_requests(model.cfg.vocab)
-    cut_ref = ReferenceEngine(cut_model, cut_params, slots=SLOTS,
-                              max_len=MAX_LEN)
-    serve(cut_ref, cut_reqs)
-    cut = first_differences(cut_served, cut_reqs, cut_ref)
+    cut = cut_oracle(model, params, "oracle")
     emit("oracle", requests=len(reqs), oracle_wall_s=wall,
          full_depth={"n_layers": model.cfg.n_layers,
                      "token_exact": len(reqs) - len(full),
@@ -1748,11 +1919,6 @@ def phase_oracle(model, params, served: list[Request]) -> None:
                     "token_exact": len(reqs) - len(cut),
                     "first_differences": cut},
          margin_tolerance=f"{tol.atol} x max|logit|")
-    for d in cut:
-        check(d["margin"] <= tol.atol * d["max_abs_logit"],
-              f"{ORACLE_LAYERS}-layer cut: request {d['rid']} differs at "
-              f"token {d['step']} with oracle margin {d['margin']} > "
-              f"{tol.atol} x max|logit| {d['max_abs_logit']}")
 
 
 # --------------------------------------------------------------------------
@@ -2664,7 +2830,570 @@ def phase_serve_hybrid(model, params):
 
 
 # --------------------------------------------------------------------------
-# 17. kernels line
+# 19. guard, 20. guard_ssm and 21. dense_archs
+# --------------------------------------------------------------------------
+
+GUARD_MODES = ("off", "probe", "abft")
+# benchmarks/serving.py's SDC run: seed 7, one element a hit, a corrupt
+# site replayed once, three retries; p_sdc per gate
+GUARD_SDC = dict(seed=7, sdc_elems=1, transient_tries=1)
+GUARD_EXHAUSTED = dict(seed=7, p_sdc=0.9, sdc_elems=2, transient_tries=10)
+# The probe's tolerance (the reference's freivalds_detect) is rtol (max|c|
+# + 1) sqrt(N), and a lone element moved by delta dominates max|c|: it is
+# caught only where rtol sqrt(N) is under about 1, N < 4096 at rtol 1/64
+# (tests/test_torch_guard.py). Granite's GEMM 0 (q, N = 4096) is past
+# that, and a hit there passes unless its element was negative enough;
+# GEMM 1 (k, N = 1024) is inside it.
+PROBE_BLIND_TARGET, PROBE_TARGET = 0, 1
+
+
+def guarded_call(mode: str, x, w, act):
+    """One pod GEMM of the served model (bf16 out) under `mode`: the plain
+    kernel call for off, the guarded GEMM otherwise."""
+    if mode == "off":
+        return sg.systolic_gemm_cuda(x, w, activation=act,
+                                     out_dtype=torch.bfloat16)
+    return guard_mod.guarded_gemm(x, w, guard=guard_mod.PodGuard(mode=mode),
+                                  activation=act, out_dtype=torch.bfloat16)
+
+
+def guard_gemm_rows(cfg, phases, seed: int) -> dict:
+    """The pod GEMMs of one granite-8b forward at each (phase, M, iters)
+    under off, probe and abft: each checked against the plain version
+    (gemm_bf16out), timed with L2 flushed, its launches by mainloop, and
+    torch.matmul on the same augmented operands beside abft; sums over a
+    forward (each projection once a layer, the head once)."""
+    shapes = forward_gemms(cfg)
+    g = torch.Generator("cuda").manual_seed(seed)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    rows = []
+    totals = {ph: {m: 0.0 for m in GUARD_MODES + ("library_aug",)}
+              for ph, _, _ in phases}
+    by_mainloop = {ph: {m: dict.fromkeys(sg.MAINLOOPS, 0)
+                        for m in GUARD_MODES} for ph, _, _ in phases}
+    for phase, M, iters in phases:
+        for name, (K, N, act) in shapes.items():
+            x, w = gemm_inputs(M, K, N, torch.bfloat16, g)
+            ref = systolic_gemm_ref(x, w, activation=act,
+                                    out_dtype=torch.bfloat16)
+            per_forward = 1 if name == "head" else cfg.n_layers
+            row = {"gemm": name, "phase": phase, "M": M, "K": K, "N": N,
+                   "activation": act}
+            for mode in GUARD_MODES:
+                before = dict(sg.systolic_gemm_cuda.mainloop_launches)
+                got = guarded_call(mode, x, w, act)
+                torch.cuda.synchronize()
+                launched = {k: v - before[k] for k, v in
+                            sg.systolic_gemm_cuda.mainloop_launches.items()
+                            if v != before[k]}
+                check(TOLERANCES["gemm_bf16out"].ok(got, ref),
+                      f"guard {mode} {phase} {name}: disagrees with plain "
+                      f"(max_abs_err "
+                      f"{float((got.double() - ref.double()).abs().max())})")
+                del got
+                for k, v in launched.items():
+                    by_mainloop[phase][mode][k] += per_forward * v
+                row[mode] = {"ms": time_ms(lambda: guarded_call(
+                    mode, x, w, act), iters, flush), "mainloops": launched}
+                totals[phase][mode] += per_forward * row[mode]["ms"]
+            xa, wa = guard_mod.augment_x(x), guard_mod.augment_w(w)
+            row["library_aug_ms"] = time_ms(lambda: torch.matmul(xa, wa),
+                                            iters, flush)
+            totals[phase]["library_aug"] += per_forward * row[
+                "library_aug_ms"]
+            row["abft_bound_ms"], row["abft_bound_by"] = bound(
+                2 * (M + 1) * (N + 1) * K,
+                2 * ((M + 1) * K + K * (N + 1)) + 4 * (M + 1) * (N + 1))
+            rows.append(row)
+            del x, w, xa, wa, ref
+    check(all(by_mainloop[ph]["abft"]["wmma"] > 0 for ph in by_mainloop),
+          f"abft's augmented GEMMs did not run wmma: {by_mainloop}")
+    return {"rows": rows, "forward_ms": totals, "by_mainloop": by_mainloop,
+            "per_forward": (len(shapes) - 1) * cfg.n_layers + 1}
+
+
+def guard_planted_element(seed: int) -> dict:
+    """One guarded GEMM at granite's head (M = 4): an element planted at a
+    known (row, col) of the raw augmented output is located there and
+    repaired within gemm_bf16_f32out of the plain version; the same through
+    the injection plan at the element its hash names."""
+    M, K, N = SLOTS, 4096, 49152
+    g = torch.Generator("cuda").manual_seed(seed)
+    x, w = gemm_inputs(M, K, N, torch.bfloat16, g)
+    plain = systolic_gemm_ref(x, w)
+    tol = TOLERANCES["gemm_bf16_f32out"]
+    c_aug = sg.systolic_gemm_cuda(guard_mod.augment_x(x),
+                                  guard_mod.augment_w(w))
+    r, c = 2, 31337
+    c_aug[r, c] += 1e4
+    out, rep = guard_mod.abft_verify(c_aug, x, w, rtol=1.0 / 64)
+    got = {k: int(v) for k, v in rep.items()}
+    check(got == {"detected": 1, "corrected": 1, "uncorrected": 0,
+                  "row": r, "col": c},
+          f"guard: planted element at {(r, c)} reported {got}")
+    element = tol.excess(out[r:r + 1, c:c + 1], plain[r:r + 1, c:c + 1])
+    check(element <= 1.0 and tol.ok(out, plain),
+          f"guard: repaired element excess {element}, block "
+          f"{tol.excess(out, plain)}")
+    plan = torch.tensor([0, 12345, 1], device="cuda")
+    draws = guard_mod.sdc_draws(plan[1])
+    r0, c0 = int(draws[0]) % M, int(draws[1]) % N
+    guard = guard_mod.PodGuard(mode="abft")
+    with guard_mod.GuardTape(guard, inject=plan) as tape:
+        hit = guard_mod.guarded_gemm(x, w, guard=guard)
+    totals = [int(t) for t in tape.totals()]
+    check(totals == [1, 0] and tol.ok(hit, plain),
+          f"guard: injected element at {(r0, c0)}: totals {totals}, excess "
+          f"{tol.excess(hit, plain)}")
+    return {"shape": [M, K, N], "planted_at": [r, c], "report": got,
+            "repaired": float(out[r, c]), "plain": float(plain[r, c]),
+            "element_excess": element,
+            "max_abs_err": float((out - plain).abs().max()),
+            "injected_at": [r0, c0], "injected_totals": totals,
+            "injected_excess": tol.excess(hit, plain)}
+
+
+def guard_margin(model, params, req: Request, step: int, guard) -> dict:
+    """The top-1 minus top-2 logit of the guarded model before token
+    `step` of req.out, teacher-forced at exact length (the margin rule
+    for a differing token)."""
+    seq = np.concatenate([req.prompt, np.asarray(req.out[:step])])
+    toks = torch.as_tensor(seq, device="cuda")[None]
+    with guard_mod.GuardTape(guard_mod.as_guard(guard)):
+        logits, _ = model.forward(params, {"tokens": toks})
+    last = logits[0, -1].float()
+    top2 = torch.topk(last, 2).values
+    return {"rid": req.rid, "step": step,
+            "margin": float(top2[0] - top2[1]),
+            "max_abs_logit": float(last.abs().max())}
+
+
+def tokens_under_margin(label: str, model, params, got: list[Request],
+                        clean: list[Request], guard) -> list[dict]:
+    """Tokens equal to the clean run's, or differing only after a near tie
+    of the clean run's guarded model; the differences are returned."""
+    tol = TOLERANCES["token_margin"]
+    diffs = []
+    for a, b in zip(got, clean):
+        if a.out != b.out:
+            j = next((i for i, (x, y) in enumerate(zip(a.out, b.out))
+                      if x != y), min(len(a.out), len(b.out)))
+            d = guard_margin(model, params, b, j, guard)
+            diffs.append(d)
+            check(d["margin"] <= tol.atol * d["max_abs_logit"],
+                  f"{label}: request {a.rid} differs at token {j} with "
+                  f"margin {d['margin']} > {tol.atol} x max|logit| "
+                  f"{d['max_abs_logit']}")
+    return diffs
+
+
+def rearm(eng, chaos: dict | None = None, max_retries: int = 3,
+          metrics=None):
+    """`eng` restarted (ServeEngine.restart) on a fresh VirtualClock with
+    ChaosConfig(**chaos): a new run on the runners and graphs it has, so
+    a gate does not capture them again."""
+    eng.restart(metrics=metrics, clock=VirtualClock(),
+                chaos=ChaosConfig(**chaos) if chaos is not None else None,
+                max_retries=max_retries)
+    return eng
+
+
+class IgnoresUncorrected(ServeEngine):
+    """Planted control: a guarded call's uncorrected output is served as
+    if it were clean."""
+
+    def _verdict(self, kind, flags):
+        return int(flags[0])
+
+
+class NoRestore(ServeEngine):
+    """Planted control: a retried decode chunk starts from the state the
+    failed attempt left (the SSM state stepped, the lengths advanced)."""
+
+    def _restore_decode_state(self):
+        pass
+
+
+def gate_run(out: dict, phase: str, label: str, eng, reqs) -> dict:
+    """Serve reqs on eng (counted_serve); every request must end and
+    nothing stay held. out[label] gets the run's figures: requests done,
+    end states, syncs, graphs captured, chunks and prefill calls in this
+    run, guard events, the injector's counts and the pod GEMM's launches
+    by mainloop."""
+    st0 = dict(eng.stats)
+    run = counted_serve(eng, reqs)
+    check_drained(f"{phase} {label}", eng, reqs)
+    st = {k: eng.stats[k] - st0[k] for k in ("graphs", "chunks",
+                                              "prefill_calls")}
+    out[label] = {
+        "requests_done": sum(r.state == "done" for r in reqs),
+        "states": sorted({(r.state, r.reason) for r in reqs}),
+        "syncs": run["syncs"], "graphs_captured": st["graphs"],
+        "chunks": st["chunks"], "prefill_calls": st["prefill_calls"],
+        "guard_events": dict(eng.guard_events),
+        "injected": (dict(eng._chaos.injected)
+                     if eng._chaos is not None else None),
+        "pod_gemm_by_mainloop": run["launches"]["pod_gemm"]["by_mainloop"],
+        "nt_by_mainloop": run["launches"]["gemm_nt"]["by_mainloop"]}
+    return run
+
+
+def guard_engines(model, params, base: dict) -> dict:
+    """The engine gates on full-width granite-8b and the serve requests
+    (benchmarks/serving.py's SDC parameters, VirtualClock), and the decode
+    figures under each mode. One engine a mode; each gate restarts it
+    (rearm), and a gate's graphs must be its clean run's (none captured).
+    The planted control is an engine of its own (IgnoresUncorrected)."""
+    cfg = model.cfg
+    kw = dict(slots=SLOTS, max_len=MAX_LEN, decode_chunk=DECODE_CHUNK)
+    out = {}
+
+    def run_engine(label, eng):
+        reqs = make_requests(cfg.vocab)
+        return reqs, gate_run(out, f"guard {label}", label, eng, reqs)
+
+    def retries(metrics):
+        return sum(metrics.counter("serve.chaos.retries", kind=k).value
+                   for k in ("prefill", "decode"))
+
+    # 1. off equals the serve phase's engine
+    off = ServeEngine(model, params, guard="off", **kw)
+    off_reqs, off_run = run_engine("off", off)
+    got = {"tokens": [r.out for r in off_reqs], "syncs": off_run["syncs"],
+           "launches": off_run["launches"], "graphs": off.stats["graphs"],
+           "runners": (off.prefill_compiles, off.decode_compiles)}
+    for key, value in got.items():
+        check(value == base[key],
+              f"guard off: {key} {value} != the serve phase's {base[key]}")
+    check(len(off_run["reads"]) == len(base["reads"]) and all(
+        np.array_equal(a, b) for a, b in zip(off_run["reads"],
+                                             base["reads"])),
+          "guard off: host reads differ from the serve phase's")
+    # the clean guarded runs every gate is held to
+    clean = {}
+    engines = {"off": off}
+    for mode in ("abft", "probe"):
+        eng = ServeEngine(model, params, guard=mode, clock=VirtualClock(),
+                          **kw)
+        reqs, run = run_engine(f"{mode}_clean", eng)
+        check(run["syncs"] == off_run["syncs"] and
+              eng.stats["chunks"] == off.stats["chunks"] and
+              eng.stats["graphs"] == off.stats["graphs"],
+              f"guard {mode}: syncs {run['syncs']}, chunks "
+              f"{eng.stats['chunks']}, graphs {eng.stats['graphs']} != "
+              f"off's {off_run['syncs']}, {off.stats['chunks']}, "
+              f"{off.stats['graphs']}")
+        out[f"{mode}_clean"].update(
+            capture_s=eng.stats["capture_s"],
+            graph_pool_bytes=eng.graph_pool_bytes(),
+            syncs_per_call=run["syncs"] / (eng.stats["chunks"] +
+                                           eng.stats["prefill_calls"]),
+            tokens_equal_off=[r.out for r in reqs] == got["tokens"])
+        clean[mode] = [r.out for r in reqs]
+        engines[mode] = eng
+    abft, probe = engines["abft"], engines["probe"]
+    # 2. abft corrects single elements
+    metrics = MetricsRegistry()
+    reqs, _ = run_engine("abft_sdc", rearm(
+        abft, dict(GUARD_SDC, p_sdc=0.5), metrics=metrics))
+    ev, inj = abft.guard_events, abft._chaos.injected
+    check(inj["sdc"] > 0 and ev["corrected"] > 0 and
+          ev["uncorrectable"] == 0 and all(r.state == "done" for r in reqs),
+          f"guard abft sdc: injected {inj}, events {ev}")
+    clean_reqs = make_requests(cfg.vocab)
+    for r, toks in zip(clean_reqs, clean["abft"]):
+        r.out = toks
+    out["abft_sdc"]["differences"] = tokens_under_margin(
+        "guard abft sdc", model, params, reqs, clean_reqs, "abft")
+    out["abft_sdc"]["serve.guard.corrected"] = metrics.counter(
+        "serve.guard.corrected").value
+    # 2b. two elements a hit heal by retry; the planted verdict that
+    # ignores uncorrected output must not
+    two = dict(GUARD_SDC, sdc_elems=2, p_sdc=0.5)
+    planted = IgnoresUncorrected(model, params, guard="abft", **kw)
+    for label, eng in (("abft_sdc2", abft),
+                       ("planted_ignored_verdict", planted)):
+        reqs, _ = run_engine(label, rearm(eng, two))
+        out[label]["tokens_equal_clean"] = [r.out for r in reqs] == \
+            clean["abft"]
+    del planted, eng
+    check(out["abft_sdc2"]["tokens_equal_clean"] and
+          out["abft_sdc2"]["guard_events"]["uncorrectable"] == 0,
+          f"guard abft two elements: {out['abft_sdc2']}")
+    check(not out["planted_ignored_verdict"]["tokens_equal_clean"],
+          "planted control (uncorrected verdicts ignored) passed token "
+          "equality with the clean abft run")
+    # 3. probe heals through retries where its tolerance lies under a
+    # lone element (k); at q it lies above, so hits pass undetected, as
+    # the reference's tolerance says: fewer retries than hits
+    for label, target in (("probe_sdc", PROBE_TARGET),
+                          ("probe_sdc_blind", PROBE_BLIND_TARGET)):
+        metrics = MetricsRegistry()
+        reqs, _ = run_engine(label, rearm(
+            probe, dict(GUARD_SDC, p_sdc=0.6, sdc_target=target),
+            metrics=metrics))
+        out[label].update(sdc_target=target, retries=retries(metrics),
+                          tokens_equal_clean=[r.out for r in reqs] ==
+                          clean["probe"])
+    check(out["probe_sdc"]["injected"]["sdc"] > 0 and
+          out["probe_sdc"]["retries"] == out["probe_sdc"]["injected"]["sdc"]
+          and out["probe_sdc"]["guard_events"]["uncorrectable"] == 0 and
+          out["probe_sdc"]["tokens_equal_clean"],
+          f"guard probe sdc: {out['probe_sdc']}")
+    check(out["probe_sdc_blind"]["retries"] <
+          out["probe_sdc_blind"]["injected"]["sdc"],
+          f"guard probe at q (N = 4096): every hit detected, against the "
+          f"reference's tolerance {out['probe_sdc_blind']}")
+    # 4. retries exhausted, dense (the abft engine) and paged
+    paged = ServeEngine(model, params, guard="abft", paged=True,
+                        page_size=16, clock=VirtualClock(), **kw)
+    for label, eng in (("exhausted_dense", abft),
+                       ("exhausted_paged", paged)):
+        metrics = MetricsRegistry()
+        reqs, _ = run_engine(label, rearm(eng, GUARD_EXHAUSTED,
+                                          max_retries=1, metrics=metrics))
+        rejected = [r for r in reqs if r.reason == "sdc-uncorrectable"]
+        check(rejected and eng.guard_events["uncorrectable"] > 0 and
+              metrics.counter("serve.chaos.sdc_uncorrectable").value ==
+              eng.guard_events["uncorrectable"],
+              f"guard {label}: {out[label]}")
+    del paged
+    for label in out:
+        if label not in ("off", "abft_clean", "probe_clean",
+                         "planted_ignored_verdict", "exhausted_paged"):
+            check(out[label]["graphs_captured"] == 0,
+                  f"guard {label}: a re-armed engine captured "
+                  f"{out[label]['graphs_captured']} graphs")
+    # decode ms/step in turns, clean second passes: off, abft, abft, off;
+    # probe; one profiled abft decode chunk
+    turns = []
+    for mode in ("off", "abft", "abft", "off", "probe"):
+        eng = rearm(engines[mode])
+        st0 = dict(eng.stats)
+        again = make_requests(cfg.vocab)
+        run2 = counted_serve(eng, again)
+        fig = pass_figures(eng, run2, again, st0)
+        check(fig["graphs"] == 0 and [r.out for r in again] == (
+            clean[mode] if mode != "off" else got["tokens"]),
+              f"guard {mode}: a second pass captured {fig['graphs']} graphs "
+              f"or changed tokens")
+        turns.append({"mode": mode, **{k: fig[k] for k in (
+            "decode_ms_per_step", "prefill_ms_per_call", "tokens_per_s",
+            "host_syncs", "decode_chunks", "prefill_calls")}})
+    out["second_passes_in_turns"] = turns
+    label = "guard-abft"
+    out["abft_decode_chunk_profile"] = profile_decode_chunk(
+        rearm(abft), cfg.vocab, label)
+    out["abft_decode_chunk_profile"]["top_kernels"] = top_kernels(label)
+    del engines, off, abft, probe
+    return out
+
+
+def top_kernels(label: str, n: int = 8) -> list[dict]:
+    """The n kernels of a profile_decode_chunk trace with the most device
+    time: name, launches and ms summed."""
+    path = _build.REPO_ROOT / "build" / "profiles" / f"{label}.json"
+    by: dict[str, list] = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            row = by.setdefault(e["name"][:120], [0, 0.0])
+            row[0] += 1
+            row[1] += float(e.get("dur", 0.0)) / 1e3
+    rows = sorted(by.items(), key=lambda kv: -kv[1][1])[:n]
+    return [{"kernel": k, "launches": c, "ms": ms} for k, (c, ms) in rows]
+
+
+def phase_guard(model, params, base: dict) -> dict:
+    """granite-8b at full width under the SDC guard: kernel level (the 253
+    GEMMs of a decode step and of a [4, 256] forward under off, probe and
+    abft; a planted element), then the engine gates."""
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    kernel = guard_gemm_rows(model.cfg, (("decode", SLOTS, 10),
+                                         ("prefill", SLOTS * 256, 3)),
+                             seed=21)
+    planted = guard_planted_element(seed=22)
+    t1 = time.perf_counter()
+    engines = guard_engines(model, params, base)
+    emit("guard", gpu=gpu_name_and_power(), kernel=kernel,
+         planted_element=planted, engines=engines,
+         wall_s={"kernel": t1 - t0, "engines": time.perf_counter() - t1})
+    return {"by_mainloop": kernel["by_mainloop"],
+            "forward_ms": kernel["forward_ms"],
+            "per_forward": kernel["per_forward"],
+            "served_abft_by_mainloop": engines["abft_clean"][
+                "pod_gemm_by_mainloop"],
+            "served_probe_by_mainloop": engines["probe_clean"][
+                "pod_gemm_by_mainloop"]}
+
+
+def phase_guard_ssm(model, params) -> None:
+    """mamba2-370m (the serve_ssm engine's configuration) with SDC on its
+    one guarded GEMM, the tied head (N = 50280): decode chunks that fail
+    the guard are retried after the restore of the SSM state, conv window
+    and lengths they advanced, so the tokens are the clean run's; the
+    planted engine without the restore must fail that. The probe's
+    tolerance at N = 50280 lies above any lone element (PROBE_TARGET's
+    comment), so the retries come from abft's uncorrectable two-element
+    hits (replayed once); probe with single elements is run and
+    reported: its hits pass undetected. One engine a mode, restarted; the
+    planted control is an engine of its own (NoRestore)."""
+    cfg = model.cfg
+    two = dict(GUARD_SDC, p_sdc=0.6, sdc_elems=2)
+    out, runs = {}, {}
+    engines = {mode: cls(model, params, guard=guard, **SSM_SERVE)
+               for mode, cls, guard in (("abft", ServeEngine, "abft"),
+                                        ("probe", ServeEngine, "probe"),
+                                        ("planted", NoRestore, "abft"))}
+    for label, mode, chaos in (
+            ("clean", "abft", None), ("sdc", "abft", two),
+            ("planted_no_restore", "planted", two),
+            ("probe_clean", "probe", None),
+            ("probe_sdc_blind", "probe", dict(GUARD_SDC, p_sdc=0.6))):
+        metrics = MetricsRegistry()
+        reqs = make_paged_requests(cfg.vocab)
+        gate_run(out, "guard_ssm", label,
+                 rearm(engines[mode], chaos, metrics=metrics), reqs)
+        runs[label] = [r.out for r in reqs]
+        out[label]["decode_retries"] = metrics.counter(
+            "serve.chaos.retries", kind="decode").value
+    del engines
+    check(out["sdc"]["decode_retries"] > 0 and
+          out["sdc"]["guard_events"]["uncorrectable"] == 0 and
+          runs["sdc"] == runs["clean"],
+          f"guard_ssm: abft, two elements on decode {out['sdc']}, tokens "
+          f"equal {runs['sdc'] == runs['clean']}")
+    check(out["planted_no_restore"]["decode_retries"] > 0 and
+          runs["planted_no_restore"] != runs["clean"],
+          "planted control (no restore before a decode retry) passed token "
+          "equality with the clean run")
+    for label, ref in (("planted_no_restore", "clean"),
+                       ("probe_sdc_blind", "probe_clean")):
+        out[label]["requests_unequal"] = [
+            i for i, (a, b) in enumerate(zip(runs[label], runs[ref]))
+            if a != b]
+    emit("guard_ssm", arch=cfg.name, **out)
+
+
+# the dense archs beyond granite-8b: yi-6b and minitron-8b at full width
+# and depth, nemotron-4-340b at full width cut to 4 of 96 layers (its
+# untied embedding and head 18.9 GB, a layer 6.9 GB: 46.5 GB of weights)
+DENSE_ARCHS = (("yi-6b", None), ("minitron-8b", None),
+               ("nemotron-4-340b", 4))
+
+
+def epilogue_activations(model, params) -> dict:
+    """The activation of every pod-GEMM launch of one eager decode step:
+    relu2 archs run it in up's epilogue, SiLU archs in gate's."""
+    seen: dict[str, int] = {}
+    real = sg_ops.systolic_gemm_cuda
+
+    def recording(x, w, scale, bias, *, activation, out_dtype):
+        seen[str(activation)] = seen.get(str(activation), 0) + 1
+        return real(x, w, scale, bias, activation=activation,
+                    out_dtype=out_dtype)
+    cache = model.init_cache(1, 16)
+    sg_ops.systolic_gemm_cuda = recording
+    try:
+        model.decode_step(params, torch.zeros(1, dtype=torch.int64,
+                                              device="cuda"), cache, 0)
+        torch.cuda.synchronize()
+    finally:
+        sg_ops.systolic_gemm_cuda = real
+    return seen
+
+
+def serve_dense_arch(arch: str, n_layers) -> dict:
+    """One dense arch as Model(attention_impl="pallas", use_pallas=True):
+    the serve requests through bucketed prefill and graphed decode, its
+    launch gates, a second pass's figures, one profiled decode chunk, the
+    activations of a step's launches and the oracle at ORACLE_LAYERS."""
+    cfg = get_arch(arch)
+    full_layers = cfg.n_layers
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    t0 = time.perf_counter()
+    model = Model(cfg, attention_impl="pallas", use_pallas=True)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    kw = dict(slots=SLOTS, max_len=MAX_LEN, decode_chunk=DECODE_CHUNK)
+    serve(ServeEngine(model, params, **kw),
+          [Request(rid=-1, prompt=np.arange(8), max_new_tokens=2)])
+    reqs = make_requests(cfg.vocab)
+    eng = ServeEngine(model, params, **kw)
+    run = counted_serve(eng, reqs)
+    st = dict(eng.stats)
+    check_served(arch, cfg, reqs)
+    L = cfg.n_layers
+    gated = cfg.activation == "silu"
+    per_forward = (7 if gated else 6) * L + 1
+    forwards = st["prefill_calls"] + st["decode_steps"]
+    table = run["launches"]
+    check(table["pod_gemm"]["launches"] == per_forward * forwards,
+          f"{arch}: pod-GEMM launches {table['pod_gemm']['launches']} != "
+          f"{per_forward} x {forwards}")
+    by = hopper_mainloops(arch)
+    D = cfg.resolved_head_dim
+    flash_loop = fa.flash_plan(D, torch.bfloat16).mainloop
+    check(table["flash"]["launches"] == L * st["prefill_calls"] and
+          table["flash"]["by_mainloop"][flash_loop] ==
+          table["flash"]["launches"],
+          f"{arch}: flash launches {table['flash']} for "
+          f"{st['prefill_calls']} prefills of {L} layers, all on "
+          f"{flash_loop}")
+    check(run["syncs"] == st["prefill_calls"] + st["chunks"],
+          f"{arch}: host syncs {run['syncs']} != prefill groups + chunks")
+    st0 = dict(eng.stats)
+    again = make_requests(cfg.vocab)
+    run2 = counted_serve(eng, again)
+    second = pass_figures(eng, run2, again, st0)
+    check([r.out for r in again] == [r.out for r in reqs],
+          f"{arch}: the second pass's tokens differ from the first")
+    profile = profile_decode_chunk(eng, cfg.vocab, f"dense_archs-{arch}")
+    acts = epilogue_activations(model, params)
+    expect = ({"silu": L, "None": 6 * L + 1} if gated
+              else {cfg.activation: L, "None": 5 * L + 1})
+    check(acts == expect, f"{arch}: epilogue activations {acts} != {expect}")
+    cut = cut_oracle(model, params, arch)
+    weights = sum(t.nbytes for t in param_tensors(params))
+    out = {"arch": arch, "n_layers": L, "of_layers": full_layers,
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "head_dim": D, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "activation": cfg.activation, "rope_theta": cfg.rope_theta,
+           "params": model.param_count(), "weight_bytes": weights,
+           "init_s": init_s, "first_pass": pass_figures(eng, run, reqs, {}),
+           "second_pass": second, "graph_pool_bytes": eng.graph_pool_bytes(),
+           "host_syncs": run["syncs"], "pod_gemm_per_forward": per_forward,
+           "pod_gemm_by_mainloop": by, "flash_mainloop": flash_loop,
+           "flash_by_mainloop": table["flash"]["by_mainloop"],
+           "epilogue_activations": acts, "decode_chunk_profile": profile,
+           "kernels_per_step": profile["kernels"] / profile["steps"],
+           "decode_floor_ms": weights / HBM_BYTES_PER_S * 1e3,
+           "oracle_cut": {"n_layers": ORACLE_LAYERS,
+                          "token_exact": len(reqs) - len(cut),
+                          "first_differences": cut}}
+    del eng, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dense_archs() -> dict:
+    out = {}
+    for arch, n_layers in DENSE_ARCHS:
+        t0 = time.perf_counter()
+        row = serve_dense_arch(arch, n_layers)
+        row["wall_s"] = time.perf_counter() - t0
+        emit("dense_archs", gpu=gpu_name_and_power(), **row)
+        out[arch] = {k: row[k] for k in (
+            "n_layers", "pod_gemm_by_mainloop", "flash_by_mainloop",
+            "flash_mainloop")}
+    return out
+
+
+# --------------------------------------------------------------------------
+# 22. kernels line
 # --------------------------------------------------------------------------
 
 def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
@@ -2691,12 +3420,11 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def pod_gemm_rows(cfg, phases, seed: int):
-    """The pod GEMMs of one cfg forward (bf16, bf16 out) at each (phase, M,
-    iters): per-shape rows, and per phase the sums over one forward (each
-    projection once per layer, the head once). A MoE config's FFNs are
-    the grouped kernel's, so it has no gate/up/down here."""
-    d, vocab = cfg.d_model, cfg.vocab
+def forward_gemms(cfg) -> dict:
+    """The pod GEMMs of one cfg layer and the head, name -> (K, N,
+    activation): q, k, v, o, a SiLU arch's gate and up, down, the head. A
+    MoE config's FFNs are the grouped kernel's, so it has none here."""
+    d = cfg.d_model
     kv = cfg.n_kv_heads * cfg.resolved_head_dim
     q = cfg.n_heads * cfg.resolved_head_dim
     shapes = {"q": (d, q, None), "k": (d, kv, None), "v": (d, kv, None),
@@ -2704,7 +3432,15 @@ def pod_gemm_rows(cfg, phases, seed: int):
     if cfg.moe is None:
         shapes.update(gate=(d, cfg.d_ff, "silu"), up=(d, cfg.d_ff, None),
                       down=(cfg.d_ff, d, None))
-    shapes["head"] = (d, vocab, None)
+    shapes["head"] = (d, cfg.vocab, None)
+    return shapes
+
+
+def pod_gemm_rows(cfg, phases, seed: int):
+    """The pod GEMMs of one cfg forward (bf16, bf16 out) at each (phase, M,
+    iters): per-shape rows, and per phase the sums over one forward (each
+    projection once per layer, the head once)."""
+    shapes = forward_gemms(cfg)
     g = torch.Generator("cuda").manual_seed(seed)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
     rows, worst = [], 0.0
@@ -2751,13 +3487,19 @@ def pod_gemm_rows(cfg, phases, seed: int):
 
 def gemm_line(cfg, launches: int, by_mainloop: dict, moe_cfg,
               moe_launches: int, moe_by_mainloop: dict, hybrid_cfg,
-              hybrid_table: dict) -> dict:
+              hybrid_table: dict, guard: dict, dense: dict,
+              dense_served: dict) -> dict:
     """granite-8b's pod GEMMs at decode (M = SLOTS) and a [SLOTS, 256]
     prefill, the line's own numbers; dbrx-132b's q/k/v/o and untied head
     at decode and at its longest exact-length prefill (M = 1277) under
     "moe"; hymba-1.5b's seven projections and untied head at decode and
     at a [SLOTS, 2048] prefill (M = 8192) under "hybrid", the head
-    (N = 32001) on wmma. Launches by mainloop are the served runs'."""
+    (N = 32001) on wmma; granite's GEMMs under the SDC guard (phase
+    guard: a forward's ms under off, probe and abft, the launches by
+    mainloop of a forward and of the guarded served runs) under "guard";
+    minitron-8b's and nemotron-4-340b's shapes (phase kernel) and the
+    dense archs' served launches by mainloop under "dense_archs".
+    Launches by mainloop are the served runs'."""
     rows, totals, worst, per_fwd = pod_gemm_rows(
         cfg, (("decode", SLOTS, 20), ("prefill", SLOTS * 256, 5)), seed=2)
     moe_rows, moe_totals, moe_worst, moe_per_fwd = pod_gemm_rows(
@@ -2797,6 +3539,18 @@ def gemm_line(cfg, launches: int, by_mainloop: dict, moe_cfg,
                    "decode_forward": h_totals["decode"],
                    "prefill_forward_8192": h_totals["prefill"],
                    "head": head, "shapes": h_rows},
+        "guard": {"arch": cfg.name, "per_forward": guard["per_forward"],
+                  "forward_ms": guard["forward_ms"],
+                  "launches_by_mainloop_per_forward": guard["by_mainloop"],
+                  "served_abft_by_mainloop": guard["served_abft_by_mainloop"],
+                  "served_probe_by_mainloop":
+                      guard["served_probe_by_mainloop"]},
+        "dense_archs": {"shapes": dense["rows"],
+                        "nemotron_decode_step": dense["nemotron_decode_step"],
+                        "served": {a: {"n_layers": d["n_layers"],
+                                       "launches_by_mainloop":
+                                           d["pod_gemm_by_mainloop"]}
+                                   for a, d in dense_served.items()}},
     }
 
 
@@ -2858,14 +3612,17 @@ def flash_row(B, S, Hq, Hkv, D, iters: int, g, flush,
 
 
 def flash_line(cfg, by_mainloop: dict, moe_cfg, moe_by_mainloop: dict,
-               hybrid_cfg, hybrid_table: dict) -> dict:
+               hybrid_cfg, hybrid_table: dict, nemotron: dict,
+               dense_served: dict) -> dict:
     """granite-8b's prefill attention at buckets 256 and 2048 (B = SLOTS),
     the line's own numbers (a forward's 36 launches at 2048), and dbrx-
     132b's longest exact-length prefill, [1, 1277, 48 over 8, 128]; under
     "hybrid", hymba-1.5b's [SLOTS, 2048, 25 over 5, 64] with its window
     and global, and their sum over a forward (29 windowed, 3 global).
     Launches by mainloop are the served runs' (granite paged; dbrx under
-    "moe"; hymba dense under "hybrid")."""
+    "moe"; hymba dense under "hybrid"). Under "dense_archs", nemotron-4-
+    340b's [SLOTS, 2048, 96 over 8, 192] on mma (phase flash) and the dense
+    archs' served launches by mainloop."""
     g = torch.Generator("cuda").manual_seed(4)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
     D = cfg.resolved_head_dim
@@ -2897,7 +3654,13 @@ def flash_line(cfg, by_mainloop: dict, moe_cfg, moe_by_mainloop: dict,
                    "forward_2048": {**h_forward, "windowed": n_window,
                                     "global": n_global},
                    "shapes": h_rows},
-        "max_abs_err": max(r["max_abs_err"] for r in rows + h_rows),
+        "dense_archs": {"nemotron": nemotron,
+                        "served": {a: {"n_layers": d["n_layers"],
+                                       "launches_by_mainloop":
+                                           d["flash_by_mainloop"]}
+                                   for a, d in dense_served.items()}},
+        "max_abs_err": max(r["max_abs_err"] for r in rows + h_rows +
+                           [nemotron]),
         "ms": L * top["ms"], "plain_ms": L * top["plain_ms"],
         "bound_ms": L * top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": L * top["library_ms"],
@@ -3147,11 +3910,11 @@ def main() -> int:
         return 2
     try:
         phase_build()
-        phase_kernel()
+        dense_gemms = phase_kernel()
         torch.cuda.synchronize()
         phase_gemm_nt()
         torch.cuda.synchronize()
-        phase_flash()
+        nemotron_flash = phase_flash()
         torch.cuda.synchronize()
         phase_ssd()
         torch.cuda.synchronize()
@@ -3168,7 +3931,7 @@ def main() -> int:
              seconds=time.perf_counter() - t0,
              gib_allocated=torch.cuda.memory_allocated() / 2 ** 30)
 
-        served, launches, by_mainloop = phase_serve(model, params)
+        served, launches, by_mainloop, base = phase_serve(model, params)
         torch.cuda.synchronize()
         phase_oracle(model, params, served)
         torch.cuda.synchronize()
@@ -3180,7 +3943,9 @@ def main() -> int:
         torch.cuda.synchronize()
         phase_launch_serve()
         torch.cuda.synchronize()
-        del params
+        guard = phase_guard(model, params, base)
+        torch.cuda.synchronize()
+        del params, base
         torch.cuda.empty_cache()
 
         ssm_cfg = get_arch(SSM_ARCH)
@@ -3194,6 +3959,8 @@ def main() -> int:
         ssm_served, ssm_launches = phase_serve_ssm(ssm_model, ssm_params)
         torch.cuda.synchronize()
         phase_ssm_oracle(ssm_model, ssm_params, ssm_served)
+        torch.cuda.synchronize()
+        phase_guard_ssm(ssm_model, ssm_params)
         torch.cuda.synchronize()
         del ssm_params
         torch.cuda.empty_cache()
@@ -3234,15 +4001,20 @@ def main() -> int:
                          phase="hybrid_oracle")
         torch.cuda.synchronize()
         del hybrid_params
+        gc.collect()
         torch.cuda.empty_cache()
+
+        dense_served = phase_dense_archs()
+        torch.cuda.synchronize()
 
         kernels = {"kernels": [gemm_line(
             cfg, launches, by_mainloop, moe_cfg, moe_launches["pod_gemm"],
             moe_launches["pod_gemm_by_mainloop"], hybrid_cfg,
-            hybrid["pod_gemm"]),
+            hybrid["pod_gemm"], guard, dense_gemms, dense_served),
                                flash_line(cfg, flash_by_mainloop, moe_cfg,
                                           moe_launches["flash_by_mainloop"],
-                                          hybrid_cfg, hybrid["flash"]),
+                                          hybrid_cfg, hybrid["flash"],
+                                          nemotron_flash, dense_served),
                                gemm_nt_line(
                                    ssm_cfg, ssm_launches["gemm_nt"],
                                    ssm_launches["gemm_nt_by_mainloop"],

@@ -26,6 +26,7 @@ import math
 
 import torch
 
+from .guard import OFF, guarded_gemm
 from .ref import (grouped_systolic_gemm_ref, systolic_gemm_ref,
                   systolic_gemm_t_ref)
 from .systolic_gemm import (grouped_systolic_gemm_cuda, systolic_gemm_cuda,
@@ -83,30 +84,46 @@ def grouped_gemm(x, w, scale=None, bias=None, *, activation=None,
 
 def fused_lane_gemm(x, w, scale=None, bias=None, *, activation=None,
                     out_dtype=None, block_m: int | None = None,
-                    block_n: int | None = None, block_k: int | None = None):
+                    block_n: int | None = None, block_k: int | None = None,
+                    guard=None):
     """Fused-lane GEMM: x [..., K] @ w [K, N] -> [..., N].
 
     All leading axes of x (decode lanes, sequence positions, batch) fold
     into the GEMM M axis: one pod GEMM instead of a fan of GEMVs. The
-    leading shape is restored on return. `out_dtype=None` means float32."""
+    leading shape is restored on return. `out_dtype=None` means float32.
+
+    `guard` (a guard.PodGuard, or None) diverts to the SDC-checked path
+    (ABFT checksums or a Freivalds probe, guard.py); None or mode "off"
+    takes the unguarded kernel call unchanged."""
     lead = x.shape[:-1]
     m = math.prod(lead)
     out_dtype = torch.float32 if out_dtype is None else out_dtype
-    out = systolic_gemm(x.reshape(m, x.shape[-1]), w, scale, bias,
-                        activation=activation, block_m=block_m,
-                        block_n=block_n, block_k=block_k,
-                        out_dtype=out_dtype)
+    if guard is not None and guard.mode != OFF:
+        out = guarded_gemm(x.reshape(m, x.shape[-1]), w, scale, bias,
+                           guard=guard, activation=activation,
+                           out_dtype=out_dtype)
+    else:
+        out = systolic_gemm(x.reshape(m, x.shape[-1]), w, scale, bias,
+                            activation=activation, block_m=block_m,
+                            block_n=block_n, block_k=block_k,
+                            out_dtype=out_dtype)
     return out.reshape(*lead, w.shape[1])
 
 
 def fused_lane_gemm_t(x, w, scale=None, bias=None, *, activation=None,
-                      out_dtype=None):
+                      out_dtype=None, guard=None):
     """Fused-lane transposed GEMM: x [..., K] @ w [N, K]^T -> [..., N].
     The LM-head entry point: every decode lane and sequence position folds
-    into M of ONE GEMM against the stored [vocab, d] table."""
+    into M of ONE GEMM against the stored [vocab, d] table. `guard` as in
+    `fused_lane_gemm` (transposed-layout checksums)."""
     lead = x.shape[:-1]
     m = math.prod(lead)
     out_dtype = torch.float32 if out_dtype is None else out_dtype
-    out = systolic_gemm_t(x.reshape(m, x.shape[-1]), w, scale, bias,
-                          activation=activation, out_dtype=out_dtype)
+    if guard is not None and guard.mode != OFF:
+        out = guarded_gemm(x.reshape(m, x.shape[-1]), w, scale, bias,
+                           guard=guard, activation=activation,
+                           out_dtype=out_dtype, transpose=True)
+    else:
+        out = systolic_gemm_t(x.reshape(m, x.shape[-1]), w, scale, bias,
+                              activation=activation, out_dtype=out_dtype)
     return out.reshape(*lead, w.shape[0])

@@ -19,6 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..kernels.systolic_gemm.guard import active_guard
 from ..kernels.systolic_gemm.ops import fused_lane_gemm, fused_lane_gemm_t
 
 
@@ -120,10 +121,11 @@ def pod_dense(x, w, *, activation: str | None = None):
     """One dense projection on the pod GEMM, in fused-lane form: every
     leading axis of x folds into M, and trailing axes of w past the
     contraction fold into N and unfold on return ([d, H, hd] heads).
-    `activation` runs in the kernel's fused epilogue."""
+    `activation` runs in the kernel's fused epilogue. Under an active
+    GuardTape (guard.py) the GEMM runs guarded, the activation after it."""
     k = x.shape[-1]
     out = fused_lane_gemm(x, w.reshape(k, -1), activation=activation,
-                          out_dtype=x.dtype)
+                          out_dtype=x.dtype, guard=active_guard())
     return out.reshape(*x.shape[:-1], *w.shape[1:])
 
 
@@ -181,11 +183,14 @@ def unembed(p: dict, x, use_pallas: bool = False):
     """Hidden states -> logits, the largest GEMM of a decode step. Under
     use_pallas the untied [d, vocab] head runs on the fused-lane pod GEMM,
     tied embeddings on its transposed-weight form, which reads the stored
-    [vocab, d] token table directly (no transpose copy)."""
+    [vocab, d] token table directly (no transpose copy). Under an active
+    GuardTape either form runs guarded."""
     if use_pallas:
+        g = active_guard()
         if "unembed" in p:
-            return fused_lane_gemm(x, p["unembed"], out_dtype=x.dtype)
-        return fused_lane_gemm_t(x, p["tok"], out_dtype=x.dtype)
+            return fused_lane_gemm(x, p["unembed"], out_dtype=x.dtype,
+                                   guard=g)
+        return fused_lane_gemm_t(x, p["tok"], out_dtype=x.dtype, guard=g)
     if "unembed" in p:
         return torch.einsum("...d,dv->...v", x, p["unembed"])
     return torch.einsum("...d,vd->...v", x, p["tok"])

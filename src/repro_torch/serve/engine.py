@@ -1,6 +1,6 @@
 """Batched serving engine (counterpart of repro/serve/engine.py with its
 serving controls: admission policies, deadlines, chaos with retries,
-metrics and the tracer; paging optional; no SDC guard yet).
+metrics and the tracer; paging optional; the SDC guard optional).
 
 The engine owns a fixed decode batch of `slots` lanes; requests queue,
 prefill into free slots, and decode step-locked with the rest of the batch.
@@ -69,7 +69,27 @@ requests `device-fault` with their slots and pages freed; an EWMA
 slow-chunk detector halves the next chunk while the device is slow.
 `metrics=` (obs.metrics) and `tracer=` (tenancy.ServeTraceRecorder) read
 only what the chunk's one packed read already brought back: they add no
-host sync, no runner and no graph. Spans, deadlines, backoff, the EWMAs
+host sync, no runner and no graph.
+
+The SDC guard (`guard=`, kernels/systolic_gemm/guard.py), as in the
+reference: under "probe" or "abft" every bucketed prefill forward and
+every decode step runs under its own GuardTape, so each pod GEMM of the
+model is verified (abft repairs a single corrupted element) inside the
+captured graph; each runner takes one more static input, the attempt's
+injection plan `sdc` (chaos `p_sdc`; (-1, 0, 0) disarms), and packs
+(corrected, uncorrected) after its outputs, so a call still makes one
+host read. Uncorrected output raises SilentCorruption, which retries like
+a transient fault; retries exhausted reject the group or the live lanes
+`sdc-uncorrectable` and free their slots and pages. A decode chunk writes
+the caches in place, so before each guarded decode call the engine copies
+the state the chunk advances (every KV and ring length, the ring keys and
+values, the SSM conv window and state) device to device, and restores it
+before a retry; KV rows past a restored length are rewritten by the
+retry. A prefill resets its transient lane cache and rewrites its slots,
+so it needs no copy. The exact-length prefill stays outside the guard.
+With guard "off" (the default) nothing of this runs: runners, their
+inputs, the packed layout, graphs, launches and host syncs are those of
+the unguarded engine. Spans, deadlines, backoff, the EWMAs
 and the slo-aware calibration read the injectable `clock=`; `stats` stays
 real wall seconds. With the defaults (fifo, unbounded queue, no deadlines,
 no chaos, no metrics, no tracer) tokens, host syncs and runners are those
@@ -91,6 +111,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..kernels.systolic_gemm.guard import GuardTape, as_guard
 from ..models.attention import KVCache, PagedKVCache, RingKVCache
 from ..models.model import Model
 from ..models.ssm import SSMCache
@@ -100,8 +121,8 @@ from .admission import (AdmissionConfig, AdmissionController,  # noqa: F401
                         InvalidRequest, NEW, SLO_AWARE, ServeStalled,
                         WaveLatencyPredictor)
 from .chaos import (FaultInjector, NumericalFault, PermanentFault,
-                    SlowChunkDetector, TransientDeviceError,
-                    check_lanes_finite)
+                    SilentCorruption, SlowChunkDetector,
+                    TransientDeviceError, check_lanes_finite)
 from .graphs import GraphPool, StepRunner
 from .paging import PagePool
 
@@ -195,12 +216,38 @@ def _reset(cache: dict) -> None:
                 t.zero_()
 
 
+def _decode_state(cache: dict) -> list[torch.Tensor]:
+    """What a decode step advances in place and a retry must find as it
+    was: every KV and ring node's length, the ring keys and values, the
+    SSM conv window and state. Dense and paged KV rows past a length need
+    no copy: the retry writes them again."""
+    out = []
+    for node in cache.values():
+        for c in node.values():
+            if isinstance(c, SSMCache):
+                out += [c.conv, c.state]
+            elif isinstance(c, RingKVCache):
+                out += [c.k, c.v, c.length]
+            else:
+                out.append(c.length)
+    return out
+
+
+def _guarded(guard, sdc, magnitude: float, fn):
+    """fn() under a GuardTape of `guard` with injection plan `sdc`: fn's
+    result and the tape's (corrected, uncorrected) totals."""
+    with GuardTape(guard, inject=sdc, magnitude=magnitude) as tape:
+        out = fn()
+    return out, tape.totals()
+
+
 # The step bodies a StepRunner runs (serve/graphs.py). They take what they
 # read as arguments and never the engine, so a runner does not keep its
 # engine, and with it the weights, alive in a reference cycle.
 
 def _prefill_body(model: Model, params, cache: dict, lane_cache: dict,
-                  tokens, true_lens, slot_ids, dest=None):
+                  tokens, true_lens, slot_ids, dest=None, *, guard=None,
+                  magnitude: float = 1e4, sdc=None):
     """A bucket's prefill: one forward over a fixed [slots, bucket] token
     batch into the bucket's static lane cache, reset first (a previous
     group's KV past the true lengths, conv window and SSM state must not
@@ -208,10 +255,19 @@ def _prefill_body(model: Model, params, cache: dict, lane_cache: dict,
     not finite), the length fixup, then each real lane into its slot of
     `cache` (slot_ids, -1 on pad lanes), or, paged, a page-granular
     scatter of the KV into the pool along `dest`. Every input is a device
-    tensor: nothing of the group is a host value."""
+    tensor: nothing of the group is a host value. With a `guard` the
+    forward runs under a GuardTape with the plan `sdc`, and the first
+    tokens come back with (corrected, uncorrected) appended."""
     _reset(lane_cache)
-    logits, lane_cache = model.forward(params, {"tokens": tokens},
-                                       cache=lane_cache, true_lens=true_lens)
+
+    def forward():
+        return model.forward(params, {"tokens": tokens}, cache=lane_cache,
+                             true_lens=true_lens)
+    if guard is not None:
+        (logits, lane_cache), gstats = _guarded(guard, sdc, magnitude,
+                                                forward)
+    else:
+        logits, lane_cache = forward()
     idx = torch.clamp_min(true_lens - 1, 0)
     last = logits[torch.arange(tokens.shape[0], device=tokens.device), idx]
     first = torch.argmax(last, dim=-1)
@@ -224,21 +280,34 @@ def _prefill_body(model: Model, params, cache: dict, lane_cache: dict,
                 c.scatter_prefill(src, dest, slot_ids, true_lens)
             else:               # dense KV, or SSM state (lane-resident)
                 _copy_lanes(c, src, slot_ids)
+    if guard is not None:
+        return torch.cat([first, torch.stack(gstats)])
     return first
 
 
 def _decode_body(model: Model, params, cache: dict, eos_id: Optional[int],
-                 toks, pos, bud, alive, n: int):
+                 toks, pos, bud, alive, n: int, *, guard=None,
+                 magnitude: float = 1e4, sdc=None):
     """A chunk length's decode: n decode steps, all on the device (the
     inputs are the runner's static buffers, never written). Returns one
     packed tensor: the per-step tokens [n, slots], emit masks [n, slots],
     then (emitted, live lanes at the end) and the per-lane non-finite
-    flags [slots], so the chunk is read back in one sync."""
+    flags [slots], so the chunk is read back in one sync. With a `guard`
+    each step's model call runs under its own GuardTape (the GEMM indices
+    restart every step, so an armed plan `sdc` hits its target at every
+    step, as in the reference's scan), and the chunk's (corrected,
+    uncorrected) totals follow the flags."""
     emitted = torch.zeros((), dtype=torch.int64, device=toks.device)
     bad = torch.zeros_like(alive)
-    seq, emits = [], []
+    seq, emits, verdicts = [], [], []
     for _ in range(n):
-        logits, _ = model.decode_step(params, toks, cache, pos)
+        if guard is not None:
+            (logits, _), gstats = _guarded(
+                guard, sdc, magnitude,
+                lambda: model.decode_step(params, toks, cache, pos))
+            verdicts.append(torch.stack(gstats))
+        else:
+            logits, _ = model.decode_step(params, toks, cache, pos)
         ok = torch.isfinite(logits).all(dim=-1)
         bad = bad | (alive & ~ok)
         nxt = torch.argmax(logits, dim=-1)
@@ -254,8 +323,11 @@ def _decode_body(model: Model, params, cache: dict, eos_id: Optional[int],
         seq.append(toks)
         emits.append(emit.long())
     stats = torch.stack([emitted, alive.sum()])
-    return torch.cat([torch.stack(seq).flatten(),
-                      torch.stack(emits).flatten(), stats, bad.long()])
+    parts = [torch.stack(seq).flatten(), torch.stack(emits).flatten(),
+             stats, bad.long()]
+    if guard is not None:
+        parts.append(torch.stack(verdicts).sum(dim=0))
+    return torch.cat(parts)
 
 
 class ServeEngine:
@@ -265,10 +337,10 @@ class ServeEngine:
                  prefill_buckets: bool = True,
                  metrics=None, admission=None, chaos=None, clock=None,
                  max_retries: int = 3, backoff_s: float = 1e-3,
-                 paged: bool = False, page_size: int = 16,
+                 guard=None, paged: bool = False, page_size: int = 16,
                  kv_pages: Optional[int] = None, eager: bool = False):
-        """The reference's arguments and defaults (no src_len, no guard,
-        no min_bucket or recycle: MIN_BUCKET is fixed and lanes recycle
+        """The reference's arguments and defaults (no src_len, no
+        min_bucket or recycle: MIN_BUCKET is fixed and lanes recycle
         inside a chunk exactly when paged).
         eager=True runs the step runners eagerly on the card too (no CUDA
         graphs): the run a graphed one is held against. On the CPU every
@@ -283,9 +355,6 @@ class ServeEngine:
         # engine's step-locked order, and (if it defines on_span) one timed
         # span per device call for the Perfetto export (obs/export.py)
         self.tracer = tracer
-        # optional obs.metrics.MetricsRegistry, fed host values the engine
-        # already has at each sync
-        self.metrics = metrics
         self.decode_chunk = max(1, decode_chunk)
         self.device = model.device
         self.bucketed = bool(prefill_buckets) and model.bucketed_prefill_ok
@@ -309,7 +378,6 @@ class ServeEngine:
             self.cache = model.init_cache(slots, max_len)
         # in-chunk lane recycling: on exactly when paged
         self.recycle = bool(paged)
-        self.recycled = 0
         self.active: list[Optional[Request]] = [None] * slots
         self.positions = np.zeros(slots, np.int64)
         self.budgets = np.zeros(slots, np.int64)
@@ -333,6 +401,32 @@ class ServeEngine:
                       "prefill_s": 0.0, "chunks": 0, "decode_steps": 0,
                       "decode_s": 0.0, "graphs": 0, "capture_s": 0.0,
                       "capture_prefills": 0, "capture_steps": 0}
+        # SDC guard (kernels/systolic_gemm/guard.py): None or "off" leaves
+        # the engine unguarded; "probe" and "abft" run every bucketed
+        # prefill forward and every decode step under a GuardTape. The
+        # exact-length prefill stays outside it, as in the reference.
+        self._guard = as_guard(guard)
+        self._guard_on = self._guard.mode != "off"
+        self._saved: Optional[list[torch.Tensor]] = None
+        self.restart(metrics=metrics, admission=admission, chaos=chaos,
+                     clock=clock, max_retries=max_retries,
+                     backoff_s=backoff_s)
+
+    def restart(self, metrics=None, admission=None, chaos=None, clock=None,
+                max_retries: int = 3, backoff_s: float = 1e-3) -> None:
+        """Begin a run: the run's controls and state (metrics, admission
+        controller, chaos injector, clock, retries, guard events, EWMAs) as
+        the constructor sets them from the same arguments. The model, the
+        caches, the compiled runners with their graphs and the lifetime
+        tallies (`stats`, the page pool's totals) are kept, so a new run
+        captures nothing. The engine must hold no request."""
+        if self.queue or any(r is not None for r in self.active):
+            raise RuntimeError("restart needs an engine that holds no "
+                               "request")
+        # optional obs.metrics.MetricsRegistry, fed host values the engine
+        # already has at each sync
+        self.metrics = metrics
+        self.recycled = 0
         # injectable clock (serve/chaos.VirtualClock in tests): spans,
         # deadlines, backoff and the EWMAs read it, so failure scenarios
         # replay deterministically
@@ -348,10 +442,10 @@ class ServeEngine:
             predictor = None
             if admission.policy == SLO_AWARE:
                 predictor = WaveLatencyPredictor(
-                    model.cfg, admission.design, admission.tdp,
+                    self.model.cfg, admission.design, admission.tdp,
                     faulty_pods=admission.faulty_pods)
             admission = AdmissionController(
-                admission, slots=slots, max_len=max_len,
+                admission, slots=self.slots, max_len=self.max_len,
                 predictor=predictor, metrics=metrics)
         self.admission: AdmissionController = admission
         if self._pool is not None:
@@ -361,12 +455,18 @@ class ServeEngine:
             self.admission.attach_pool(self._pool)
         # chaos: a ChaosConfig arms the seeded fault injector plus the
         # EWMA slow-chunk detector; None leaves every call a plain call.
-        # Its p_sdc acts only through the SDC guard, which is not ported.
+        # Its p_sdc acts only through the SDC guard.
         if chaos is not None and not isinstance(chaos, FaultInjector):
             chaos = FaultInjector(chaos, clock=clock)
         self._chaos: Optional[FaultInjector] = chaos
         self._slow_detect = SlowChunkDetector() if chaos is not None \
             else None
+        self._sdc_plan = None         # armed per attempt by _device_call
+        self._sdc_magnitude = (self._chaos.config.sdc_magnitude
+                               if self._chaos is not None else 1e4)
+        # host-side guard tallies (mirrored to metrics when enabled)
+        self.guard_events = {"corrected": 0, "uncorrectable": 0,
+                             "non_finite": 0}
         self._chunk_cap: Optional[int] = None
         self.max_retries = max(0, int(max_retries))
         self.backoff_s = float(backoff_s)
@@ -392,21 +492,31 @@ class ServeEngine:
         ahead of fn(), and fn() makes the call's runner (if new), copies
         its host inputs into the runner's static buffers and runs it: a
         failed attempt has written nothing, so a retry re-copies the same
-        inputs into the same runner (no new runner, no new graph). With
-        chaos disarmed this is a plain call."""
-        if self._chaos is None:
+        inputs into the same runner (no new runner, no new graph). With the
+        guard on, each attempt also draws its SDC plan, and fn() raises
+        SilentCorruption on uncorrected output after its read (a decode
+        call first restores the state it advanced): retried the same way,
+        but when the retries are exhausted it is re-raised, so the caller
+        rejects the lanes `sdc-uncorrectable`, not `device-fault`. With
+        chaos disarmed and the guard off this is a plain call."""
+        if self._chaos is None and not self._guard_on:
             return fn()
         attempt = 0
         while True:
             try:
-                self._chaos.before(kind)
+                if self._chaos is not None:
+                    self._chaos.before(kind)
+                    self._sdc_plan = (self._chaos.sdc_plan(kind)
+                                      if self._guard_on else None)
                 return fn()
-            except TransientDeviceError as err:
+            except (TransientDeviceError, SilentCorruption) as err:
                 attempt += 1
                 if self.metrics is not None:
                     self.metrics.counter("serve.chaos.retries",
                                          kind=kind).inc()
                 if attempt > self.max_retries:
+                    if isinstance(err, SilentCorruption):
+                        raise
                     raise PermanentFault(
                         f"{kind} device call failed after {attempt} "
                         f"attempts: {err}") from err
@@ -416,7 +526,45 @@ class ServeEngine:
         for r in reqs:
             self.admission.reject(r, reason)
         if self.metrics is not None:
-            self.metrics.counter("serve.chaos.permanent_faults").inc()
+            name = ("serve.chaos.sdc_uncorrectable"
+                    if reason == "sdc-uncorrectable"
+                    else "serve.chaos.permanent_faults")
+            self.metrics.counter(name).inc()
+
+    def _sdc_feed(self) -> np.ndarray:
+        """The attempt's injection plan for the runner's `sdc` buffer;
+        (-1, 0, 0) disarms (no chaos, or a clean draw)."""
+        plan = self._sdc_plan if self._sdc_plan is not None else (-1, 0, 0)
+        return np.asarray(plan, np.int64)
+
+    def _verdict(self, kind: str, flags) -> int:
+        """(corrected, uncorrected) of one guarded call's read: raises
+        SilentCorruption on uncorrected output, else returns corrected."""
+        if int(flags[1]) > 0:
+            raise SilentCorruption(f"{kind}: {int(flags[1])} uncorrected "
+                                   f"corruption(s) detected")
+        return int(flags[0])
+
+    def _note_guard(self, corrected: int) -> None:
+        if corrected > 0:
+            self.guard_events["corrected"] += int(corrected)
+            if self.metrics is not None:
+                self.metrics.counter("serve.guard.corrected").inc(
+                    int(corrected))
+
+    def _save_decode_state(self) -> None:
+        """Copy what a decode chunk advances, device to device, before a
+        guarded decode call (buffers made at the first call)."""
+        state = _decode_state(self.cache)
+        if self._saved is None:
+            self._saved = [torch.empty_like(t) for t in state]
+        for buf, t in zip(self._saved, state):
+            buf.copy_(t)
+
+    def _restore_decode_state(self) -> None:
+        """Put back what _save_decode_state copied, before a retry."""
+        for t, buf in zip(_decode_state(self.cache), self._saved):
+            t.copy_(buf)
 
     def _shed_non_finite(self, pairs: list, where: str) -> None:
         """Finalize lanes whose logits went NaN/Inf: recompute would give
@@ -428,6 +576,7 @@ class ServeEngine:
         except NumericalFault:
             for r, _ in pairs:
                 self.admission.reject(r, "non-finite-logits")
+            self.guard_events["non_finite"] += len(pairs)
             if self.metrics is not None:
                 self.metrics.counter("serve.numerical_faults",
                                      where=where).inc(len(pairs))
@@ -571,10 +720,19 @@ class ServeEngine:
                                          ring_len=self.max_len)
         self._lane_caches[bucket] = lane
         body = functools.partial(_prefill_body, self.model, self.params,
-                                 self.cache, lane)
+                                 self.cache, lane, **self._guard_kw(inputs))
         runner = StepRunner(body, inputs, self._graphs)
         self._prefill_runners[bucket] = runner
         return runner
+
+    def _guard_kw(self, inputs: dict) -> dict:
+        """With the guard on, a runner's one more static input, the
+        injection plan `sdc` int64[3], and its body's guard arguments."""
+        if not self._guard_on:
+            return {}
+        inputs["sdc"] = torch.full((3,), -1, dtype=torch.int64,
+                                   device=self.device)
+        return {"guard": self._guard, "magnitude": self._sdc_magnitude}
 
     def _decode_runner(self, n: int) -> StepRunner:
         runner = self._decode_runners.get(n)
@@ -584,7 +742,8 @@ class ServeEngine:
                       for k in ("toks", "pos", "bud")}
             inputs["alive"] = torch.zeros(B, dtype=torch.bool, device=dev)
             body = functools.partial(_decode_body, self.model, self.params,
-                                     self.cache, self.eos_id, n=n)
+                                     self.cache, self.eos_id, n=n,
+                                     **self._guard_kw(inputs))
             runner = StepRunner(body, inputs, self._graphs)
             self._decode_runners[n] = runner
         return runner
@@ -671,16 +830,32 @@ class ServeEngine:
             feed["dest"] = dest
         self._buckets_seen.add(bucket)
         t_start = self._clock()
+
+        def call():
+            if not self._guard_on:
+                return self._run(self._prefill_runner(bucket), **feed)
+            out, seconds, captured = self._run(self._prefill_runner(bucket),
+                                               sdc=self._sdc_feed(), **feed)
+            corrected = self._verdict("prefill", out[-2:])
+            return out[:-2], seconds, captured, corrected
         try:
-            first, seconds, captured = self._device_call(
-                "prefill", lambda: self._run(self._prefill_runner(bucket),
-                                             **feed))   # the ONE host sync
+            got = self._device_call("prefill", call)    # the ONE host sync
         except PermanentFault:
             # the call never ran: shed the group (terminal `rejected`);
             # its slots stay free and its pages return to the pool
             self._reject_group(reqs, "device-fault")
             self._release_group(slot_list, len(reqs))
             return
+        except SilentCorruption:
+            # every attempt's output failed the guard: the group's slots
+            # were never activated, so they and their pages are freed
+            self.guard_events["uncorrectable"] += 1
+            self._reject_group(reqs, "sdc-uncorrectable")
+            self._release_group(slot_list, len(reqs))
+            return
+        first, seconds, captured = got[:3]
+        if self._guard_on:
+            self._note_guard(got[3])
         t_end = self._clock()
         self.stats["prefill_calls"] += 1
         if captured:
@@ -832,11 +1007,35 @@ class ServeEngine:
             alive0[i] = True
         pos0 = self.positions.copy()
         t_start = self._clock()
+        feed = dict(toks=toks, pos=pos0, bud=self.budgets, alive=alive0)
+
+        def call():
+            if not self._guard_on:
+                return self._run(self._decode_runner(n), **feed)
+            out, seconds, captured = self._run(self._decode_runner(n),
+                                               sdc=self._sdc_feed(), **feed)
+            try:
+                corrected = self._verdict("decode chunk", out[-2:])
+            except SilentCorruption:
+                # the chunk advanced the caches in place: put them back so
+                # that a retry (or the next chunk) starts where this did
+                self._restore_decode_state()
+                raise
+            return out[:-2], seconds, captured, corrected
+        if self._guard_on:
+            self._save_decode_state()
         try:
-            packed, seconds, captured = self._device_call(
-                "decode", lambda: self._run(
-                    self._decode_runner(n), toks=toks, pos=pos0,
-                    bud=self.budgets, alive=alive0))    # the ONE host sync
+            got = self._device_call("decode", call)     # the ONE host sync
+        except SilentCorruption:
+            # every retry's chunk failed the guard; its state was put back,
+            # but the lanes are unservable: reject them
+            # `sdc-uncorrectable` and free their slots and pages
+            self.guard_events["uncorrectable"] += 1
+            self._reject_group([self.active[i] for i in live],
+                               "sdc-uncorrectable")
+            for i in live:
+                self._release_slot(i)
+            return len(live)
         except PermanentFault:
             # the chunk never ran (the injector raises before the call):
             # caches and positions are untouched. Shed the live lanes and
@@ -846,6 +1045,9 @@ class ServeEngine:
             for i in live:
                 self._release_slot(i)
             return len(live)
+        packed, seconds, captured = got[:3]
+        if self._guard_on:
+            self._note_guard(got[3])
         t_end = self._clock()
         self.stats["chunks"] += 1
         self.stats["decode_steps"] += n
