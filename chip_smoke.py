@@ -12,7 +12,8 @@ Phases, one JSON line each; any failure exits non-zero:
                card: f32/bf16/int8 x every activation x ragged shapes x
                f32/bf16 out, each within runtime.TOLERANCES, with
                granite-8b's and dbrx-132b's served shapes (dbrx's q/o, k/v
-               and head at M = 4 and 1277) and shapes that reach each bf16
+               and head at M = 4 and 1277), deepseek-v2's head [4, 5120]
+               x [5120, 102400], and shapes that reach each bf16
                mainloop's edges (wgmma at M = 65, 129, 1000, 1277, N =
                1032, K = 4104; splitk with splits that do not divide the
                k-steps evenly); a planted control that sums in bf16 must
@@ -89,11 +90,14 @@ Phases, one JSON line each; any failure exits non-zero:
                0, G = 1 equal to the pod-GEMM kernel bit for bit where
                both run one mainloop (wmma, simt or wgmma; within
                tolerance where the NN launch runs splitk and the grouped
-               one wmma), and dbrx-132b's served shapes ([16, 1, 6144] x
+               one wmma), dbrx-132b's served shapes ([16, 1, 6144] x
                [16, 6144, 10752], the down [16, 1, 10752] x [16, 10752,
-               6144], M = 320 and 399 rows per expert, up and down). Two
-               planted controls (sums in bf16, group g+1 reading group g's
-               weights) must fail.
+               6144], M = 320 and 399 rows per expert, up and down) and
+               deepseek-v2's ([160, 1, 5120] x [160, 5120, 1536] with
+               SiLU, the down [160, 1, 1536] x [160, 1536, 5120], and up
+               at M = 59), each with an all-zero middle group that must
+               come out exactly 0. Two planted controls (sums in bf16,
+               group g+1 reading group g's weights) must fail.
   7. serve   - granite-8b at full width and depth (random weights from a
                seeded torch.Generator, bf16) served by ServeEngine, whose
                bucketed prefills and decode chunks replay CUDA graphs
@@ -161,6 +165,30 @@ Phases, one JSON line each; any failure exits non-zero:
                cannot tell them apart. Agreement reported at MOE_LAYERS,
                the margin rule held at the first difference anywhere in the
                batch on ORACLE_LAYERS layers of the same weights.
+ 14a. serve_mla - deepseek-v2-236b at full width and MLA_LAYERS of its 60
+               layers (dense0 and 7 MoE layers of 160 experts, top 6, 2
+               shared; MLA at kv_lora 512, 128 heads; random bf16 weights
+               drawn after dbrx's are freed) as Model(attention_impl=
+               "pallas", use_pallas=True), served by ServeEngine(slots 4,
+               max_len 2048, decode_chunk 8) on the paged phase's prompts
+               with exact-length prefill, graphed against eager as every
+               serve phase: every request done, 8 prefills of [1, S], 25
+               pod-GEMM launches per forward (the dense layer's MLP, the
+               shared experts, the head) on splitk or wgmma and 21 grouped
+               (the routed experts, G = 160) on wgmma where a prefill gives
+               an expert more than 64 rows and on wmma otherwise, no
+               flash, NT or SSD launch (MLA is torch ops: prefill
+               decompressed into chunked attention, decode absorbed over
+               the latent cache), one host sync per prefill and decode
+               chunk; the latent cache's bytes against a GQA cache of the
+               same heads, peak memory, the top kernels of one profiled
+               decode chunk.
+ 14b. mla_oracle - as moe_oracle on deepseek-v2 (the 2-layer cut: dense0
+               and the first MoE layer); then, on that cut with the
+               capacity factor raised to 160 (no assignment drops), the
+               last logits of a [1, 957] prefill against the same tokens
+               fed through the absorbed decode one at a time: argmax equal
+               or a near tie (the margin rule), max |difference| reported.
  15. serve_hybrid - hymba-1.5b at full width and depth (32 layers, d
                1600, 25 heads over 5 of 64, a 50-head Mamba-2 mixer beside
                the attention in every layer, a 1024-token window except in
@@ -213,7 +241,9 @@ Phases, one JSON line each; any failure exits non-zero:
                granite-8b, edf, deadline 5 s, chaos seed 1, metrics, a
                trace file under build/): it returns, it launched the
                pod GEMM and flash kernels, and the trace file holds one
-               span per device call.
+               span per device call; then reduced deepseek-v2 with the
+               defaults: every request done, pod-GEMM and grouped
+               launches, no flash launch.
  19. guard   - run after phase 18 on granite-8b's weights at full width:
                the 253 pod GEMMs of a decode step and of a [4, 256]
                forward under the SDC guard off, probe and abft (the
@@ -282,7 +312,10 @@ Phases, one JSON line each; any failure exits non-zero:
                entry adds granite's GEMMs under the guard ("guard": a
                forward under off, probe and abft, launches by mainloop)
                and the dense archs' shapes and served launches
-               ("dense_archs"), flash's nemotron's row.
+               ("dense_archs"), flash's nemotron's row; deepseek-v2's
+               25 pod GEMMs a forward at M = 4 and 1277 and its grouped
+               experts at G = 160 (M = 1 and 59), with its served
+               launches by mainloop, under "deepseek" in rows 1 and 5.
 
 The last lines are the card's name and power limit, the kernels line, and
 {"ok": true, "device": {...}}.
@@ -368,6 +401,12 @@ SSM_SERVE = dict(slots=4, max_len=2048, decode_chunk=8)
 MOE_ARCH, MOE_LAYERS = "dbrx-132b", 8
 MOE_SERVE = dict(slots=4, max_len=2048, decode_chunk=8)
 MOE_ORACLE_REQUESTS = 4     # = slots: every decode batch fully live
+# deepseek-v2-236b at full width, depth cut to 8 of 60 layers: dense0 and
+# 7 MoE layers of 160 experts, 58.4 GB of bf16 weights (all 60 layers hold
+# 472 GB). MLA stays on einsums, as in the reference; exact-length
+# prefill on the paged phase's traffic, as dbrx
+MLA_ARCH, MLA_LAYERS = "deepseek-v2-236b", 8
+MLA_SERVE = dict(slots=4, max_len=2048, decode_chunk=8)
 # hymba-1.5b at full width and depth (32 layers, 1.64 G parameters): the
 # paged phase's traffic, dense and paged for its three global layers
 HYBRID_ARCH = "hymba-1.5b"
@@ -482,14 +521,15 @@ SPLITK_CONTROL_SHAPES = {"nn": [(4, 4096, 4096), (4, 4096, 49152)],
 def phase_kernel() -> dict:
     """A ragged small case, granite-8b's shapes, and dbrx-132b's q/o, k/v
     and untied head at decode (M = 4 lanes) and at its longest served
-    exact-length prefill (M = 1277 rows, a prime); the mainloop edges of
+    exact-length prefill (M = 1277 rows, a prime); deepseek-v2's untied
+    head at decode ([4, 5120] x [5120, 102400]); the mainloop edges of
     KERNEL_EDGES; then the split-K controls and the row checks of every
     form."""
     gemm_phase("kernel", sg.systolic_gemm_cuda, systolic_gemm_ref,
                [(37, 100, 130), (1, 4096, 14336), (5, 4096, 49152),
                 (4, 6144, 6144), (4, 6144, 1024), (4, 6144, 100352),
                 (1277, 6144, 6144), (1277, 6144, 1024),
-                (1277, 6144, 100352)] + KERNEL_EDGES,
+                (1277, 6144, 100352), (4, 5120, 102400)] + KERNEL_EDGES,
                transposed=False, seed=1)
     splitk_controls("nn", seed=14)
     rows_independent_of_m(seed=15)
@@ -1371,7 +1411,13 @@ GROUPED_CASES = [(3, 37, 100, 130), (5, 1, 260, 70), (3, 65, 256, 136),
 GROUPED_SERVED = [(16, 1, 6144, 10752, "silu"), (16, 1, 10752, 6144, None),
                   (16, 320, 6144, 10752, "silu"), (16, 399, 6144, 10752,
                                                    None),
-                  (16, 399, 10752, 6144, None)]
+                  (16, 399, 10752, 6144, None),
+                  # deepseek-v2-236b's 160 experts: decode (capacity 1 row
+                  # per expert), up/gate and down, and the 1277-token
+                  # prompt (one group of capacity int(1277 x 6 / 160 x
+                  # 1.25) = 59)
+                  (160, 1, 5120, 1536, "silu"), (160, 1, 1536, 5120, None),
+                  (160, 59, 5120, 1536, "silu")]
 
 
 def grouped_inputs(G, M, K, N, dtype, g):
@@ -1473,6 +1519,7 @@ def phase_grouped() -> None:
     served = []
     for (G, M, K, N, act) in GROUPED_SERVED:
         x, w = grouped_inputs(G, M, K, N, torch.bfloat16, g)
+        x[G // 2] = 0                            # an expert with no token
         got = sg.grouped_systolic_gemm_cuda(x, w, activation=act,
                                             out_dtype=torch.bfloat16)
         ref = grouped_systolic_gemm_ref(x, w, activation=act,
@@ -1481,6 +1528,8 @@ def phase_grouped() -> None:
         tol = TOLERANCES["gemm_bf16out"]
         case = f"served {G}x{M}x{K}x{N} act={act}"
         record("served bf16->bf16", got, ref, tol, case)
+        if not bool((got[G // 2] == 0).all()):
+            failures.append(f"empty group not exactly 0 {case}")
         planted("group_stride", tol.excess(wrong_group_stride(
             x, w, activation=act, out_dtype=torch.bfloat16), ref), case)
         if act is None:
@@ -2374,7 +2423,9 @@ def phase_serve_controls(model, flash_model, params) -> None:
 def phase_launch_serve() -> None:
     """repro_torch.launch.serve in-process at reduced granite-8b, edf,
     deadlines, chaos, metrics and a trace file: one span per device
-    call, and the run through the pod GEMM and flash kernels."""
+    call, and the run through the pod GEMM and flash kernels; then at
+    reduced deepseek-v2 with the defaults: every request done, through
+    the pod and grouped GEMMs (MLA launches no flash kernel)."""
     from repro_torch.launch import serve as launch
     path = _build.REPO_ROOT / "build" / "serve_trace.json"
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -2402,8 +2453,27 @@ def phase_launch_serve() -> None:
              if e["ph"] == "X"]
     check(calls > 0 and len(spans) == calls,
           f"launch_serve: {len(spans)} spans for {calls} device calls")
+    # reduced deepseek-v2 (MLA, a dense first layer, routed and shared
+    # experts): every request done, the pod and grouped kernels launched
+    out = io.StringIO()
+    t1 = time.perf_counter()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        launch.main(["--arch", MLA_ARCH, "--reduced"])
+    mla = {"pod_gemm": KERNELS["nn"].launches,
+           "grouped": sg.grouped_systolic_gemm_cuda.launches,
+           "flash": fa.flash_attention_cuda.launches}
+    mla_lines = out.getvalue().splitlines()
+    served = [ln for ln in mla_lines if ln.startswith("req ")]
+    # a request that did not end done prints its state after its tokens
+    check(len(served) == 6 and not any("]  [" in ln for ln in served),
+          f"launch_serve {MLA_ARCH}: requests not all done {served}")
+    check(mla["pod_gemm"] > 0 and mla["grouped"] > 0 and mla["flash"] == 0,
+          f"launch_serve {MLA_ARCH}: launches {mla}")
     emit("launch_serve", wall_s=wall, spans=len(spans), device_calls=calls,
-         launches=launches, summary=lines[start - 3:start - 1])
+         launches=launches, summary=lines[start - 3:start - 1],
+         deepseek={"wall_s": time.perf_counter() - t1, "launches": mla,
+                   "summary": mla_lines[len(served)]})
 
 
 # --------------------------------------------------------------------------
@@ -2539,15 +2609,18 @@ def phase_ssm_oracle(model, params, served: list[Request],
 # 13. serve_moe and 14. moe_oracle
 # --------------------------------------------------------------------------
 
-def phase_serve_moe(model, params):
-    """dbrx through exact-length prefill (flash, grouped and pod GEMMs) and
-    fused decode; every MoE layer's experts on the grouped kernel."""
+def exact_length_run(phase: str, model, params, serve_kw: dict) -> dict:
+    """A MoE model's served run (dbrx, deepseek-v2): a warm-up request
+    (lazy set-up stays out of the timings), then the paged phase's
+    requests on a fresh engine from zeroed launch counts, each prefill's
+    token shape recorded and the peak memory taken. Gates: every request
+    done, the exact-length path, one [1, S] prefill a request, one host
+    sync per prefill and decode chunk."""
     cfg = model.cfg
-    # warm-up: lazy set-up stays out of the timings
-    serve(ServeEngine(model, params, **MOE_SERVE),
+    serve(ServeEngine(model, params, **serve_kw),
           [Request(rid=-1, prompt=np.arange(64), max_new_tokens=2)])
     reqs = make_paged_requests(cfg.vocab)
-    eng = ServeEngine(model, params, **MOE_SERVE)
+    eng = ServeEngine(model, params, **serve_kw)
     shapes = []
     real_prefill = model.prefill
 
@@ -2562,60 +2635,70 @@ def phase_serve_moe(model, params):
         run = counted_serve(eng, reqs)
     finally:
         del model.prefill
-    wall, syncs = run["wall_s"], run["syncs"]
-    launches = {k: v["launches"] for k, v in run["launches"].items()}
-    launches["pod_gemm_by_mainloop"] = hopper_mainloops("serve_moe")
-    launches["grouped_by_mainloop"] = grouped_by = dict(
-        sg.grouped_systolic_gemm_cuda.mainloop_launches)
-    launches["flash_by_mainloop"] = flash_mainloops("serve_moe")
     peak = torch.cuda.max_memory_allocated()
     st = dict(eng.stats)     # the first pass's (graphed_vs_eager serves more)
-    check_served("moe", cfg, reqs)
+    check_served(phase, cfg, reqs)
     check(st["bucketed"] is False and eng.bucketed is False,
-          "the moe engine took the bucketed prefill path")
+          f"{phase}: the engine took the bucketed prefill path")
     check(shapes == [[1, len(r.prompt)] for r in reqs],
-          f"prefills {shapes} are not one [1, S] per request")
+          f"{phase}: prefills {shapes} are not one [1, S] per request")
     check(st["prefill_calls"] == len(reqs),
-          f"{st['prefill_calls']} prefill calls for {len(reqs)} requests")
-    L = cfg.n_layers
-    forwards = st["prefill_calls"] + st["decode_steps"]
-    per_forward = {"grouped": 3 * L, "pod_gemm": 4 * L + 1}
+          f"{phase}: {st['prefill_calls']} prefill calls for {len(reqs)} "
+          f"requests")
+    check(run["syncs"] == st["prefill_calls"] + st["chunks"],
+          f"{phase}: host syncs {run['syncs']} != prefills + decode chunks")
+    return {"reqs": reqs, "eng": eng, "run": run, "st": st,
+            "forwards": st["prefill_calls"] + st["decode_steps"],
+            "launches": {k: v["launches"]
+                         for k, v in run["launches"].items()},
+            "figures": dict(
+                prompt_lens=[len(r.prompt) for r in reqs],
+                max_new_tokens=MAX_NEW, requests_done=len(reqs),
+                tokens_generated=sum(len(r.out) for r in reqs),
+                wall_s=run["wall_s"], bucketed=eng.bucketed,
+                prefill_shapes=shapes, prefill_calls=st["prefill_calls"],
+                decode_chunks=st["chunks"], decode_steps=st["decode_steps"],
+                host_syncs=run["syncs"],
+                gib_allocated_at_start=start_bytes / 2 ** 30,
+                gib_peak=peak / 2 ** 30)}
+
+
+def check_per_forward(phase: str, launches: dict, per_forward: dict,
+                      forwards: int) -> None:
     for name, n in per_forward.items():
         check(launches[name] == n * forwards,
-              f"{name} launches {launches[name]} != {n} x {forwards} "
-              f"forwards")
+              f"{phase}: {name} launches {launches[name]} != {n} x "
+              f"{forwards} forwards")
+
+
+def phase_serve_moe(model, params):
+    """dbrx through exact-length prefill (flash, grouped and pod GEMMs) and
+    fused decode; every MoE layer's experts on the grouped kernel."""
+    cfg = model.cfg
+    out = exact_length_run("serve_moe", model, params, MOE_SERVE)
+    reqs, st, launches = out["reqs"], out["st"], out["launches"]
+    launches["pod_gemm_by_mainloop"] = hopper_mainloops("serve_moe")
+    launches["flash_by_mainloop"] = flash_mainloops("serve_moe")
+    L = cfg.n_layers
+    per_forward = {"grouped": 3 * L, "pod_gemm": 4 * L + 1}
+    check_per_forward("serve_moe", launches, per_forward, out["forwards"])
     check(launches["flash"] == L * st["prefill_calls"],
           f"flash launches {launches['flash']} != {L} x "
           f"{st['prefill_calls']} prefill calls (none per decode step)")
-    # rows per expert of each prefill (the routing's groups x capacity):
-    # the experts of those past 64 rows on wgmma, every other on wmma
-    rows = [expert_rows(cfg, s) for s in (len(r.prompt) for r in reqs)]
-    wide = 3 * L * sum(m > sg.SPLITK_MAX_M for m in rows)
-    check(grouped_by["wgmma"] == wide and grouped_by["simt"] == 0 and
-          grouped_by["wmma"] == launches["grouped"] - wide,
-          f"grouped launches by mainloop {grouped_by}: {wide} should be "
-          f"wgmma (rows per expert at prefill {rows}), the rest wmma")
-    launches["grouped_rows_per_expert_at_prefill"] = rows
+    grouped = grouped_mainloop_gate("serve_moe", cfg, reqs,
+                                    launches["grouped"], L)
+    launches["grouped_by_mainloop"] = grouped["by_mainloop"]
+    launches["grouped_rows_per_expert_at_prefill"] = \
+        grouped["rows_per_expert_at_prefill"]
     check(launches["gemm_nt"] == 0 and launches["ssd"] == 0,
           f"dbrx launched an NT-GEMM or SSD kernel: {launches}")
-    check(syncs == st["prefill_calls"] + st["chunks"],
-          f"host syncs {syncs} != prefills + decode chunks")
-    generated = sum(len(r.out) for r in reqs)
-    pair = graphed_vs_eager("serve_moe", model, params, eng, run, reqs,
-                            make_paged_requests, MOE_SERVE)
+    pair = graphed_vs_eager("serve_moe", model, params, out["eng"],
+                            out["run"], reqs, make_paged_requests, MOE_SERVE)
     emit("serve_moe", arch=cfg.name, n_layers=L, d_model=cfg.d_model,
          experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
-         attention_impl=model.impl, **MOE_SERVE,
-         prompt_lens=[len(r.prompt) for r in reqs], max_new_tokens=MAX_NEW,
-         requests_done=len(reqs), tokens_generated=generated,
-         wall_s=wall, bucketed=eng.bucketed, prefill_shapes=shapes,
-         prefill_calls=st["prefill_calls"],
-         decode_chunks=st["chunks"], decode_steps=st["decode_steps"],
-         graphed_vs_eager=pair,
-         host_syncs=syncs, launches=launches,
-         launches_per_forward=per_forward,
-         gib_allocated_at_start=start_bytes / 2 ** 30,
-         gib_peak=peak / 2 ** 30)
+         attention_impl=model.impl, **MOE_SERVE, **out["figures"],
+         graphed_vs_eager=pair, launches=launches,
+         launches_per_forward=per_forward)
     return reqs, launches
 
 
@@ -2635,12 +2718,16 @@ def batch_first_differences(served, oracle, ref: ReferenceEngine):
     return diffs, [d for d in diffs if d["step"] == first]
 
 
-def phase_moe_oracle(model, params) -> None:
+def phase_moe_oracle(model, params, phase: str = "moe_oracle",
+                     extra=None) -> dict:
     """ServeEngine vs the per-token oracle on MOE_ORACLE_REQUESTS = slots
     requests of equal budget, so every decode batch is fully live in both
     engines and no dead lane takes expert capacity. Agreement reported at
-    MOE_LAYERS; the margin rule held at the batch's first difference on
-    ORACLE_LAYERS layers of the same weights."""
+    the served depth; the margin rule held at the batch's first
+    difference on ORACLE_LAYERS layers of the same weights. dbrx, and
+    deepseek-v2 as phase mla_oracle (its cut: dense0 and one MoE layer).
+    extra(), if given, adds its dict to the phase's line, which is
+    printed before the gate; it is returned."""
     tol = TOLERANCES["token_margin"]
     cfg = model.cfg
     oracle_kw = dict(slots=MOE_SERVE["slots"], max_len=MOE_SERVE["max_len"])
@@ -2661,18 +2748,165 @@ def phase_moe_oracle(model, params) -> None:
         wall = serve(ref, oracle)
         diffs, earliest = batch_first_differences(served, oracle, ref)
         out[label] = {"n_layers": m.cfg.n_layers,
+                      "segments": [(s_.name, s_.n) for s_ in m.segs],
                       "token_exact": len(served) - len(diffs),
                       "first_differences": diffs,
                       "earliest_in_batch": earliest, "oracle_wall_s": wall}
-    emit("moe_oracle", requests=MOE_ORACLE_REQUESTS, **out,
+    more = extra() if extra is not None else {}
+    emit(phase, requests=MOE_ORACLE_REQUESTS, **out, **more,
          margin_tolerance=f"{tol.atol} x max|logit| at the batch's first "
                           f"difference")
     for d in out["cut_depth"]["earliest_in_batch"]:
         check(d["margin"] <= tol.atol * d["max_abs_logit"],
-              f"{ORACLE_LAYERS}-layer dbrx cut: request {d['rid']} differs "
-              f"at token {d['step']} (the batch's first difference) with "
-              f"oracle margin {d['margin']} > {tol.atol} x max|logit| "
-              f"{d['max_abs_logit']}")
+              f"{ORACLE_LAYERS}-layer {cfg.name} cut: request {d['rid']} "
+              f"differs at token {d['step']} (the batch's first "
+              f"difference) with oracle margin {d['margin']} > {tol.atol} "
+              f"x max|logit| {d['max_abs_logit']}")
+    return more
+
+
+# --------------------------------------------------------------------------
+# 13b. serve_mla and 14b. mla_oracle
+# --------------------------------------------------------------------------
+
+def grouped_mainloop_gate(phase: str, cfg, reqs: list[Request],
+                          launches: int, moe_layers: int) -> dict:
+    """A served MoE run's grouped launches by mainloop: wgmma exactly for
+    the prefills that give an expert more than 64 rows (the routing's
+    groups x capacity), wmma for every other launch (every decode step)."""
+    by = dict(sg.grouped_systolic_gemm_cuda.mainloop_launches)
+    rows = [expert_rows(cfg, len(r.prompt)) for r in reqs]
+    wide = 3 * moe_layers * sum(m > sg.SPLITK_MAX_M for m in rows)
+    check(by["wgmma"] == wide and by["simt"] == 0 and
+          by["wmma"] == launches - wide,
+          f"{phase}: grouped launches by mainloop {by}: {wide} should be "
+          f"wgmma (rows per expert at prefill {rows}), the rest wmma")
+    return {"by_mainloop": by, "rows_per_expert_at_prefill": rows}
+
+
+def mla_cache_bytes(cfg, cache: dict) -> dict:
+    """The served latent caches' bytes (c_kv and k_rope of every layer,
+    slot and position) against a GQA cache of the same heads: K at
+    qk_nope + qk_rope and V at v_head_dim for each of n_heads, in the same
+    dtype."""
+    m = cfg.mla
+    mla = sum(node["attn"].c_kv.nbytes + node["attn"].k_rope.nbytes
+              for node in cache.values())
+    per_mla = m.kv_lora_rank + m.qk_rope_head_dim
+    per_gqa = cfg.n_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim
+                             + m.v_head_dim)
+    return {"mla_bytes": mla, "gqa_same_heads_bytes": mla * per_gqa // per_mla,
+            "values_per_token_layer": per_mla,
+            "gqa_values_per_token_layer": per_gqa}
+
+
+def phase_serve_mla(model, params):
+    """deepseek-v2 through exact-length prefill (MLA decompressed into
+    chunked attention, torch ops; the experts on the grouped kernel at G =
+    160; the first layer's MLP, the shared experts and the head on the pod
+    GEMM) and fused decode (MLA absorbed over the latent cache), graphed
+    and eager."""
+    cfg = model.cfg
+    out = exact_length_run("serve_mla", model, params, MLA_SERVE)
+    reqs, launches = out["reqs"], out["launches"]
+    launches["pod_gemm_by_mainloop"] = hopper_mainloops("serve_mla")
+    L, fd = cfg.n_layers, cfg.moe.first_dense_layers
+    # the dense layers' MLP and each MoE layer's shared experts (3 each)
+    # and the head on the pod GEMM; the routed experts on the grouped one
+    per_forward = {"pod_gemm": 3 * L + 1, "grouped": 3 * (L - fd)}
+    check_per_forward("serve_mla", launches, per_forward, out["forwards"])
+    check(launches["flash"] == 0 and launches["gemm_nt"] == 0 and
+          launches["ssd"] == 0,
+          f"deepseek launched a flash, NT-GEMM or SSD kernel: {launches}")
+    grouped = grouped_mainloop_gate("serve_mla", cfg, reqs,
+                                    launches["grouped"], L - fd)
+    launches["grouped_by_mainloop"] = grouped["by_mainloop"]
+    launches["grouped_rows_per_expert_at_prefill"] = \
+        grouped["rows_per_expert_at_prefill"]
+    pair = graphed_vs_eager("serve_mla", model, params, out["eng"],
+                            out["run"], reqs, make_paged_requests, MLA_SERVE)
+    for label in ("graphed", "eager"):
+        pair[label]["decode_chunk_profile"]["top_kernels"] = top_kernels(
+            f"serve_mla-{label}")
+    weights = sum(t.nbytes for t in param_tensors(params))
+    emit("serve_mla", arch=cfg.name, n_layers=L,
+         of_layers=get_arch(MLA_ARCH).n_layers, d_model=cfg.d_model,
+         heads=cfg.n_heads, mla=dataclasses.asdict(cfg.mla),
+         experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+         shared_experts=cfg.moe.num_shared_experts,
+         segments=[(s_.name, s_.kind, s_.n) for s_ in model.segs],
+         attention_impl=model.impl, **MLA_SERVE, **out["figures"],
+         graphed_vs_eager=pair, launches=launches,
+         launches_per_forward=per_forward,
+         cache=mla_cache_bytes(cfg, out["eng"].cache), weight_bytes=weights,
+         decode_floor_ms=(weights - params["embed"]["tok"].nbytes)
+         / HBM_BYTES_PER_S * 1e3)
+    return reqs, launches
+
+
+def absorbed_vs_decompressed(model, params) -> dict:
+    """At ORACLE_LAYERS (dense0 and one MoE layer), the last-position
+    logits of a [1, S] prefill (MLA decompressed into chunked attention)
+    against feeding the same S tokens through the absorbed decode one at
+    a time: the two forms share no arithmetic past the latent. The cut's
+    capacity factor is raised to E so that no assignment drops in either
+    form (a prefill's tokens share expert capacity, a lone decode token
+    never runs out of it); the routed experts and the rest are the served
+    ones. Gated by the margin rule where the argmax differs."""
+    tol = TOLERANCES["token_margin"]
+    cut_model, cut_params = cut_depth(model, params, ORACLE_LAYERS)
+    cfg = cut_model.cfg
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    cut_model = Model(cfg, attention_impl=model.impl, use_pallas=True)
+    prompt = make_paged_requests(cfg.vocab)[1].prompt      # 957 tokens
+    S = len(prompt)
+    tokens = torch.as_tensor(np.asarray(prompt, np.int64), device="cuda")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        pre, _ = cut_model.prefill(cut_params, {"tokens": tokens[None]},
+                                   cut_model.init_cache(1, MLA_SERVE[
+                                       "max_len"]))
+        cache = cut_model.init_cache(1, MLA_SERVE["max_len"])
+        for t in range(S):
+            dec, cache = cut_model.decode_step(cut_params, tokens[t:t + 1],
+                                               cache, t)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    a, b = pre[0].float(), dec[0].float()
+    top2 = torch.topk(a, 2).values
+    out = {"S": S, "n_layers": cfg.n_layers,
+           "capacity_factor": cfg.moe.capacity_factor,
+           "max_abs_diff": float((a - b).abs().max()),
+           "max_abs_logit": float(a.abs().max()),
+           "argmax_equal": bool(a.argmax() == b.argmax()),
+           "prefill_margin": float(top2[0] - top2[1]),
+           "finite": bool(torch.isfinite(a).all() and
+                          torch.isfinite(b).all()),
+           "cache_length": int(cache["moe"]["attn"].length[0, 0]),
+           "wall_s": wall,
+           "margin_tolerance": f"{tol.atol} x max|logit|"}
+    return out
+
+
+def phase_mla_oracle(model, params) -> None:
+    """deepseek-v2's engine against the per-token oracle (phase_moe_oracle:
+    4 requests of equal budget, full depth reported, the margin rule at
+    the batch's first difference on dense0 and one MoE layer), and the
+    absorbed decode against the decompressed prefill, on the same margin
+    rule."""
+    tol = TOLERANCES["token_margin"]
+    out = phase_moe_oracle(model, params, phase="mla_oracle", extra=lambda: {
+        "absorbed_vs_decompressed": absorbed_vs_decompressed(model, params)})
+    a = out["absorbed_vs_decompressed"]
+    check(a["finite"], "absorbed vs decompressed: non-finite logits")
+    check(a["cache_length"] == a["S"],
+          f"absorbed decode left length {a['cache_length']} != {a['S']}")
+    check(a["argmax_equal"] or
+          a["prefill_margin"] <= tol.atol * a["max_abs_logit"],
+          f"absorbed decode's argmax differs from the decompressed "
+          f"prefill's with margin {a['prefill_margin']} > {tol.atol} x "
+          f"max|logit| {a['max_abs_logit']}")
 
 
 # --------------------------------------------------------------------------
@@ -3436,11 +3670,36 @@ def forward_gemms(cfg) -> dict:
     return shapes
 
 
-def pod_gemm_rows(cfg, phases, seed: int):
+def mla_forward_gemms(cfg) -> tuple[dict, dict]:
+    """deepseek-v2's pod GEMMs of one forward, name -> (K, N, activation),
+    and each one's launches a forward: the first dense layers' gate, up
+    and down, every MoE layer's shared experts (gate, up, down), the
+    untied head. MLA's projections are einsums, as in the reference."""
+    d, L = cfg.d_model, cfg.n_layers
+    fd = cfg.moe.first_dense_layers
+    fs = cfg.moe.d_ff_expert * cfg.moe.num_shared_experts
+    shapes = {"dense_gate": (d, cfg.d_ff, "silu"),
+              "dense_up": (d, cfg.d_ff, None),
+              "dense_down": (cfg.d_ff, d, None),
+              "shared_gate": (d, fs, "silu"), "shared_up": (d, fs, None),
+              "shared_down": (fs, d, None), "head": (d, cfg.vocab, None)}
+    counts = {name: (1 if name == "head" else
+                     fd if name.startswith("dense") else L - fd)
+              for name in shapes}
+    return shapes, counts
+
+
+def pod_gemm_rows(cfg, phases, seed: int, gemms=None):
     """The pod GEMMs of one cfg forward (bf16, bf16 out) at each (phase, M,
     iters): per-shape rows, and per phase the sums over one forward (each
-    projection once per layer, the head once)."""
-    shapes = forward_gemms(cfg)
+    projection once per layer, the head once; or `gemms`: the shapes and
+    their launches a forward, as mla_forward_gemms gives them)."""
+    if gemms is None:
+        shapes = forward_gemms(cfg)
+        counts = {name: 1 if name == "head" else cfg.n_layers
+                  for name in shapes}
+    else:
+        shapes, counts = gemms
     g = torch.Generator("cuda").manual_seed(seed)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
     rows, worst = [], 0.0
@@ -3478,17 +3737,16 @@ def pod_gemm_rows(cfg, phases, seed: int):
             row["bound_ms"], row["bound_by"] = bound(
                 2 * M * N * K, 2 * (M * K + K * N + M * N))
             rows.append(row)
-            per_forward = 1 if name == "head" else cfg.n_layers
             for key in totals[phase]:
-                totals[phase][key] += per_forward * row[key]
+                totals[phase][key] += counts[name] * row[key]
             del x, w
-    return rows, totals, worst, (len(shapes) - 1) * cfg.n_layers + 1
+    return rows, totals, worst, sum(counts.values())
 
 
 def gemm_line(cfg, launches: int, by_mainloop: dict, moe_cfg,
               moe_launches: int, moe_by_mainloop: dict, hybrid_cfg,
               hybrid_table: dict, guard: dict, dense: dict,
-              dense_served: dict) -> dict:
+              dense_served: dict, mla_cfg, mla_launches: dict) -> dict:
     """granite-8b's pod GEMMs at decode (M = SLOTS) and a [SLOTS, 256]
     prefill, the line's own numbers; dbrx-132b's q/k/v/o and untied head
     at decode and at its longest exact-length prefill (M = 1277) under
@@ -3498,8 +3756,11 @@ def gemm_line(cfg, launches: int, by_mainloop: dict, moe_cfg,
     guard: a forward's ms under off, probe and abft, the launches by
     mainloop of a forward and of the guarded served runs) under "guard";
     minitron-8b's and nemotron-4-340b's shapes (phase kernel) and the
-    dense archs' served launches by mainloop under "dense_archs".
-    Launches by mainloop are the served runs'."""
+    dense archs' served launches by mainloop under "dense_archs";
+    deepseek-v2's 25 of a forward (the dense layer's MLP, the shared
+    experts, the head; mla_forward_gemms) at decode and at its longest
+    exact-length prefill (M = 1277) under "deepseek". Launches by
+    mainloop are the served runs'."""
     rows, totals, worst, per_fwd = pod_gemm_rows(
         cfg, (("decode", SLOTS, 20), ("prefill", SLOTS * 256, 5)), seed=2)
     moe_rows, moe_totals, moe_worst, moe_per_fwd = pod_gemm_rows(
@@ -3507,6 +3768,9 @@ def gemm_line(cfg, launches: int, by_mainloop: dict, moe_cfg,
     h_rows, h_totals, h_worst, h_per_fwd = pod_gemm_rows(
         hybrid_cfg, (("decode", SLOTS, 20), ("prefill", SLOTS * 2048, 3)),
         seed=17)
+    ds_rows, ds_totals, ds_worst, ds_per_fwd = pod_gemm_rows(
+        mla_cfg, (("decode", SLOTS, 20), ("prefill", 1277, 3)), seed=29,
+        gemms=mla_forward_gemms(mla_cfg))
     head = [r for r in h_rows if r["gemm"] == "head"]
     check(all(r["plan"][0] == "wmma" for r in head),
           f"hymba's head ran {[r['plan'] for r in head]}, not wmma")
@@ -3516,7 +3780,7 @@ def gemm_line(cfg, launches: int, by_mainloop: dict, moe_cfg,
         "source": "src/repro_torch/kernels/systolic_gemm/csrc/systolic_gemm.cu",
         "replaces": "src/repro/kernels/systolic_gemm/systolic_gemm.py:121",
         "launches": launches, "launches_by_mainloop": by_mainloop,
-        "max_abs_err": max(worst, moe_worst, h_worst),
+        "max_abs_err": max(worst, moe_worst, h_worst, ds_worst),
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": "bytes",
         "library_ms": dec["library_ms"],
@@ -3545,6 +3809,14 @@ def gemm_line(cfg, launches: int, by_mainloop: dict, moe_cfg,
                   "served_abft_by_mainloop": guard["served_abft_by_mainloop"],
                   "served_probe_by_mainloop":
                       guard["served_probe_by_mainloop"]},
+        "deepseek": {"arch": mla_cfg.name, "n_layers": mla_cfg.n_layers,
+                     "launches": mla_launches["pod_gemm"],
+                     "launches_by_mainloop":
+                         mla_launches["pod_gemm_by_mainloop"],
+                     "per_forward": ds_per_fwd,
+                     "decode_forward": ds_totals["decode"],
+                     "prefill_forward_1277": ds_totals["prefill"],
+                     "shapes": ds_rows},
         "dense_archs": {"shapes": dense["rows"],
                         "nemotron_decode_step": dense["nemotron_decode_step"],
                         "served": {a: {"n_layers": d["n_layers"],
@@ -3834,34 +4106,23 @@ def ssd_line(cfg, launches: int, by_mainloop: dict, hybrid_cfg,
     }
 
 
-def grouped_line(cfg, launches: int, by_mainloop: dict,
-                 hybrid: dict) -> dict:
-    """dbrx's expert GEMMs (bf16, bf16 out): one decode step's three
-    projections at M = 1 row per expert (x MOE_LAYERS layers = 24
-    launches), and the up and down projections of a 1024-token prefill at
-    M = 320; up at M = 384 too, the same three 128-row tiles per expert
-    without the padding, shows what padding 320 rows costs. The library
-    yardstick is torch.bmm of the same G GEMMs, plus SiLU for the gate.
-    Launches by mainloop are the served run's."""
-    E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
-    shapes = [("decode", "up", 1, d, f, None), ("decode", "gate", 1, d, f,
-                                                "silu"),
-              ("decode", "down", 1, f, d, None),
-              ("prefill", "up", 320, d, f, None),
-              ("prefill", "down", 320, f, d, None),
-              ("prefill", "up", 384, d, f, None)]
-    g = torch.Generator("cuda").manual_seed(12)
+def grouped_rows(G: int, shapes, seed: int):
+    """The grouped kernel at each (phase, name, M, K, N, activation) with G
+    groups (bf16, bf16 out) against its plain version, timed beside it
+    and torch.bmm (plus SiLU for the gate), L2 flushed, with its bound."""
+    g = torch.Generator("cuda").manual_seed(seed)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
     rows, worst = [], 0.0
     for phase, name, M, K, N, act in shapes:
-        x, w = grouped_inputs(E, M, K, N, torch.bfloat16, g)
+        x, w = grouped_inputs(G, M, K, N, torch.bfloat16, g)
         got = sg.grouped_systolic_gemm_cuda(x, w, activation=act,
                                             out_dtype=torch.bfloat16)
         ref = grouped_systolic_gemm_ref(x, w, activation=act,
                                         out_dtype=torch.bfloat16)
         err = float((got.double() - ref.double()).abs().max())
         check(TOLERANCES["gemm_bf16out"].ok(got, ref),
-              f"grouped {phase} {name}: kernel disagrees (max_abs_err {err})")
+              f"grouped G={G} {phase} {name}: kernel disagrees "
+              f"(max_abs_err {err})")
         worst = max(worst, err)
         del got, ref
 
@@ -3869,7 +4130,7 @@ def grouped_line(cfg, launches: int, by_mainloop: dict,
             y = torch.bmm(x, w)
             return F.silu(y) if act == "silu" else y
         iters = 20 if phase == "decode" else 5
-        row = {"gemm": name, "phase": phase, "G": E, "M": M, "K": K, "N": N,
+        row = {"gemm": name, "phase": phase, "G": G, "M": M, "K": K, "N": N,
                "plan": list(sg.gemm_plan("grouped", M, N, K, torch.bfloat16,
                                          True)),
                "ms": time_ms(lambda: sg.grouped_systolic_gemm_cuda(
@@ -3881,18 +4142,51 @@ def grouped_line(cfg, launches: int, by_mainloop: dict,
                "library_ms": time_ms(library, iters, flush),
                "max_abs_err": err}
         row["bound_ms"], row["bound_by"] = bound(
-            2 * E * M * N * K, 2 * E * (M * K + K * N + M * N))
+            2 * G * M * N * K, 2 * G * (M * K + K * N + M * N))
         rows.append(row)
         del x, w
+    return rows, worst
+
+
+def grouped_line(cfg, launches: int, by_mainloop: dict,
+                 hybrid: dict, mla_cfg, mla_launches: dict) -> dict:
+    """dbrx's expert GEMMs (bf16, bf16 out): one decode step's three
+    projections at M = 1 row per expert (x MOE_LAYERS layers = 24
+    launches), and the up and down projections of a 1024-token prefill at
+    M = 320; up at M = 384 too, the same three 128-row tiles per expert
+    without the padding, shows what padding 320 rows costs. The library
+    yardstick is torch.bmm of the same G GEMMs, plus SiLU for the gate.
+    Under "deepseek": deepseek-v2's 160 experts, a decode step's three
+    projections at M = 1 (x 7 MoE layers = 21 launches) and the
+    1277-token prompt's up and down at M = 59. Launches by mainloop are
+    the served runs'."""
+    E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+    rows, worst = grouped_rows(E, [
+        ("decode", "up", 1, d, f, None), ("decode", "gate", 1, d, f, "silu"),
+        ("decode", "down", 1, f, d, None),
+        ("prefill", "up", 320, d, f, None),
+        ("prefill", "down", 320, f, d, None),
+        ("prefill", "up", 384, d, f, None)], seed=12)
     L = cfg.n_layers
     dec = {k: L * sum(r[k] for r in rows if r["phase"] == "decode")
            for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    E, d, f = (mla_cfg.moe.num_experts, mla_cfg.d_model,
+               mla_cfg.moe.d_ff_expert)
+    moe_layers = mla_cfg.n_layers - mla_cfg.moe.first_dense_layers
+    ds_rows, ds_worst = grouped_rows(E, [
+        ("decode", "up", 1, d, f, None), ("decode", "gate", 1, d, f, "silu"),
+        ("decode", "down", 1, f, d, None),
+        ("prefill", "up", 59, d, f, None),
+        ("prefill", "down", 59, f, d, None)], seed=31)
+    ds_dec = {k: moe_layers * sum(r[k] for r in ds_rows
+                                  if r["phase"] == "decode")
+              for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
     return {
         "name": "grouped_systolic_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/systolic_gemm/csrc/systolic_gemm.cu",
         "replaces": "src/repro/kernels/systolic_gemm/systolic_gemm.py:182",
         "launches": launches, "launches_by_mainloop": by_mainloop,
-        "max_abs_err": worst,
+        "max_abs_err": max(worst, ds_worst),
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": "bytes",
         "library_ms": dec["library_ms"],
@@ -3901,6 +4195,12 @@ def grouped_line(cfg, launches: int, by_mainloop: dict,
                    f"expert (per-shape rows below, the prefill rows per "
                    f"launch; L2 flushed)"),
         "shapes": rows, "hybrid": hybrid,
+        "deepseek": {"arch": mla_cfg.name, "n_layers": mla_cfg.n_layers,
+                     "launches": mla_launches["grouped"],
+                     "launches_by_mainloop":
+                         mla_launches["grouped_by_mainloop"],
+                     "per_forward": 3 * moe_layers,
+                     "decode_step": ds_dec, "shapes": ds_rows},
     }
 
 
@@ -3982,6 +4282,29 @@ def main() -> int:
         emit("moe_memory",
              gib_peak=torch.cuda.max_memory_allocated() / 2 ** 30)
         del moe_params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        mla_cfg = dataclasses.replace(get_arch(MLA_ARCH), n_layers=MLA_LAYERS)
+        t0 = time.perf_counter()
+        freed = torch.cuda.memory_allocated()
+        mla_model = Model(mla_cfg, attention_impl="pallas", use_pallas=True)
+        mla_params = mla_model.init(torch.Generator("cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        emit("init", arch=mla_cfg.name, n_layers=MLA_LAYERS,
+             of_layers=get_arch(MLA_ARCH).n_layers,
+             params=mla_model.param_count(),
+             seconds=time.perf_counter() - t0,
+             gib_allocated_before=freed / 2 ** 30,
+             gib_allocated=torch.cuda.memory_allocated() / 2 ** 30)
+        _, mla_launches = phase_serve_mla(mla_model, mla_params)
+        torch.cuda.synchronize()
+        phase_mla_oracle(mla_model, mla_params)
+        torch.cuda.synchronize()
+        emit("mla_memory",
+             gib_peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del mla_params
+        gc.collect()
         torch.cuda.empty_cache()
 
         hybrid_cfg = get_arch(HYBRID_ARCH)
@@ -4010,7 +4333,8 @@ def main() -> int:
         kernels = {"kernels": [gemm_line(
             cfg, launches, by_mainloop, moe_cfg, moe_launches["pod_gemm"],
             moe_launches["pod_gemm_by_mainloop"], hybrid_cfg,
-            hybrid["pod_gemm"], guard, dense_gemms, dense_served),
+            hybrid["pod_gemm"], guard, dense_gemms, dense_served, mla_cfg,
+            mla_launches),
                                flash_line(cfg, flash_by_mainloop, moe_cfg,
                                           moe_launches["flash_by_mainloop"],
                                           hybrid_cfg, hybrid["flash"],
@@ -4025,7 +4349,8 @@ def main() -> int:
                                grouped_line(
                                    moe_cfg, moe_launches["grouped"],
                                    moe_launches["grouped_by_mainloop"],
-                                   hybrid["grouped"])]}
+                                   hybrid["grouped"], mla_cfg,
+                                   mla_launches)]}
         torch.cuda.synchronize()
         gpu = gpu_name_and_power()
     except Exception:  # every phase failure ends the run non-zero

@@ -7,6 +7,7 @@ repro/models/model.py).
     # or Model(get_arch("dbrx-132b"), attention_impl="pallas", use_pallas=True)
     # or Model(get_arch("hymba-1.5b"), attention_impl="pallas",
     #          ssd_impl="pallas", use_pallas=True)
+    # or Model(get_arch("deepseek-v2-236b"), use_pallas=True)  # MLA
     params = model.init(torch.Generator("cuda").manual_seed(0))
     logits, cache = model.prefill(params, batch, model.init_cache(4, 512))
     logits, cache = model.decode_step(params, tok, cache, position)
@@ -28,14 +29,16 @@ from .attention import KVCache, PagedKVCache, RingKVCache
 from .layers import (apply_norm, embed, embed_schema, init_from_schema,
                      norm_schema, param_count, unembed)
 from .ssm import SSMCache
-from .transformer import Segment, apply_block, block_schema, segments
+from .transformer import (MLACache, Segment, apply_block, block_schema,
+                          segments)
 
 
 def _index(tree, i: int):
     """Layer i of a stacked parameter or cache tree (views, no copies)."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
-    if isinstance(tree, (KVCache, PagedKVCache, RingKVCache, SSMCache)):
+    if isinstance(tree, (KVCache, PagedKVCache, RingKVCache, MLACache,
+                         SSMCache)):
         return tree.layer(i)
     return tree[i]
 
@@ -133,7 +136,8 @@ class Model:
                    page_size: int | None = None,
                    kv_pages: int | None = None,
                    ring_len: int | None = None) -> dict:
-        """Per segment: ssm, an SSMCache; dense and moe, a KVCache; hybrid,
+        """Per segment: ssm, an SSMCache; dense and moe, a KVCache (an
+        MLACache of the latent when cfg.mla is set); hybrid,
         an SSMCache beside a RingKVCache of min(window, ring_len) slots in
         a window segment and a KVCache in a global one. ring_len defaults
         to max_len; the paged engine's prefill transient spans a bucket's
@@ -152,6 +156,8 @@ class Model:
             raise ValueError(
                 f"paged KV cache requires a bucketed-prefill family "
                 f"(dense/ssm/hybrid), not {cfg.family}")
+        if page_size is not None and cfg.mla is not None:
+            raise ValueError("paged KV cache does not support MLA caches")
         hd = cfg.resolved_head_dim
         dev = self.device
         ring_len = max_len if ring_len is None else ring_len
@@ -166,7 +172,12 @@ class Model:
         caches: dict = {}
         for seg in self.segs:
             node: dict = {}
-            if seg.kind != "ssm":
+            if cfg.mla is not None and seg.kind in ("dense", "moe"):
+                node["attn"] = MLACache.zeros(
+                    batch, max_len, cfg.mla.kv_lora_rank,
+                    cfg.mla.qk_rope_head_dim, dtype, layers=seg.n,
+                    device=dev)
+            elif seg.kind != "ssm":
                 node["attn"] = kv(seg.n) if seg.window is None else \
                     RingKVCache.zeros(batch, min(seg.window, ring_len),
                                       cfg.n_kv_heads, hd, dtype,

@@ -6,25 +6,27 @@ whose parameters carry a leading `layers` axis. The reference scans the
 stack with lax.scan; here a Python loop walks it (model.py). Ported so
 far: the dense family (GQA attention with a dense or paged KV cache and
 the (gated) MLP), the SSM family (one Mamba-2 mixer per layer,
-models/ssm.py), the MoE family with GQA attention (dbrx; the MoE FFN of
-models/moe.py after a first `first_dense_layers` dense layers) and the
-hybrid family (hymba: attention and a Mamba-2 mixer side by side in every
-layer, sliding-window ring caches except in the global-attention layers,
-which split the stack into segments). MLA attention (deepseek-v2) and the
-other families raise NotImplementedError.
+models/ssm.py), the MoE family (the MoE FFN of models/moe.py after a
+first `first_dense_layers` dense layers) with GQA attention (dbrx) or
+multi-head latent attention (deepseek-v2: a latent cache, decode in the
+weight-absorbed form), and the hybrid family (hymba: attention and a
+Mamba-2 mixer side by side in every layer, sliding-window ring caches
+except in the global-attention layers, which split the stack into
+segments). The other families raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from ..configs.base import ArchConfig
-from .attention import (KVCache, PagedKVCache, RingKVCache, attention,
-                        decode_attention)
+from .attention import (NEG_INF, KVCache, PagedKVCache, RingKVCache,
+                        attention, chunked_attention, decode_attention)
 from .layers import (ParamSpec, apply_mlp, apply_norm, apply_rope,
-                     mlp_schema, norm_schema, pod_dense)
+                     mlp_schema, norm_schema, pod_dense, rmsnorm)
 from .moe import apply_moe, moe_schema
 from .ssm import apply_ssm, ssm_schema
 
@@ -38,10 +40,6 @@ class Segment:
 
 
 def segments(cfg: ArchConfig) -> list[Segment]:
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention (deepseek-v2) is not ported yet; "
-            f"repro_torch serves MoE models with GQA attention (dbrx)")
     if cfg.family == "moe":
         fd = cfg.moe.first_dense_layers
         segs = [Segment("dense0", "dense", fd)] if fd else []
@@ -70,6 +68,20 @@ def attn_schema(cfg: ArchConfig, layers: int | None) -> dict:
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     lead = (layers,) if layers else ()
+    if cfg.mla:
+        m = cfg.mla
+        qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+        return {
+            "q_a": ParamSpec(lead + (d, m.q_lora_rank)),
+            "q_a_norm": ParamSpec(lead + (m.q_lora_rank,), init="ones"),
+            "q_b": ParamSpec(lead + (m.q_lora_rank, cfg.n_heads, qk_dim)),
+            "kv_a": ParamSpec(lead + (d, m.kv_lora_rank
+                                      + m.qk_rope_head_dim)),
+            "kv_a_norm": ParamSpec(lead + (m.kv_lora_rank,), init="ones"),
+            "kv_b": ParamSpec(lead + (m.kv_lora_rank, cfg.n_heads,
+                                      m.qk_nope_head_dim + m.v_head_dim)),
+            "o": ParamSpec(lead + (cfg.n_heads, m.v_head_dim, d)),
+        }
     return {
         "q": ParamSpec(lead + (d, cfg.n_heads, hd)),
         "k": ParamSpec(lead + (d, cfg.n_kv_heads, hd)),
@@ -138,6 +150,106 @@ def apply_gqa(p, x, cfg: ArchConfig, *, positions, window: int | None = None,
     return torch.einsum("bshk,hkd->bsd", out, p["o"])
 
 
+@dataclasses.dataclass
+class MLACache:
+    """Latent cache of multi-head latent attention, updated in place:
+    `c_kv` [(L,) B, S_max, kv_lora] (the normed latent), `k_rope` [(L,) B,
+    S_max, rope_dim] (the roped shared key), `length` [(L,) B] filled
+    positions per lane. Per token and layer it holds kv_lora + rope_dim
+    values, whatever the number of heads."""
+    c_kv: torch.Tensor
+    k_rope: torch.Tensor
+    length: torch.Tensor
+
+    @staticmethod
+    def zeros(batch, max_len, kv_lora, rope_dim, dtype=torch.bfloat16,
+              layers: int | None = None, device=None):
+        s1 = (batch, max_len, kv_lora)
+        s2 = (batch, max_len, rope_dim)
+        lshape: tuple[int, ...] = (batch,)
+        if layers:
+            s1, s2 = (layers,) + s1, (layers,) + s2
+            lshape = (layers, batch)
+        return MLACache(torch.zeros(s1, dtype=dtype, device=device),
+                        torch.zeros(s2, dtype=dtype, device=device),
+                        torch.zeros(lshape, dtype=torch.int64,
+                                    device=device))
+
+    def layer(self, i: int) -> "MLACache":
+        """Layer i of a stacked cache, as views: writes land in the stack."""
+        return MLACache(self.c_kv[i], self.k_rope[i], self.length[i])
+
+    def append(self, c_new, r_new) -> None:
+        """Write [B, s, kv_lora] and [B, s, rope_dim] at each lane's
+        position `length`, in place, and advance `length` by s. A start
+        past the end is clamped to S_max - s, as the reference's
+        dynamic_update_slice does (KVCache.append). Nothing is read back
+        to the host."""
+        B, s = c_new.shape[0], c_new.shape[1]
+        start = torch.clamp(self.length, 0, self.c_kv.shape[1] - s)  # [B]
+        rows = torch.arange(B, device=c_new.device)[:, None]
+        cols = start[:, None] + torch.arange(s, device=c_new.device)[None, :]
+        self.c_kv[rows, cols] = c_new
+        self.k_rope[rows, cols] = r_new
+        self.length += s
+
+
+def apply_mla(p, x, cfg: ArchConfig, *, positions,
+              cache: MLACache | None = None):
+    """DeepSeek-V2 multi-head latent attention. Prefill (S > 1, or no
+    cache): K and V decompressed per head from the latent through kv_b,
+    the shared roped key broadcast over the heads, and chunked attention
+    at 1/sqrt(qk_nope + qk_rope) whatever the model's attention_impl (the
+    reference keeps MLA on einsums; it has no MLA kernel). Decode (S == 1
+    with a cache): the weight-absorbed form over the whole latent cache
+    with the per-lane length mask, static shapes for the CUDA graphs.
+    Every einsum rounds to x's dtype before the next, as in the
+    reference; the cache is updated in place."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nope, rope, R = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
+    scale = 1.0 / math.sqrt(nope + rope)
+
+    q_lat = rmsnorm(torch.einsum("bsd,dr->bsr", x, p["q_a"]), p["q_a_norm"])
+    q = torch.einsum("bsr,rhk->bshk", q_lat, p["q_b"])
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    kv_lat = torch.einsum("bsd,dr->bsr", x, p["kv_a"])
+    c_kv = rmsnorm(kv_lat[..., :R], p["kv_a_norm"])
+    k_rope = apply_rope(kv_lat[:, :, None, R:], positions,      # [B,S,1,r]
+                        cfg.rope_theta)[:, :, 0, :]
+
+    w_uk = p["kv_b"][..., :nope]                 # [R, H, nope], a view
+    w_uv = p["kv_b"][..., nope:]                 # [R, H, v], a view
+
+    if cache is not None and S == 1:             # absorbed decode
+        cache.append(c_kv, k_rope)
+        ckv, krope = cache.c_kv, cache.k_rope
+        q_c = torch.einsum("bshk,rhk->bshr", q_nope, w_uk)       # [B,1,H,R]
+        s_nope = torch.einsum("bshr,btr->bhst", q_c, ckv)
+        s_rope = torch.einsum("bshk,btk->bhst", q_rope, krope)
+        s = (s_nope + s_rope).float() * scale                    # [B,H,1,T]
+        t_pos = torch.arange(ckv.shape[1], device=x.device)
+        s = s + torch.where(t_pos[None, :] < cache.length[:, None], 0.0,
+                            NEG_INF)[:, None, None, :]
+        pr = torch.softmax(s, dim=-1).to(x.dtype)
+        ctx_c = torch.einsum("bhst,btr->bshr", pr, ckv)          # [B,1,H,R]
+        ctx = torch.einsum("bshr,rhv->bshv", ctx_c, w_uv)
+        return torch.einsum("bshv,hvd->bsd", ctx, p["o"])
+
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, w_uk)
+    v = torch.einsum("bsr,rhv->bshv", c_kv, w_uv)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rope)],
+                  dim=-1)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    out = chunked_attention(qf, k, v, causal=True, softmax_scale=scale)
+    if cache is not None:
+        cache.append(c_kv, k_rope)
+    return torch.einsum("bshv,hvd->bsd", out, p["o"])
+
+
 def block_schema(cfg: ArchConfig, kind: str, layers: int | None) -> dict:
     if kind == "ssm":
         return {"ln_ssm": _norms(cfg, cfg.d_model, layers),
@@ -172,8 +284,10 @@ def apply_block(p, x, cfg: ArchConfig, kind: str, *, positions,
                 use_pallas: bool = False, true_lens=None):
     """One layer, residual. dense: pre-norm GQA attention and pre-norm
     MLP, `cache` {"attn": KVCache | PagedKVCache} or None. moe: the same
-    with the MoE FFN (models/moe.py) in place of the MLP (GQA attention:
-    `segments` refuses MLA). ssm: a pre-norm Mamba-2 mixer, `cache`
+    with the MoE FFN (models/moe.py) in place of the MLP. With cfg.mla,
+    dense and moe blocks attend by apply_mla, `cache` {"attn": MLACache}
+    or None, on einsums even under use_pallas (the reference's MLA has no
+    kernel). ssm: a pre-norm Mamba-2 mixer, `cache`
     {"ssm": SSMCache} or None. hybrid: attention (over `window`, or
     global) and the Mamba-2 mixer both read the same x, each through its
     own norm, and add in as x + (a + s) / 2 before the pre-norm MLP;
@@ -189,9 +303,13 @@ def apply_block(p, x, cfg: ArchConfig, kind: str, *, positions,
     if kind not in ("dense", "moe", "hybrid"):
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     h = apply_norm(p["ln_attn"], x, cfg.norm)
-    a = apply_gqa(p["attn"], h, cfg, positions=positions, window=window,
-                  impl=impl, cache=cache["attn"] if cache else None,
-                  use_pallas=use_pallas, true_lens=true_lens)
+    if cfg.mla is not None and kind in ("dense", "moe"):
+        a = apply_mla(p["attn"], h, cfg, positions=positions,
+                      cache=cache["attn"] if cache else None)
+    else:
+        a = apply_gqa(p["attn"], h, cfg, positions=positions, window=window,
+                      impl=impl, cache=cache["attn"] if cache else None,
+                      use_pallas=use_pallas, true_lens=true_lens)
     if kind == "hybrid":
         s = apply_ssm(p["ssm"], apply_norm(p["ln_ssm"], x, cfg.norm), cfg,
                       cache=cache["ssm"] if cache else None, impl=ssd_impl,

@@ -115,6 +115,7 @@ from ..kernels.systolic_gemm.guard import GuardTape, as_guard
 from ..models.attention import KVCache, PagedKVCache, RingKVCache
 from ..models.model import Model
 from ..models.ssm import SSMCache
+from ..models.transformer import MLACache
 from ..runtime import to_host
 from ..train.fault import Ewma
 from .admission import (AdmissionConfig, AdmissionController,  # noqa: F401
@@ -160,12 +161,13 @@ class Request:
 
 
 def _fix_lengths(cache: dict, true_lens: torch.Tensor) -> None:
-    """Reset every KVCache's per-lane lengths from the padded bucket length
-    to the true prompt lengths, in place. A RingKVCache is not a KVCache:
-    its bucketed prefill has set its lengths already."""
+    """Reset every KVCache's and MLACache's per-lane lengths from the
+    padded bucket length to the true prompt lengths, in place. A
+    RingKVCache is not a KVCache: its bucketed prefill has set its lengths
+    already."""
     for node in cache.values():
         for c in node.values():
-            if isinstance(c, KVCache):
+            if isinstance(c, (KVCache, MLACache)):
                 c.length.copy_(true_lens.expand_as(c.length))
 
 
@@ -177,10 +179,12 @@ def _paged_nodes(cache: dict):
 
 
 def _lane_tensors(c) -> tuple:
-    """The tensors of a lane-resident cache node (KVCache, RingKVCache or
-    SSMCache), lane axis second."""
+    """The tensors of a lane-resident cache node (KVCache, RingKVCache,
+    MLACache or SSMCache), lane axis second."""
     if isinstance(c, SSMCache):
         return c.conv, c.state
+    if isinstance(c, MLACache):
+        return c.c_kv, c.k_rope, c.length
     return c.k, c.v, c.length
 
 
@@ -218,9 +222,9 @@ def _reset(cache: dict) -> None:
 
 def _decode_state(cache: dict) -> list[torch.Tensor]:
     """What a decode step advances in place and a retry must find as it
-    was: every KV and ring node's length, the ring keys and values, the
-    SSM conv window and state. Dense and paged KV rows past a length need
-    no copy: the retry writes them again."""
+    was: every KV, MLA and ring node's length, the ring keys and values,
+    the SSM conv window and state. Dense and paged KV rows and MLA latent
+    rows past a length need no copy: the retry writes them again."""
     out = []
     for node in cache.values():
         for c in node.values():

@@ -15,8 +15,9 @@ without a leak, dense and paged; probe heals through retries; the
 guard's events and the injector's counts equal the JAX guarded engine's
 under the same ChaosConfig and VirtualClock. The restore of a guarded
 decode retry: reduced mamba2 and hymba under probe with SDC give the
-clean run's tokens, and fail without the restore. The guarded kernel
-and guarded graphs on the card: tests/test_torch_guard_gpu.py.
+clean run's tokens, and fail without the restore; so does reduced
+deepseek-v2, whose MLA latent lengths the retry restores. The guarded
+kernel and guarded graphs on the card: tests/test_torch_guard_gpu.py.
 """
 
 import jax
@@ -336,7 +337,7 @@ def _jax_gemms(jm, jp, fn):
 
 
 @pytest.mark.parametrize("arch", ["granite-8b", "mamba2-370m", "hymba-1.5b",
-                                  "dbrx-132b"])
+                                  "dbrx-132b", "deepseek-v2-236b"])
 def test_gemm_count_per_forward_equals_the_reference(arch):
     jm, jp, tm, tp = _bridged(arch, jax_kw=dict(use_pallas=True),
                               use_pallas=True)
@@ -547,7 +548,7 @@ def test_guard_events_equal_the_jax_guarded_engine(granite):
 
 
 # --------------------------------------------------------------------------
-# the restore of a guarded decode retry (ssm and hybrid state)
+# the restore of a guarded decode retry (ssm, hybrid and MLA state)
 # --------------------------------------------------------------------------
 
 class _NoRestore(ServeEngine):
@@ -559,7 +560,8 @@ class _NoRestore(ServeEngine):
         pass
 
 
-@pytest.fixture(scope="module", params=["mamba2-370m", "hymba-1.5b"])
+@pytest.fixture(scope="module", params=["mamba2-370m", "hymba-1.5b",
+                                        "deepseek-v2-236b"])
 def stateful(request):
     jm, jp, tm, tp = _bridged(request.param, use_pallas=True)
     return tm, tp

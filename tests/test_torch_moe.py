@@ -36,6 +36,7 @@ from repro.configs import get_arch, reduced
 from repro.models import moe as jmoe
 from repro.models.layers import init_from_schema as jinit
 from repro.models.model import Model as JaxModel
+from repro.models.transformer import segments as jsegments
 from repro.serve.engine import Request as JaxRequest
 from repro.serve.engine import ServeEngine as JaxServeEngine
 from repro.serve.reference import ReferenceEngine as JaxReferenceEngine
@@ -238,13 +239,18 @@ def test_model_logits_match_jax(use_pallas, dtype):
 
 def test_segments_schema_and_paging_for_moe():
     """dbrx is one `moe` segment of GQA + MoE blocks; an MLA model
-    (deepseek-v2) is refused by name; moe prefills exact-length and does
-    not page."""
+    (deepseek-v2) has the reference's segments, a first dense layer
+    before the MoE stack; moe prefills exact-length and does not page."""
     _, tcfg = _cfgs()
     assert [(s.name, s.kind, s.n) for s in segments(tcfg)] == \
         [("moe", "moe", 2)]
-    with pytest.raises(NotImplementedError, match="deepseek-v2"):
-        segments(t_reduced(t_get_arch("deepseek-v2-236b")))
+    for cfg, jcfg in ((t_get_arch("deepseek-v2-236b"),
+                       get_arch("deepseek-v2-236b")),
+                      (t_reduced(t_get_arch("deepseek-v2-236b")),
+                       reduced(get_arch("deepseek-v2-236b")))):
+        assert [(s.name, s.kind, s.n) for s in segments(cfg)] == \
+            [(s.name, s.kind, s.n) for s in jsegments(jcfg)] == \
+            [("dense0", "dense", 1), ("moe", "moe", cfg.n_layers - 1)]
     tm = Model(tcfg, device="cpu")
     sch = tm.schema()["moe"]
     assert set(sch) == {"ln_attn", "attn", "ln_mlp", "moe"}
