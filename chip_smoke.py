@@ -29,7 +29,10 @@ Phases, one JSON line each; any failure exits non-zero:
                (kernel_dense_archs) minitron-8b's up with relu2 in the
                epilogue at M = 4 and 8192 and nemotron-4-340b's decode
                GEMMs at M = 4 (q, k/v, o, up with relu2, down, the
-               256000-row head), bf16 and f32 out within their
+               256000-row head), and whisper-small's (the encoder's q,
+               up with GELU and down at M = 1500 on wgmma, the decoder's
+               at M = 4 on splitk, the head [4 and 64, 768] x [768,
+               51865], N odd, on wmma), bf16 and f32 out within their
                tolerances, each timed beside its plain version,
                torch.matmul with the activation and its bound.
   3. gemm_nt - the same for the transposed-weight kernel (w [N, K], the
@@ -59,7 +62,9 @@ Phases, one JSON line each; any failure exits non-zero:
                prefilled alone ([1, S]) and in a [4, 2S] bucket, at
                granite's and dbrx's heads. nemotron-4-340b's heads (96
                over 8, D 192) at [4, 2048] on the mma mainloop, against
-               both plain versions, timed beside SDPA.
+               both plain versions, timed beside SDPA. whisper-small's
+               encoder, [1, 1500, 12 over 12, 64] non-causal (G = 1, a
+               ragged last key tile), among the cases.
   5. ssd     - the SSD chunk-scan kernel against the Pallas kernel's own
                arithmetic (ssd_kernel_ref) at about one bf16 ulp and
                against the reference (ssd_ref, bf16 state) at its stated
@@ -189,6 +194,31 @@ Phases, one JSON line each; any failure exits non-zero:
                last logits of a [1, 957] prefill against the same tokens
                fed through the absorbed decode one at a time: argmax equal
                or a near tie (the margin rule), max |difference| reported.
+ 14c. serve_audio - after mla_oracle (deepseek's weights freed):
+               whisper-small at full width and depth (12 encoder and 12
+               decoder layers, d 768, 12 heads of 64, d_ff 3072 with GELU,
+               layernorm, vocab 51865 untied; random bf16 weights) as
+               Model(attention_impl="pallas", use_pallas=True), served by
+               ServeEngine(slots 4, max_len 448, src_len 1500,
+               decode_chunk 8) on 8 prompts of 4-64 tokens (whisper's
+               4-token start of transcript, then text), each request with
+               its own bf16 frames [1, 1500, 768] in `extras`, graphed
+               against eager as every serve phase: every request done, 8
+               exact-length prefills of [1, S], each encoder pass 72
+               pod-GEMM and 12 flash launches (none at decode), each
+               prefill's decoder 73 and 12, each decode step 73 and no
+               flash; the encoder's GEMMs on wgmma, the decoder's on
+               splitk, the head on wmma, flash on wgmma; no NT, grouped or
+               SSD launch; one host sync per prefill and decode chunk; a
+               paged engine refuses a request with frames (InvalidRequest,
+               field extras). Reports the encoder's ms beside prefill
+               ms/call, kernels per decode step, the cross K/V bytes and
+               the decode floor.
+ 14d. audio_oracle - the served tokens against the per-token
+               ReferenceEngine on the same weights and frames: agreement
+               and the margin rule reported at 12 + 12 layers, the margin
+               rule held on the first ORACLE_LAYERS encoder and decoder
+               layers of the same weights.
  15. serve_hybrid - hymba-1.5b at full width and depth (32 layers, d
                1600, 25 heads over 5 of 64, a 50-head Mamba-2 mixer beside
                the attention in every layer, a 1024-token window except in
@@ -315,7 +345,11 @@ Phases, one JSON line each; any failure exits non-zero:
                ("dense_archs"), flash's nemotron's row; deepseek-v2's
                25 pod GEMMs a forward at M = 4 and 1277 and its grouped
                experts at G = 160 (M = 1 and 59), with its served
-               launches by mainloop, under "deepseek" in rows 1 and 5.
+               launches by mainloop, under "deepseek" in rows 1 and 5;
+               whisper-small's GEMMs (an encoder pass, a decode step) and
+               flash rows (the encoder's non-causal [1, 1500], a decoder
+               prefill's [1, 64]) with its served launches under
+               "whisper" in rows 1 and 2.
 
 The last lines are the card's name and power limit, the kernels line, and
 {"ok": true, "device": {...}}.
@@ -344,7 +378,7 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import HOST_SYNCS, TOLERANCES  # noqa: E402
-from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs import get_arch, reduced  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fl_ops  # noqa: E402
@@ -369,6 +403,7 @@ from repro_torch.obs.drift import effective_tops_summary  # noqa: E402
 from repro_torch.obs.metrics import MetricsRegistry  # noqa: E402
 from repro_torch.serve import engine as engine_mod  # noqa: E402
 from repro_torch.serve.admission import (POLICIES, AdmissionConfig,  # noqa: E402
+                                         InvalidRequest,
                                          WaveLatencyPredictor)
 from repro_torch.serve.chaos import (ChaosConfig, TransientDeviceError,  # noqa: E402
                                      VirtualClock)
@@ -411,6 +446,19 @@ MLA_SERVE = dict(slots=4, max_len=2048, decode_chunk=8)
 # paged phase's traffic, dense and paged for its three global layers
 HYBRID_ARCH = "hymba-1.5b"
 HYBRID_GEMMS_PER_LAYER = len(GEMMS_PER_LAYER)   # the SSM's in/out are einsums
+# whisper-small at full width and depth (12 encoder and 12 decoder layers,
+# 0.278 G parameters): 1500 frames (30 s of audio) and 448 decoder
+# positions, whisper's published n_audio_ctx and n_text_ctx
+# (arXiv:2212.04356); each request carries its own bf16 frames
+AUDIO_ARCH = "whisper-small"
+AUDIO_SERVE = dict(slots=4, max_len=448, src_len=1500, decode_chunk=8)
+N_AUDIO_REQUESTS = 8
+# whisper's start of transcript: <|startoftranscript|> <|en|>
+# <|transcribe|> <|notimestamps|> in its multilingual vocabulary
+AUDIO_PREFIX = (50258, 50259, 50359, 50363)
+# the pod GEMMs of an encoder layer and of a decoder layer (the cross
+# attention's projections are einsums, as in the reference)
+AUDIO_GEMMS_PER_LAYER = ("q", "k", "v", "o", "up", "down")
 
 
 class SmokeFailure(RuntimeError):
@@ -553,18 +601,44 @@ DENSE_ARCH_GEMMS = [
     ("nemotron-4-340b", "down", SLOTS, 73728, 18432, None),
     ("nemotron-4-340b", "head", SLOTS, 18432, 256000, None),
 ]
+# whisper-small's: the encoder's at M = 1500 frames (q as k, v and o; up
+# with GELU in the epilogue; down) on wgmma, the decoder's at decode (M =
+# 4) on splitk, and the untied head (N = 51865, odd: wmma) at decode and
+# at the longest served prompt, 64 tokens
+AUDIO_GEMMS = [
+    ("whisper-small", "enc_q", 1500, 768, 768, None),
+    ("whisper-small", "enc_up", 1500, 768, 3072, "gelu"),
+    ("whisper-small", "enc_down", 1500, 3072, 768, None),
+    ("whisper-small", "q", SLOTS, 768, 768, None),
+    ("whisper-small", "up", SLOTS, 768, 3072, "gelu"),
+    ("whisper-small", "down", SLOTS, 3072, 768, None),
+    ("whisper-small", "head", SLOTS, 768, 51865, None),
+    ("whisper-small", "head_prefill", 64, 768, 51865, None),
+]
+
+
+def torch_activation(y: torch.Tensor, act) -> torch.Tensor:
+    """The epilogue's activation in torch ops, after a torch.matmul."""
+    if act == "relu2":
+        return torch.square(torch.relu(y))
+    if act == "gelu":
+        return F.gelu(y, approximate="tanh")
+    if act == "silu":
+        return F.silu(y)
+    return y
 
 
 def dense_arch_gemms(seed: int) -> dict:
-    """DENSE_ARCH_GEMMS on the pod GEMM against its plain version, bf16
-    out (gemm_bf16out) and f32 out (gemm_bf16_f32out), each timed with L2
-    flushed beside its plain version, torch.matmul with the same
-    activation, and its bound; nemotron's decode step summed over its 4
-    served layers and head."""
+    """DENSE_ARCH_GEMMS and AUDIO_GEMMS on the pod GEMM against its plain
+    version, bf16 out (gemm_bf16out) and f32 out (gemm_bf16_f32out), each
+    timed with L2 flushed beside its plain version, torch.matmul with the
+    same activation, and its bound, with its mainloop; nemotron's
+    decode step summed over its 4 served layers and head, whisper's
+    encoder pass and decode step over its 12 layers (and the head)."""
     g = torch.Generator("cuda").manual_seed(seed)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
     rows, failures = [], []
-    for arch, name, M, K, N, act in DENSE_ARCH_GEMMS:
+    for arch, name, M, K, N, act in DENSE_ARCH_GEMMS + AUDIO_GEMMS:
         x, w = gemm_inputs(M, K, N, torch.bfloat16, g)
         row = {"arch": arch, "gemm": name, "M": M, "K": K, "N": N,
                "activation": act,
@@ -586,8 +660,7 @@ def dense_arch_gemms(seed: int) -> dict:
             del got, ref
 
         def library(x=x, w=w, act=act):
-            y = torch.matmul(x, w)
-            return torch.square(torch.relu(y)) if act == "relu2" else y
+            return torch_activation(torch.matmul(x, w), act)
         iters = 10 if M <= 64 else 3
         row["ms"] = time_ms(lambda: sg.systolic_gemm_cuda(
             x, w, activation=act, out_dtype=torch.bfloat16), iters, flush)
@@ -604,9 +677,21 @@ def dense_arch_gemms(seed: int) -> dict:
     decode = {key: layers * sum(n * nem[g][key] for g, n in
                                 per_layer.items()) + nem["head"][key]
               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    return {"rows": rows, "nemotron_decode_step": {
-        "n_layers": layers, "gemms": 6 * layers + 1, **decode},
-        "failures": failures}
+    wh = {r["gemm"]: r for r in rows if r["arch"] == AUDIO_ARCH}
+    L = get_arch(AUDIO_ARCH).n_layers
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    whisper = {
+        "rows": [r for r in rows if r["arch"] == AUDIO_ARCH],
+        "encoder_pass": {"gemms": 6 * L, **{k: L * (
+            4 * wh["enc_q"][k] + wh["enc_up"][k] + wh["enc_down"][k])
+            for k in keys}},
+        "decode_step": {"gemms": 6 * L + 1, **{k: L * (
+            4 * wh["q"][k] + wh["up"][k] + wh["down"][k]) + wh["head"][k]
+            for k in keys}}}
+    return {"rows": [r for r in rows if r["arch"] != AUDIO_ARCH],
+            "nemotron_decode_step": {
+                "n_layers": layers, "gemms": 6 * layers + 1, **decode},
+            "whisper": whisper, "failures": failures}
 
 
 
@@ -839,6 +924,9 @@ FLASH_CASES = [
     (4, 2048, 2048, 25, 5, 64, True, 1024, None),
     (1, 1277, 1277, 25, 5, 64, True, 1024, None),
     (4, 2048, 2048, 25, 5, 64, True, None, None),
+    # whisper-small's encoder: 12 heads over 12 (G = 1), D 64, non-causal
+    # over its 1500 frames (11 key tiles of 128 and a ragged 92)
+    (1, 1500, 1500, 12, 12, 64, False, None, None),
 ]
 
 
@@ -1618,17 +1706,20 @@ def pass_figures(engine, run: dict, reqs: list[Request], st0: dict) -> dict:
             "captured_decode_steps": st["capture_steps"]}
 
 
-def profile_decode_chunk(engine, vocab: int, label: str) -> dict:
+def profile_decode_chunk(engine, vocab: int, label: str,
+                         extras: dict | None = None) -> dict:
     """One full decode chunk (decode_chunk steps, every slot live) under
     torch.profiler: the device's kernel time summed from the trace over
     the chunk's wall, and idle_share = 1 - that share. A chunk before it
     admits and captures what is new; the chunk after it is timed without
     the profiler (its wall beside the profiled one: the profiler's own
-    cost on the host)."""
+    cost on the host). `extras` go with every request (whisper's
+    frames)."""
     from torch.profiler import ProfilerActivity, profile
     n = engine.decode_chunk
     reqs = [Request(rid=10_000 + i, prompt=(np.arange(8) + 3 * i) % vocab,
-                    max_new_tokens=3 * n + 1) for i in range(engine.slots)]
+                    max_new_tokens=3 * n + 1, extras=dict(extras or {}))
+            for i in range(engine.slots)]
     for r in reqs:
         engine.submit(r)
     engine.step()
@@ -1709,8 +1800,8 @@ def decode_logits_graphed_vs_eager(model, params, engine) -> dict:
 
 
 def graphed_vs_eager(phase: str, model, params, eng, run: dict,
-                     reqs: list[Request], make_requests, engine_kw: dict
-                     ) -> dict:
+                     reqs: list[Request], make_requests, engine_kw: dict,
+                     extras: dict | None = None) -> dict:
     """The phase's graphed engine `eng` (first pass `run` over `reqs`,
     already gated on today's launch and sync formulas) against an eager
     engine on the same requests, in the same run:
@@ -1726,7 +1817,8 @@ def graphed_vs_eager(phase: str, model, params, eng, run: dict,
       count, one profiled decode chunk's idle share; for the graphed one
       each runner's warm-up, capture and instantiation seconds, the graph
       pool's bytes and the static lane caches' bytes; and whether one
-      decode step's logits are bit-equal graphed and eager."""
+      decode step's logits are bit-equal graphed and eager. `extras` go
+      with the profiled chunk's requests."""
     cfg = model.cfg
     eager = ServeEngine(model, params, eager=True, **engine_kw)
     e_reqs = make_requests(cfg.vocab)
@@ -1787,7 +1879,7 @@ def graphed_vs_eager(phase: str, model, params, eng, run: dict,
           f"{out['graphed']['second_pass']['graphs']} graphs")
     for label, engine in (("graphed", eng), ("eager", eager)):
         out[label]["decode_chunk_profile"] = profile_decode_chunk(
-            engine, cfg.vocab, f"{phase}-{label}")
+            engine, cfg.vocab, f"{phase}-{label}", extras)
     out["decode_logits"] = decode_logits_graphed_vs_eager(model, params,
                                                           eng)
     return out
@@ -2609,17 +2701,21 @@ def phase_ssm_oracle(model, params, served: list[Request],
 # 13. serve_moe and 14. moe_oracle
 # --------------------------------------------------------------------------
 
-def exact_length_run(phase: str, model, params, serve_kw: dict) -> dict:
-    """A MoE model's served run (dbrx, deepseek-v2): a warm-up request
-    (lazy set-up stays out of the timings), then the paged phase's
-    requests on a fresh engine from zeroed launch counts, each prefill's
+def exact_length_run(phase: str, model, params, serve_kw: dict,
+                     make_requests=None, extras: dict | None = None) -> dict:
+    """An exact-length model's served run (dbrx, deepseek-v2, whisper): a
+    warm-up request (lazy set-up stays out of the timings; `extras` go
+    with it), then make_requests(vocab) (the paged phase's requests by
+    default) on a fresh engine from zeroed launch counts, each prefill's
     token shape recorded and the peak memory taken. Gates: every request
     done, the exact-length path, one [1, S] prefill a request, one host
     sync per prefill and decode chunk."""
     cfg = model.cfg
+    make_requests = make_requests or make_paged_requests
     serve(ServeEngine(model, params, **serve_kw),
-          [Request(rid=-1, prompt=np.arange(64), max_new_tokens=2)])
-    reqs = make_paged_requests(cfg.vocab)
+          [Request(rid=-1, prompt=np.arange(64), max_new_tokens=2,
+                   extras=dict(extras or {}))])
+    reqs = make_requests(cfg.vocab)
     eng = ServeEngine(model, params, **serve_kw)
     shapes = []
     real_prefill = model.prefill
@@ -2907,6 +3003,222 @@ def phase_mla_oracle(model, params) -> None:
           f"absorbed decode's argmax differs from the decompressed "
           f"prefill's with margin {a['prefill_margin']} > {tol.atol} x "
           f"max|logit| {a['max_abs_logit']}")
+
+
+# --------------------------------------------------------------------------
+# 14c. serve_audio and 14d. audio_oracle
+# --------------------------------------------------------------------------
+
+def audio_frames(seed: int, d_model: int) -> torch.Tensor:
+    """One request's frames [1, src_len, d_model] in bf16, as a bf16
+    frontend would give them, drawn on the card from `seed`."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    return torch.randn((1, AUDIO_SERVE["src_len"], d_model), generator=g,
+                       device="cuda").to(torch.bfloat16)
+
+
+def make_audio_requests(vocab: int) -> list[Request]:
+    """N_AUDIO_REQUESTS prompts of 4-64 tokens (whisper's 4-token start of
+    transcript, then text tokens; the last one 64 long), each with its own
+    frames, MAX_NEW new tokens each."""
+    rng = np.random.default_rng(6)
+    d = get_arch(AUDIO_ARCH).d_model
+    lens = rng.integers(4, 65, N_AUDIO_REQUESTS)
+    lens[-1] = 64
+    return [Request(rid=i, prompt=np.concatenate([
+        np.asarray(AUDIO_PREFIX), rng.integers(0, AUDIO_PREFIX[0],
+                                               int(n) - len(AUDIO_PREFIX))]),
+        max_new_tokens=MAX_NEW, extras={"frames": audio_frames(500 + i, d)})
+        for i, n in enumerate(lens)]
+
+
+def audio_cache_bytes(cache: dict) -> dict:
+    """A served whisper cache's bytes: the cross K/V (every decoder layer,
+    slot and frame) and the decoder's self-attention KV cache."""
+    node = cache["dec"]
+    return {"cross_kv_bytes": node["cross"].k.nbytes + node["cross"].v.nbytes,
+            "self_kv_bytes": node["attn"].k.nbytes + node["attn"].v.nbytes}
+
+
+def paged_refuses_extras(model, params) -> dict:
+    """A paged engine refuses a request that carries frames at submit
+    (InvalidRequest, field "extras"): on reduced granite-8b on the card (a
+    bucketed family: whisper's family prefills exact-length and cannot
+    page, which its engine refuses at construction)."""
+    frames = audio_frames(7, model.cfg.d_model)
+    gm = Model(reduced(get_arch(ARCH)), use_pallas=True)
+    gp = gm.init(torch.Generator("cuda").manual_seed(0))
+    eng = ServeEngine(gm, gp, slots=2, max_len=32, paged=True, page_size=8)
+    out = {}
+    try:
+        eng.submit(Request(rid=0, prompt=np.arange(5),
+                           extras={"frames": frames}))
+        out["submit"] = "accepted"
+    except InvalidRequest as err:
+        out["submit"] = {"field": err.field, "message": str(err)}
+    out["queued"] = len(eng.queue)
+    try:
+        ServeEngine(model, params, paged=True, page_size=8,
+                    **{k: v for k, v in AUDIO_SERVE.items()
+                       if k != "decode_chunk"})
+        out["whisper_paged"] = "built"
+    except ValueError as err:
+        out["whisper_paged"] = str(err)
+    check(isinstance(out["submit"], dict) and
+          out["submit"]["field"] == "extras" and out["queued"] == 0,
+          f"a paged engine took a request with frames: {out}")
+    check(out["whisper_paged"] != "built",
+          "whisper's engine was built paged")
+    return out
+
+
+def phase_serve_audio(model, params):
+    """whisper-small through exact-length prefill (the encoder over each
+    request's 1500 frames: non-causal flash and the pod GEMMs; the
+    decoder's causal flash prefill; the cross K/V written into the static
+    cache) and fused decode (no encoder: the cross attention reads the
+    cache), graphed and eager. Gates: every request done, 8 prefills of
+    [1, S], each encoder pass 72 pod GEMMs and 12 flash launches, each
+    prefill's decoder 73 and 12, each decode step 73 and no flash (the
+    encoder runs once a prefill and never at decode); by mainloop the
+    encoder's GEMMs (M = 1500) on wgmma, the decoder's (M <= 64) on
+    splitk, the head (N = 51865, odd) on wmma, every flash launch on
+    wgmma; no NT, grouped or SSD launch; a paged engine refuses frames."""
+    cfg = model.cfg
+    L, Le = cfg.n_layers, cfg.n_encoder_layers
+    per_layer = len(AUDIO_GEMMS_PER_LAYER)
+    encoder_calls = []
+    real_encode = model._encode
+
+    def encode(p, frames):
+        g0, f0 = sg.systolic_gemm_cuda.launches, fa.flash_attention_cuda.launches
+        out = real_encode(p, frames)
+        encoder_calls.append((sg.systolic_gemm_cuda.launches - g0,
+                              fa.flash_attention_cuda.launches - f0))
+        return out
+    model._encode = encode
+    warm = {"frames": audio_frames(499, cfg.d_model)}
+    try:
+        out = exact_length_run("serve_audio", model, params, AUDIO_SERVE,
+                               make_audio_requests, extras=warm)
+    finally:
+        del model._encode
+    reqs, st, launches = out["reqs"], out["st"], out["launches"]
+    prefills, steps = st["prefill_calls"], st["decode_steps"]
+    check(encoder_calls == [(per_layer * Le, Le)] * (1 + prefills),
+          f"serve_audio: encoder passes (pod GEMM, flash launches) "
+          f"{encoder_calls}: one of ({per_layer * Le}, {Le}) per prefill "
+          f"(and the warm-up's), none at decode")
+    per_encoder = per_layer * Le
+    per_decoder = per_layer * L + 1
+    check(launches["pod_gemm"] == per_encoder * prefills
+          + per_decoder * (prefills + steps),
+          f"serve_audio: pod-GEMM launches {launches['pod_gemm']} != "
+          f"{per_encoder} x {prefills} encoder passes + {per_decoder} x "
+          f"{prefills + steps} decoder forwards")
+    check(launches["flash"] == (Le + L) * prefills,
+          f"serve_audio: flash launches {launches['flash']} != {Le + L} x "
+          f"{prefills} prefills (none per decode step)")
+    by = dict(sg.systolic_gemm_cuda.mainloop_launches)
+    longest = max(len(r.prompt) for r in reqs)
+    check(longest <= sg.SPLITK_MAX_M and
+          by == {"wmma": prefills + steps, "splitk": per_layer * L
+                 * (prefills + steps), "wgmma": per_encoder * prefills,
+                 "simt": 0},
+          f"serve_audio: pod-GEMM launches by mainloop {by}: the encoder's "
+          f"on wgmma, the decoder's on splitk, the head on wmma")
+    launches["pod_gemm_by_mainloop"] = by
+    launches["flash_by_mainloop"] = flash_mainloops("serve_audio")
+    check(launches["gemm_nt"] == 0 and launches["grouped"] == 0 and
+          launches["ssd"] == 0,
+          f"whisper launched an NT, grouped or SSD kernel: {launches}")
+    pair = graphed_vs_eager("serve_audio", model, params, out["eng"],
+                            out["run"], reqs, make_audio_requests,
+                            AUDIO_SERVE, extras=warm)
+    for label in ("graphed", "eager"):
+        prof = pair[label]["decode_chunk_profile"]
+        prof["kernels_per_decode_step"] = prof["kernels"] / prof["steps"]
+        prof["top_kernels"] = top_kernels(f"serve_audio-{label}")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    encoder_ms = time_ms(lambda: model._encode(params, warm["frames"]), 5,
+                         flush)
+    prefill_ms = pair["graphed"]["second_pass"]["prefill_ms_per_call"]
+    weights = sum(t.nbytes for t in param_tensors(params))
+    cache = audio_cache_bytes(out["eng"].cache)
+    dec = params["dec"]
+    # what a decode step reads: the decoder's weights but the cross k and
+    # v projections, the head, every lane's cross K/V and self KV cache
+    step_bytes = (sum(t.nbytes for t in param_tensors(dec))
+                  - dec["cross"]["k"].nbytes - dec["cross"]["v"].nbytes
+                  + params["embed"]["unembed"].nbytes
+                  + cache["cross_kv_bytes"] + cache["self_kv_bytes"])
+    emit("serve_audio", arch=cfg.name, n_layers=L, n_encoder_layers=Le,
+         d_model=cfg.d_model, heads=cfg.n_heads, vocab=cfg.vocab,
+         attention_impl=model.impl, **AUDIO_SERVE, **out["figures"],
+         graphed_vs_eager=pair, launches=launches,
+         launches_per_encoder_pass={"pod_gemm": per_encoder, "flash": Le},
+         launches_per_decoder_prefill={"pod_gemm": per_decoder, "flash": L},
+         launches_per_decode_step={"pod_gemm": per_decoder, "flash": 0},
+         encoder_ms=encoder_ms, prefill_ms_per_call=prefill_ms,
+         encoder_share_of_prefill=(encoder_ms / prefill_ms
+                                   if prefill_ms else None),
+         cache=cache, weight_bytes=weights, decode_step_bytes=step_bytes,
+         decode_floor_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+         paged=paged_refuses_extras(model, params))
+    return reqs, launches
+
+
+def audio_cut(model, params, n_layers: int):
+    """The same full-width weights, the first n_layers encoder and
+    decoder layers only (views)."""
+    cfg = dataclasses.replace(model.cfg, n_layers=n_layers,
+                              n_encoder_layers=n_layers)
+    cut = {k: v for k, v in params.items() if k not in ("dec", "encoder")}
+    cut["dec"] = layer_slice(params["dec"], 0, n_layers)
+    cut["encoder"] = {"blocks": layer_slice(params["encoder"]["blocks"], 0,
+                                            n_layers),
+                      "ln_f": params["encoder"]["ln_f"]}
+    return Model(cfg, attention_impl=model.impl, use_pallas=True), cut
+
+
+def phase_audio_oracle(model, params, served: list[Request]) -> None:
+    """whisper's engine against the per-token ReferenceEngine on the same
+    weights and frames: at full depth (serve_audio's tokens) agreement
+    and the margin rule reported, and on the first ORACLE_LAYERS encoder
+    and decoder layers of the same weights the margin rule held (tokens
+    agree, or differ first after a near tie of the oracle)."""
+    tol = TOLERANCES["token_margin"]
+    vocab = model.cfg.vocab
+    oracle_kw = {k: v for k, v in AUDIO_SERVE.items() if k != "decode_chunk"}
+    out = {}
+    for label, (m, p) in (("full_depth", (model, params)),
+                          ("cut_depth", audio_cut(model, params,
+                                                  ORACLE_LAYERS))):
+        if label == "full_depth":
+            got = served
+        else:
+            got = make_audio_requests(vocab)
+            serve(ServeEngine(m, p, **AUDIO_SERVE), got)
+        oracle = make_audio_requests(vocab)
+        ref = ReferenceEngine(m, p, **oracle_kw)
+        wall = serve(ref, oracle)
+        diffs = first_differences(got, oracle, ref)
+        out[label] = {
+            "n_layers": m.cfg.n_layers,
+            "n_encoder_layers": m.cfg.n_encoder_layers,
+            "token_exact": len(got) - len(diffs), "of": len(got),
+            "first_differences": diffs, "oracle_wall_s": wall,
+            "margin_rule_holds": all(
+                d["margin"] <= tol.atol * d["max_abs_logit"] for d in diffs)}
+    emit("audio_oracle", requests=N_AUDIO_REQUESTS, **out,
+         margin_tolerance=f"{tol.atol} x max|logit| at the first "
+                          f"difference")
+    for d in out["cut_depth"]["first_differences"]:
+        check(d["margin"] <= tol.atol * d["max_abs_logit"],
+              f"{ORACLE_LAYERS}+{ORACLE_LAYERS}-layer whisper cut: request "
+              f"{d['rid']} differs at token {d['step']} with oracle margin "
+              f"{d['margin']} > {tol.atol} x max|logit| "
+              f"{d['max_abs_logit']}")
 
 
 # --------------------------------------------------------------------------
@@ -3720,8 +4032,7 @@ def pod_gemm_rows(cfg, phases, seed: int, gemms=None):
             del got, ref
 
             def library(x=x, w=w, act=act):
-                y = torch.matmul(x, w)
-                return F.silu(y) if act == "silu" else y
+                return torch_activation(torch.matmul(x, w), act)
             row = {
                 "gemm": name, "phase": phase, "M": M, "K": K, "N": N,
                 "plan": list(sg.nn_plan(M, N, K, torch.bfloat16, True)),
@@ -3746,7 +4057,8 @@ def pod_gemm_rows(cfg, phases, seed: int, gemms=None):
 def gemm_line(cfg, launches: int, by_mainloop: dict, moe_cfg,
               moe_launches: int, moe_by_mainloop: dict, hybrid_cfg,
               hybrid_table: dict, guard: dict, dense: dict,
-              dense_served: dict, mla_cfg, mla_launches: dict) -> dict:
+              dense_served: dict, mla_cfg, mla_launches: dict,
+              audio_cfg, audio_launches: dict) -> dict:
     """granite-8b's pod GEMMs at decode (M = SLOTS) and a [SLOTS, 256]
     prefill, the line's own numbers; dbrx-132b's q/k/v/o and untied head
     at decode and at its longest exact-length prefill (M = 1277) under
@@ -3759,8 +4071,11 @@ def gemm_line(cfg, launches: int, by_mainloop: dict, moe_cfg,
     dense archs' served launches by mainloop under "dense_archs";
     deepseek-v2's 25 of a forward (the dense layer's MLP, the shared
     experts, the head; mla_forward_gemms) at decode and at its longest
-    exact-length prefill (M = 1277) under "deepseek". Launches by
-    mainloop are the served runs'."""
+    exact-length prefill (M = 1277) under "deepseek"; whisper-small's
+    (phase kernel: the encoder's at M = 1500, the decoder's at decode, the
+    51865-wide head at M = 4 and 64; an encoder pass and a decode step
+    summed over 12 layers) with its served launches under "whisper".
+    Launches by mainloop are the served runs'."""
     rows, totals, worst, per_fwd = pod_gemm_rows(
         cfg, (("decode", SLOTS, 20), ("prefill", SLOTS * 256, 5)), seed=2)
     moe_rows, moe_totals, moe_worst, moe_per_fwd = pod_gemm_rows(
@@ -3780,7 +4095,9 @@ def gemm_line(cfg, launches: int, by_mainloop: dict, moe_cfg,
         "source": "src/repro_torch/kernels/systolic_gemm/csrc/systolic_gemm.cu",
         "replaces": "src/repro/kernels/systolic_gemm/systolic_gemm.py:121",
         "launches": launches, "launches_by_mainloop": by_mainloop,
-        "max_abs_err": max(worst, moe_worst, h_worst, ds_worst),
+        "max_abs_err": max(worst, moe_worst, h_worst, ds_worst,
+                           *(r["max_abs_err"]
+                             for r in dense["whisper"]["rows"])),
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": "bytes",
         "library_ms": dec["library_ms"],
@@ -3823,6 +4140,16 @@ def gemm_line(cfg, launches: int, by_mainloop: dict, moe_cfg,
                                        "launches_by_mainloop":
                                            d["pod_gemm_by_mainloop"]}
                                    for a, d in dense_served.items()}},
+        "whisper": {"arch": audio_cfg.name, "n_layers": audio_cfg.n_layers,
+                    "n_encoder_layers": audio_cfg.n_encoder_layers,
+                    "launches": audio_launches["pod_gemm"],
+                    "launches_by_mainloop":
+                        audio_launches["pod_gemm_by_mainloop"],
+                    "per_encoder_pass": len(AUDIO_GEMMS_PER_LAYER)
+                    * audio_cfg.n_encoder_layers,
+                    "per_decoder_forward": len(AUDIO_GEMMS_PER_LAYER)
+                    * audio_cfg.n_layers + 1,
+                    **dense["whisper"]},
     }
 
 
@@ -3830,17 +4157,17 @@ FLASH_SEQS = (256, 2048)     # granite-8b prefill buckets, B = SLOTS
 
 
 def flash_row(B, S, Hq, Hkv, D, iters: int, g, flush,
-              window: int | None = None) -> dict:
-    """One causal bf16 launch [B, S, Hq over Hkv, D] (over the last
-    `window` keys, if given) on randn inputs: checked against the naive
-    and tiled plain versions, then timed beside both and SDPA (with the
-    window as a boolean mask: whichever backend PyTorch picks for it),
-    with its plan and its rate."""
+              window: int | None = None, causal: bool = True) -> dict:
+    """One bf16 launch [B, S, Hq over Hkv, D], causal (over the last
+    `window` keys, if given) or not, on randn inputs: checked against the
+    naive and tiled plain versions, then timed beside both and SDPA (with
+    the window as a boolean mask: whichever backend PyTorch picks for
+    it), with its plan and its rate."""
     q, k, v = (torch.randn((B, S, h, D), generator=g,
                            device="cuda").to(torch.bfloat16)
                for h in (Hq, Hkv, Hkv))
     plan = fa.flash_plan(D, q.dtype)
-    mask = dict(causal=True, window=window)
+    mask = dict(causal=causal, window=window)
     got = fa.flash_attention_cuda(q, k, v, **mask)
     ref = flash_attention_ref(q, k, v, **mask)
     tiled = flash_attention_tiled_ref(q, k, v, block_k=plan.block_k, **mask)
@@ -3859,14 +4186,15 @@ def flash_row(B, S, Hq, Hkv, D, iters: int, g, flush,
     def library(q=q, k=k, v=v):
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=sdpa_mask, is_causal=sdpa_mask is None,
+            attn_mask=sdpa_mask, is_causal=causal and sdpa_mask is None,
             enable_gqa=True)
     # 4 D operations per unmasked (q, k) pair (QK^T and PV): row i sees
-    # min(i + 1, window) keys; q, k, v read once, o written once
-    pairs = sum(min(i + 1, window or S) for i in range(S))
+    # min(i + 1, window) keys, or all S; q, k, v read once, o written once
+    pairs = sum(min(i + 1, window or S) for i in range(S)) if causal \
+        else S * S
     flops = 4 * B * Hq * D * pairs
     row = {
-        "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D, "causal": True,
+        "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D, "causal": causal,
         "window": window, "mainloop": plan.mainloop,
         "block_k": plan.block_k,
         "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, **mask),
@@ -3885,7 +4213,7 @@ def flash_row(B, S, Hq, Hkv, D, iters: int, g, flush,
 
 def flash_line(cfg, by_mainloop: dict, moe_cfg, moe_by_mainloop: dict,
                hybrid_cfg, hybrid_table: dict, nemotron: dict,
-               dense_served: dict) -> dict:
+               dense_served: dict, audio_cfg, audio_launches: dict) -> dict:
     """granite-8b's prefill attention at buckets 256 and 2048 (B = SLOTS),
     the line's own numbers (a forward's 36 launches at 2048), and dbrx-
     132b's longest exact-length prefill, [1, 1277, 48 over 8, 128]; under
@@ -3894,7 +4222,10 @@ def flash_line(cfg, by_mainloop: dict, moe_cfg, moe_by_mainloop: dict,
     Launches by mainloop are the served runs' (granite paged; dbrx under
     "moe"; hymba dense under "hybrid"). Under "dense_archs", nemotron-4-
     340b's [SLOTS, 2048, 96 over 8, 192] on mma (phase flash) and the dense
-    archs' served launches by mainloop."""
+    archs' served launches by mainloop. Under "whisper", whisper-small's
+    encoder, [1, 1500, 12 over 12, 64] non-causal, and its decoder's
+    prefill at the longest served prompt, [1, 64, 12 over 12, 64] causal,
+    each summed over its 12 layers, with the served launches."""
     g = torch.Generator("cuda").manual_seed(4)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
     D = cfg.resolved_head_dim
@@ -3910,6 +4241,12 @@ def flash_line(cfg, by_mainloop: dict, moe_cfg, moe_by_mainloop: dict,
     n_window = hc.n_layers - n_global
     h_forward = {k: n_window * h_rows[0][k] + n_global * h_rows[1][k]
                  for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    ac = audio_cfg
+    w_rows = [flash_row(1, S, ac.n_heads, ac.n_kv_heads,
+                        ac.resolved_head_dim, iters, g, flush, causal=causal)
+              for S, iters, causal in ((AUDIO_SERVE["src_len"], 10, False),
+                                       (64, 20, True))]
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     top, L = rows[1], cfg.n_layers
     return {
         "name": "flash_attention", "route": "cuda",
@@ -3931,8 +4268,16 @@ def flash_line(cfg, by_mainloop: dict, moe_cfg, moe_by_mainloop: dict,
                                        "launches_by_mainloop":
                                            d["flash_by_mainloop"]}
                                    for a, d in dense_served.items()}},
+        "whisper": {"arch": ac.name, "launches": audio_launches["flash"],
+                    "launches_by_mainloop":
+                        audio_launches["flash_by_mainloop"],
+                    "encoder_pass": {k: ac.n_encoder_layers * w_rows[0][k]
+                                     for k in keys},
+                    "decoder_prefill_64": {k: ac.n_layers * w_rows[1][k]
+                                           for k in keys},
+                    "shapes": w_rows},
         "max_abs_err": max(r["max_abs_err"] for r in rows + h_rows +
-                           [nemotron]),
+                           w_rows + [nemotron]),
         "ms": L * top["ms"], "plain_ms": L * top["plain_ms"],
         "bound_ms": L * top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": L * top["library_ms"],
@@ -4307,6 +4652,25 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+        audio_cfg = get_arch(AUDIO_ARCH)
+        t0 = time.perf_counter()
+        audio_model = Model(audio_cfg, attention_impl="pallas",
+                            use_pallas=True)
+        audio_params = audio_model.init(
+            torch.Generator("cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        emit("init", arch=audio_cfg.name, params=audio_model.param_count(),
+             seconds=time.perf_counter() - t0,
+             gib_allocated=torch.cuda.memory_allocated() / 2 ** 30)
+        audio_served, audio_launches = phase_serve_audio(audio_model,
+                                                         audio_params)
+        torch.cuda.synchronize()
+        phase_audio_oracle(audio_model, audio_params, audio_served)
+        torch.cuda.synchronize()
+        del audio_params, audio_served
+        gc.collect()
+        torch.cuda.empty_cache()
+
         hybrid_cfg = get_arch(HYBRID_ARCH)
         t0 = time.perf_counter()
         hybrid_model = Model(hybrid_cfg, attention_impl="pallas",
@@ -4334,11 +4698,12 @@ def main() -> int:
             cfg, launches, by_mainloop, moe_cfg, moe_launches["pod_gemm"],
             moe_launches["pod_gemm_by_mainloop"], hybrid_cfg,
             hybrid["pod_gemm"], guard, dense_gemms, dense_served, mla_cfg,
-            mla_launches),
+            mla_launches, audio_cfg, audio_launches),
                                flash_line(cfg, flash_by_mainloop, moe_cfg,
                                           moe_launches["flash_by_mainloop"],
                                           hybrid_cfg, hybrid["flash"],
-                                          nemotron_flash, dense_served),
+                                          nemotron_flash, dense_served,
+                                          audio_cfg, audio_launches),
                                gemm_nt_line(
                                    ssm_cfg, ssm_launches["gemm_nt"],
                                    ssm_launches["gemm_nt_by_mainloop"],

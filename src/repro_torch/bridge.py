@@ -9,7 +9,10 @@ and viewing them as torch.bfloat16 is bit-exact.
 The reference keeps a one-layer segment unstacked (no leading layer axis)
 where the port stacks every segment; `model_params_from_jax` adds that
 axis, segment by segment (hymba's global-attention segments are one layer
-each; so is deepseek-v2's dense0, and its moe at reduced()).
+each; so is deepseek-v2's dense0, and its moe at reduced()). An
+encoder-decoder arch's `encoder` subtree is not a segment: both packages
+stack its blocks [n_encoder_layers, ...] at any depth, so it passes as
+it is.
 """
 
 from __future__ import annotations

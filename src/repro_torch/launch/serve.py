@@ -16,6 +16,10 @@ SECONDS` stamps every generated request with that deadline, `--max-queue N`
 bounds the queue (over-budget submissions are shed with
 `Request.state == "rejected"`), and `--chaos-*` arm the seeded fault
 injector so the retry and shedding machinery shows from the command line.
+
+`--arch` takes any arch, and the launcher passes no frames, as the
+reference's does not: an encoder-decoder arch (whisper-small) fails at
+its first prefill with a KeyError that names them.
 """
 
 from __future__ import annotations

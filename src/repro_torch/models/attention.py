@@ -27,14 +27,26 @@ def _scale_q(q, scale: float):
     return q * torch.full((), scale, dtype=q.dtype, device=q.device)
 
 
+def einsum(eq: str, *operands):
+    """torch.einsum with JAX's type promotion: operands of mixed float
+    dtypes are cast to the wider one first, as jnp.einsum computes them
+    (an encoder fed f32 frames runs f32 activations against bf16
+    weights, and its f32 cross K/V meet a bf16 decoder query). Operands
+    of one dtype pass unchanged."""
+    dt = operands[0].dtype
+    for o in operands[1:]:
+        dt = torch.promote_types(dt, o.dtype)
+    return torch.einsum(eq, *(o.to(dt) for o in operands))
+
+
 def _gqa_scores(q, k):
     """q [B,Sq,Hkv,G,D] x k [B,Skv,Hkv,D] -> [B,Hkv,G,Sq,Skv]."""
-    return torch.einsum("bqhgd,bkhd->bhgqk", q, k)
+    return einsum("bqhgd,bkhd->bhgqk", q, k)
 
 
 def _gqa_out(p, v):
     """p [B,Hkv,G,Sq,Skv] x v [B,Skv,Hkv,D] -> [B,Sq,Hkv,G,D]."""
-    return torch.einsum("bhgqk,bkhd->bqhgd", p, v)
+    return einsum("bhgqk,bkhd->bqhgd", p, v)
 
 
 def _mask_ok(q_pos, k_pos, causal: bool, window: int | None):

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.systolic_gemm.guard import active_guard
+from .attention import einsum
 from ..kernels.systolic_gemm.ops import fused_lane_gemm, fused_lane_gemm_t
 
 
@@ -160,12 +161,12 @@ def apply_mlp(p: dict, x, activation: str, use_pallas: bool = False):
             up = pod_dense(x, p["gate"], activation=activation) * up
         return pod_dense(up, p["down"])
     act = activation_fn(activation)
-    up = torch.einsum("...d,df->...f", x, p["up"])
+    up = einsum("...d,df->...f", x, p["up"])
     if "gate" in p:
-        up = act(torch.einsum("...d,df->...f", x, p["gate"])) * up
+        up = act(einsum("...d,df->...f", x, p["gate"])) * up
     else:
         up = act(up)
-    return torch.einsum("...f,fd->...d", up, p["down"])
+    return einsum("...f,fd->...d", up, p["down"])
 
 
 def embed_schema(vocab: int, d_model: int, tie: bool) -> dict:

@@ -8,6 +8,8 @@ repro/models/model.py).
     # or Model(get_arch("hymba-1.5b"), attention_impl="pallas",
     #          ssd_impl="pallas", use_pallas=True)
     # or Model(get_arch("deepseek-v2-236b"), use_pallas=True)  # MLA
+    # or Model(get_arch("whisper-small"), attention_impl="pallas",
+    #          use_pallas=True)                                # enc-dec
     params = model.init(torch.Generator("cuda").manual_seed(0))
     logits, cache = model.prefill(params, batch, model.init_cache(4, 512))
     logits, cache = model.decode_step(params, tok, cache, position)
@@ -17,9 +19,19 @@ stacked per-layer weights [L, ...] (also for a one-layer segment, which
 the reference keeps unstacked); a Python loop walks the layers where the
 reference scans them. Caches are updated in place and returned, so
 call sites read as in the reference.
+
+The encoder-decoder family (whisper) takes its encoder's input in the
+batch: `batch["frames"]` [B, S_src, d_model], precomputed frame
+embeddings (the conv frontend is a stub, as in the reference). A
+prefill runs the encoder over them and writes each decoder layer's cross
+K/V into the cache (`init_cache(src_len=)` sizes it); decode runs no
+encoder and reads them back. Positions are sinusoids added to the
+frames and to the token embeddings (`use_rope=False`).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -33,12 +45,60 @@ from .transformer import (MLACache, Segment, apply_block, block_schema,
                           segments)
 
 
+@dataclasses.dataclass
+class CrossKV:
+    """Cross-attention K/V of the encoder output, per layer and lane,
+    updated in place: `k`/`v` [(L,) B, S_src, H, D]. A prefill writes the
+    first S rows (S the frames it was given); decode reads it whole and
+    never writes it. It has no length: the cross attention attends every
+    row, as the reference's does."""
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @staticmethod
+    def zeros(batch, src_len, n_kv, head_dim, dtype=torch.bfloat16,
+              layers: int | None = None, device=None):
+        shape = (batch, src_len, n_kv, head_dim)
+        if layers:
+            shape = (layers,) + shape
+        return CrossKV(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device))
+
+    def layer(self, i: int) -> "CrossKV":
+        """Layer i of a stacked cache, as views: writes land in the stack."""
+        return CrossKV(self.k[i], self.v[i])
+
+    def write(self, k, v) -> None:
+        """Prefill's [B, S, H, D] keys and values into rows [0, S), cast
+        to the cache's dtype, in place; rows past S keep what they held
+        (the reference's dynamic_update_slice of a shorter update)."""
+        S = k.shape[1]
+        self.k[:, :S] = k
+        self.v[:, :S] = v
+
+
+def _sinusoid(seq: int, d: int, offset=0, device=None):
+    """Sinusoidal positions [1 or B, seq, d] in f32, sin and cos
+    concatenated (not interleaved), as the reference's. offset: an int,
+    or a [B] tensor of per-lane decode positions (on the device: nothing
+    is read back, so a captured decode step computes them)."""
+    if isinstance(offset, int):
+        pos = torch.arange(seq, device=device)[None, :] + offset
+    else:
+        off = torch.atleast_1d(offset)
+        pos = torch.arange(seq, device=off.device)[None, :] + off[:, None]
+    pos = pos.float()
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=pos.device)
+    ang = pos[..., None] / torch.pow(10000.0, dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def _index(tree, i: int):
     """Layer i of a stacked parameter or cache tree (views, no copies)."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     if isinstance(tree, (KVCache, PagedKVCache, RingKVCache, MLACache,
-                         SSMCache)):
+                         SSMCache, CrossKV)):
         return tree.layer(i)
     return tree[i]
 
@@ -76,6 +136,10 @@ class Model:
                      "ln_f": norm_schema(cfg.d_model, cfg.norm)}
         for seg in self.segs:
             sch[seg.name] = block_schema(cfg, seg.kind, seg.n)
+        if cfg.encoder_decoder:
+            sch["encoder"] = {
+                "blocks": block_schema(cfg, "encoder", cfg.n_encoder_layers),
+                "ln_f": norm_schema(cfg.d_model, cfg.norm)}
         return sch
 
     def init(self, generator: torch.Generator) -> dict:
@@ -89,15 +153,55 @@ class Model:
 
     # -- forward -----------------------------------------------------------
     def _run_segment(self, seg: Segment, p_seg, x, positions, cache_seg,
-                     true_lens=None):
+                     true_lens=None, cross_src=None):
         kw = dict(positions=positions, window=seg.window, impl=self.impl,
                   ssd_impl=self.ssd_impl, use_pallas=self.use_pallas,
-                  true_lens=true_lens)
+                  true_lens=true_lens, cross_src=cross_src)
         for i in range(seg.n):
             x = apply_block(_index(p_seg, i), x, self.cfg, seg.kind,
                             cache=None if cache_seg is None
                             else _index(cache_seg, i), **kw)
         return x
+
+    def _embed_in(self, params, tokens, offset=0):
+        """Token embeddings, plus sinusoidal positions where the arch has
+        no rope (and is not an SSM) at `offset` (an int, or per-lane [B]
+        decode positions), cast to the embeddings' dtype."""
+        cfg = self.cfg
+        x = embed(params["embed"], tokens)
+        if not cfg.use_rope and cfg.family != "ssm":
+            x = x + _sinusoid(x.shape[1], cfg.d_model, offset,
+                              device=x.device).to(x.dtype)
+        return x
+
+    def _encode(self, params, frames):
+        """The encoder over precomputed frame embeddings [B, S_src, d]:
+        sinusoids added in f32 and cast to the frames' dtype, then the
+        encoder blocks (non-causal self-attention) and the final norm. It
+        runs in the frames' dtype: f32 frames give f32 activations against
+        the bf16 weights, as in the reference."""
+        cfg = self.cfg
+        x = frames + _sinusoid(frames.shape[1], cfg.d_model,
+                               device=frames.device).to(frames.dtype)
+        pos = torch.arange(frames.shape[1], device=frames.device)
+        blocks = params["encoder"]["blocks"]
+        for i in range(cfg.n_encoder_layers):
+            x = apply_block(_index(blocks, i), x, cfg, "encoder",
+                            positions=pos, impl=self.impl, causal=False,
+                            use_pallas=self.use_pallas)
+        return apply_norm(params["encoder"]["ln_f"], x, cfg.norm)
+
+    def _cross_source(self, params, batch):
+        """The encoder output for the crossdec blocks (None for a
+        decoder-only arch)."""
+        if not self.cfg.encoder_decoder:
+            return None
+        if "frames" not in batch:
+            raise KeyError(
+                "frames: an encoder-decoder prefill needs the encoder's "
+                "input frames [B, S_src, d_model] in the batch (serving: "
+                "Request.extras['frames'])")
+        return self._encode(params, batch["frames"])
 
     def forward(self, params, batch, cache: dict | None = None,
                 positions=None, true_lens=None):
@@ -107,16 +211,23 @@ class Model:
         prefill; the SSM blocks mask their state updates with it and the
         ring caches gather each lane's last-window real tokens, so the
         padding is inert (models/ssm.py::apply_ssm,
-        attention.py::RingKVCache.fill_prefill)."""
+        attention.py::RingKVCache.fill_prefill). An encoder-decoder arch
+        runs its encoder over batch["frames"] without a cache or when S >
+        1, never at decode (S == 1 with a cache: the crossdec blocks read
+        their cross K/V from the cache, also for a one-token prompt, as
+        the reference does)."""
         tokens = batch["tokens"]
         S = tokens.shape[1]
         if positions is None:
             positions = torch.arange(S, device=tokens.device)
-        x = embed(params["embed"], tokens)
+        x = self._embed_in(params, tokens,
+                           offset=positions[..., 0] if S == 1 else 0)
+        cross_src = self._cross_source(params, batch) \
+            if cache is None or S > 1 else None
         for seg in self.segs:
             cseg = cache.get(seg.name) if cache is not None else None
             x = self._run_segment(seg, params[seg.name], x, positions, cseg,
-                                  true_lens)
+                                  true_lens, cross_src)
         x = apply_norm(params["ln_f"], x, self.cfg.norm)
         return unembed(params["embed"], x, use_pallas=self.use_pallas), cache
 
@@ -128,20 +239,22 @@ class Model:
         (causal masking and the engine's length fixup) and SSM state takes
         masked updates driven by per-lane true lengths. MoE capacity lets
         padding tokens displace real ones, and encoder-decoder prompts
-        carry non-token inputs: those families prefill exact-length."""
+        carry non-token inputs (the frames): those families prefill
+        exact-length."""
         return (self.cfg.family in ("dense", "ssm", "hybrid")
                 and not self.cfg.encoder_decoder)
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    page_size: int | None = None,
                    kv_pages: int | None = None,
-                   ring_len: int | None = None) -> dict:
+                   ring_len: int | None = None, src_len: int = 0) -> dict:
         """Per segment: ssm, an SSMCache; dense and moe, a KVCache (an
         MLACache of the latent when cfg.mla is set); hybrid,
         an SSMCache beside a RingKVCache of min(window, ring_len) slots in
-        a window segment and a KVCache in a global one. ring_len defaults
-        to max_len; the paged engine's prefill transient spans a bucket's
-        pages only but keeps the engine's ring width.
+        a window segment and a KVCache in a global one; crossdec, a
+        KVCache beside a CrossKV of src_len rows (the encoder's frames).
+        ring_len defaults to max_len; the paged engine's prefill transient
+        spans a bucket's pages only but keeps the engine's ring width.
 
         page_size/kv_pages set builds a *paged* cache: every KVCache
         becomes a PagedKVCache over a shared kv_pages-page pool
@@ -177,6 +290,11 @@ class Model:
                     batch, max_len, cfg.mla.kv_lora_rank,
                     cfg.mla.qk_rope_head_dim, dtype, layers=seg.n,
                     device=dev)
+            elif seg.kind == "crossdec":
+                node["attn"] = kv(seg.n)
+                node["cross"] = CrossKV.zeros(batch, src_len, cfg.n_kv_heads,
+                                              hd, dtype, layers=seg.n,
+                                              device=dev)
             elif seg.kind != "ssm":
                 node["attn"] = kv(seg.n) if seg.window is None else \
                     RingKVCache.zeros(batch, min(seg.window, ring_len),

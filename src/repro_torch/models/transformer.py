@@ -1,5 +1,5 @@
-"""Model assembly for the dense, SSM, MoE and hybrid families (counterpart
-of repro/models/transformer.py).
+"""Model assembly for the dense, SSM, MoE, hybrid and encoder-decoder
+families (counterpart of repro/models/transformer.py).
 
 A model is a list of segments; a segment is a homogeneous stack of layers
 whose parameters carry a leading `layers` axis. The reference scans the
@@ -9,10 +9,16 @@ the (gated) MLP), the SSM family (one Mamba-2 mixer per layer,
 models/ssm.py), the MoE family (the MoE FFN of models/moe.py after a
 first `first_dense_layers` dense layers) with GQA attention (dbrx) or
 multi-head latent attention (deepseek-v2: a latent cache, decode in the
-weight-absorbed form), and the hybrid family (hymba: attention and a
+weight-absorbed form), the hybrid family (hymba: attention and a
 Mamba-2 mixer side by side in every layer, sliding-window ring caches
 except in the global-attention layers, which split the stack into
-segments). The other families raise NotImplementedError.
+segments) and the encoder-decoder family (whisper: `encoder` blocks,
+non-causal self-attention over the input frames, which model.py runs
+before the decoder; `crossdec` blocks, causal self-attention, then
+cross-attention to the encoder output, whose per-layer K/V a prefill
+writes into the cache and a decode step reads back). The
+vision-language family (5-layer groups with `cross_layer` blocks) is
+not ported yet and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ import torch
 
 from ..configs.base import ArchConfig
 from .attention import (NEG_INF, KVCache, PagedKVCache, RingKVCache,
-                        attention, chunked_attention, decode_attention)
+                        attention, chunked_attention, decode_attention,
+                        einsum)
 from .layers import (ParamSpec, apply_mlp, apply_norm, apply_rope,
                      mlp_schema, norm_schema, pod_dense, rmsnorm)
 from .moe import apply_moe, moe_schema
@@ -34,12 +41,17 @@ from .ssm import apply_ssm, ssm_schema
 @dataclasses.dataclass(frozen=True)
 class Segment:
     name: str
-    kind: str                  # dense | ssm | moe | hybrid (ported so far)
+    kind: str                  # dense | ssm | moe | hybrid | crossdec
     n: int                     # number of layers
     window: int | None = None  # sliding window of the attention (hybrid)
 
 
 def segments(cfg: ArchConfig) -> list[Segment]:
+    if cfg.family == "vlm":
+        raise NotImplementedError(
+            "family 'vlm' is not ported yet (its 5-layer groups, "
+            "cross_layer blocks and image cache); repro_torch serves the "
+            "dense, ssm, moe, hybrid and encoder-decoder families")
     if cfg.family == "moe":
         fd = cfg.moe.first_dense_layers
         segs = [Segment("dense0", "dense", fd)] if fd else []
@@ -57,10 +69,14 @@ def segments(cfg: ArchConfig) -> list[Segment]:
             segs.append(Segment("swa_tail", "hybrid", cfg.n_layers - prev,
                                 window=cfg.sliding_window))
         return segs
+    if cfg.encoder_decoder:
+        # the decoder; the encoder's blocks are a subtree of their own
+        # (model.py::Model.schema), run once per prefill
+        return [Segment("dec", "crossdec", cfg.n_layers)]
     if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; repro_torch serves "
-            f"the dense, ssm, moe and hybrid families")
+            f"the dense, ssm, moe, hybrid and encoder-decoder families")
     return [Segment("layers", cfg.family, cfg.n_layers)]
 
 
@@ -90,26 +106,27 @@ def attn_schema(cfg: ArchConfig, layers: int | None) -> dict:
     }
 
 
-def apply_gqa(p, x, cfg: ArchConfig, *, positions, window: int | None = None,
-              impl: str = "chunked",
+def apply_gqa(p, x, cfg: ArchConfig, *, positions, causal: bool = True,
+              window: int | None = None, impl: str = "chunked",
               cache: KVCache | PagedKVCache | RingKVCache | None = None,
               use_pallas: bool = False, true_lens=None):
-    """Causal GQA attention. Prefill when x has S > 1 (filling a dense or
-    ring `cache` if given); decode when S == 1 and a cache is given. The
-    cache is updated in place. `impl` picks the prefill attention
-    ("chunked", or "pallas": the flash-attention kernel); decode attention
-    is torch ops (the reference has no decode kernel). use_pallas runs the
-    q/k/v/o projections on the pod GEMM. true_lens [B]: per-lane valid
-    lengths of a right-padded (bucketed) prefill; a ring cache then takes
-    each lane's last-window real tokens, not the padded tail."""
+    """GQA self-attention, causal unless `causal=False` (the encoder's).
+    Prefill when x has S > 1 (filling a dense or ring `cache` if given);
+    decode when S == 1 and a cache is given. The cache is updated in
+    place. `impl` picks the prefill attention ("chunked", or "pallas":
+    the flash-attention kernel); decode attention is torch ops (the
+    reference has no decode kernel). use_pallas runs the q/k/v/o
+    projections on the pod GEMM. true_lens [B]: per-lane valid lengths of
+    a right-padded (bucketed) prefill; a ring cache then takes each
+    lane's last-window real tokens, not the padded tail."""
     if use_pallas:
         q = pod_dense(x, p["q"])
         k = pod_dense(x, p["k"])
         v = pod_dense(x, p["v"])
     else:
-        q = torch.einsum("bsd,dhk->bshk", x, p["q"])
-        k = torch.einsum("bsd,dhk->bshk", x, p["k"])
-        v = torch.einsum("bsd,dhk->bshk", x, p["v"])
+        q = einsum("bsd,dhk->bshk", x, p["q"])
+        k = einsum("bsd,dhk->bshk", x, p["k"])
+        v = einsum("bsd,dhk->bshk", x, p["v"])
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -141,13 +158,13 @@ def apply_gqa(p, x, cfg: ArchConfig, *, positions, window: int | None = None,
             cache.fill_prefill(k, v, true_lens)
         elif cache is not None:
             cache.append(k, v)
-        out = attention(q, k, v, impl=impl, causal=True, window=window)
+        out = attention(q, k, v, impl=impl, causal=causal, window=window)
     B, S = x.shape[0], x.shape[1]
     out = out.reshape(B, S, cfg.n_heads, -1)
     if use_pallas:
         o_w = p["o"].reshape(-1, p["o"].shape[-1])       # [(H hd), d]
         return pod_dense(out.reshape(B, S, -1), o_w)
-    return torch.einsum("bshk,hkd->bsd", out, p["o"])
+    return einsum("bshk,hkd->bsd", out, p["o"])
 
 
 @dataclasses.dataclass
@@ -254,7 +271,7 @@ def block_schema(cfg: ArchConfig, kind: str, layers: int | None) -> dict:
     if kind == "ssm":
         return {"ln_ssm": _norms(cfg, cfg.d_model, layers),
                 "ssm": ssm_schema(cfg, layers)}
-    if kind not in ("dense", "moe", "hybrid"):
+    if kind not in ATTENTION_BLOCKS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     sch = {"ln_attn": _norms(cfg, cfg.d_model, layers),
            "attn": attn_schema(cfg, layers),
@@ -267,7 +284,15 @@ def block_schema(cfg: ArchConfig, kind: str, layers: int | None) -> dict:
     if kind == "hybrid":
         sch["ln_ssm"] = _norms(cfg, cfg.d_model, layers)
         sch["ssm"] = ssm_schema(cfg, layers)
+    if kind == "crossdec":
+        sch["ln_cross"] = _norms(cfg, cfg.d_model, layers)
+        sch["cross"] = attn_schema(dataclasses.replace(cfg, mla=None),
+                                   layers)
     return sch
+
+
+# the block kinds that open with pre-norm self-attention
+ATTENTION_BLOCKS = ("dense", "moe", "hybrid", "encoder", "crossdec")
 
 
 def _norms(cfg: ArchConfig, d: int, layers: int | None) -> dict:
@@ -278,10 +303,37 @@ def _norms(cfg: ArchConfig, d: int, layers: int | None) -> dict:
     return base
 
 
+def cross_kv_precompute(p_cross, src, cfg: ArchConfig):
+    """K/V of the cross attention from the encoder output (no rope), on
+    einsums as in the reference, in the promoted dtype of src and the
+    weights."""
+    k = einsum("bsd,dhk->bshk", src, p_cross["k"])
+    v = einsum("bsd,dhk->bshk", src, p_cross["v"])
+    return k, v
+
+
+def _cross_kv(p_cross, x, cfg: ArchConfig, cache: dict | None, cross_src):
+    """(k, v) of a crossdec block's cross attention: read from the
+    cache's CrossKV (model.py) at decode (a cache and S == 1, where
+    nothing is computed from the encoder), else computed from `cross_src`
+    and, with a cache, written into it."""
+    c = cache.get("cross") if cache else None
+    if c is not None and x.shape[1] == 1:
+        return c.k, c.v
+    if cross_src is None:
+        raise ValueError("a cross-attention layer needs cross_src (the "
+                         "encoder output) outside decode")
+    k, v = cross_kv_precompute(p_cross, cross_src, cfg)
+    if c is not None:
+        c.write(k, v)
+    return k, v
+
+
 def apply_block(p, x, cfg: ArchConfig, kind: str, *, positions,
                 window: int | None = None, impl: str = "chunked",
                 ssd_impl: str = "jnp", cache: dict | None = None,
-                use_pallas: bool = False, true_lens=None):
+                use_pallas: bool = False, true_lens=None,
+                causal: bool = True, cross_src=None):
     """One layer, residual. dense: pre-norm GQA attention and pre-norm
     MLP, `cache` {"attn": KVCache | PagedKVCache} or None. moe: the same
     with the MoE FFN (models/moe.py) in place of the MLP. With cfg.mla,
@@ -293,22 +345,31 @@ def apply_block(p, x, cfg: ArchConfig, kind: str, *, positions,
     own norm, and add in as x + (a + s) / 2 before the pre-norm MLP;
     `cache` {"attn": RingKVCache | KVCache | PagedKVCache, "ssm":
     SSMCache} or None. The SSM's projections stay einsums under
-    use_pallas, as in the reference. `true_lens`: the per-lane lengths of
-    a right-padded prefill. Caches update in place."""
+    use_pallas, as in the reference. encoder: a dense block, called with
+    causal=False and no cache. crossdec: causal self-attention, then a
+    pre-norm cross attention to the encoder output, then the MLP; `cache`
+    {"attn": KVCache, "cross": CrossKV} or None. Its K/V come from
+    `cross_src` (the encoder output) and are written into the cache, or,
+    at decode, are read from the cache (_cross_kv). Its q/o and K/V
+    projections are einsums and its attention chunked torch ops even
+    under use_pallas and attention_impl="pallas", as in the reference.
+    `true_lens`: the per-lane lengths of a right-padded prefill. Caches
+    update in place."""
     if kind == "ssm":
         h = apply_norm(p["ln_ssm"], x, cfg.norm)
         return x + apply_ssm(p["ssm"], h, cfg,
                              cache=cache["ssm"] if cache else None,
                              impl=ssd_impl, true_lens=true_lens)
-    if kind not in ("dense", "moe", "hybrid"):
+    if kind not in ATTENTION_BLOCKS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     h = apply_norm(p["ln_attn"], x, cfg.norm)
     if cfg.mla is not None and kind in ("dense", "moe"):
         a = apply_mla(p["attn"], h, cfg, positions=positions,
                       cache=cache["attn"] if cache else None)
     else:
-        a = apply_gqa(p["attn"], h, cfg, positions=positions, window=window,
-                      impl=impl, cache=cache["attn"] if cache else None,
+        a = apply_gqa(p["attn"], h, cfg, positions=positions, causal=causal,
+                      window=window, impl=impl,
+                      cache=cache["attn"] if cache else None,
                       use_pallas=use_pallas, true_lens=true_lens)
     if kind == "hybrid":
         s = apply_ssm(p["ssm"], apply_norm(p["ln_ssm"], x, cfg.norm), cfg,
@@ -317,6 +378,14 @@ def apply_block(p, x, cfg: ArchConfig, kind: str, *, positions,
         x = x + 0.5 * (a + s)
     else:
         x = x + a
+    if kind == "crossdec":
+        h = apply_norm(p["ln_cross"], x, cfg.norm)
+        k, v = _cross_kv(p["cross"], h, cfg, cache, cross_src)
+        q = einsum("bsd,dhk->bshk", h, p["cross"]["q"])
+        out = chunked_attention(q, k, v, causal=False)
+        B, S = h.shape[0], h.shape[1]
+        x = x + einsum("bshk,hkd->bsd", out.reshape(B, S, cfg.n_heads, -1),
+                       p["cross"]["o"])
     h = apply_norm(p["ln_mlp"], x, cfg.norm)
     if kind == "moe":
         return x + apply_moe(p["moe"], h, cfg, use_pallas=use_pallas)

@@ -16,10 +16,20 @@ prefill into free slots, and decode step-locked with the rest of the batch.
     slots), so padding is inert there too.
   * Exact-length prefill, for the families whose prefill padding is not
     inert (`Model.bucketed_prefill_ok` False: MoE, where padding tokens
-    would take expert capacity from real ones) or with
+    would take expert capacity from real ones, and the encoder-decoder
+    family, whose prompts carry frames), for every request with `extras`
+    (per-request inputs that cannot join a shared bucket batch), or with
     prefill_buckets=False: one request per prefill, [1, S], into a fresh
     1-lane cache that is then copied into its slot. `bucketed` says which
     path an engine takes.
+  * Encoder-decoder (whisper): `Request.extras` {"frames": [1, S_src,
+    d_model]} is merged into the request's prefill batch, whose forward
+    runs the encoder and writes each decoder layer's cross K/V into the
+    lane cache (`src_len` rows: the engine's CrossKV width); the lane is
+    then copied whole into its slot. Decode reads the cross K/V from the
+    engine's static cache and runs no encoder, so a captured decode chunk
+    reads them without a host copy. A paged engine refuses extras at
+    submit.
   * Fused decode: a chunk of n decode steps runs as a Python loop whose
     tokens, positions, budgets and alive masks stay on the device; nothing
     is read back inside the loop. A lane whose budget runs out keeps
@@ -113,7 +123,7 @@ import torch
 
 from ..kernels.systolic_gemm.guard import GuardTape, as_guard
 from ..models.attention import KVCache, PagedKVCache, RingKVCache
-from ..models.model import Model
+from ..models.model import CrossKV, Model
 from ..models.ssm import SSMCache
 from ..models.transformer import MLACache
 from ..runtime import to_host
@@ -137,6 +147,10 @@ class Request:
     max_new_tokens: int = 16
     out: list = dataclasses.field(default_factory=list)
     done: bool = False
+    # extra prefill-batch arrays (batch axis included), e.g. whisper's
+    # {"frames": [1, src_len, d_model]}, merged into the prefill batch; a
+    # request with extras always prefills exact-length
+    extras: dict = dataclasses.field(default_factory=dict)
     # QoS envelope (serve/admission.py): deadline is seconds from submit
     # on the engine's clock; priority breaks deadline ties (lower = more
     # urgent). state walks new -> queued -> running -> one terminal state
@@ -180,11 +194,13 @@ def _paged_nodes(cache: dict):
 
 def _lane_tensors(c) -> tuple:
     """The tensors of a lane-resident cache node (KVCache, RingKVCache,
-    MLACache or SSMCache), lane axis second."""
+    MLACache, SSMCache or CrossKV), lane axis second."""
     if isinstance(c, SSMCache):
         return c.conv, c.state
     if isinstance(c, MLACache):
         return c.c_kv, c.k_rope, c.length
+    if isinstance(c, CrossKV):
+        return c.k, c.v
     return c.k, c.v, c.length
 
 
@@ -224,10 +240,13 @@ def _decode_state(cache: dict) -> list[torch.Tensor]:
     """What a decode step advances in place and a retry must find as it
     was: every KV, MLA and ring node's length, the ring keys and values,
     the SSM conv window and state. Dense and paged KV rows and MLA latent
-    rows past a length need no copy: the retry writes them again."""
+    rows past a length need no copy: the retry writes them again. Decode
+    never writes a CrossKV."""
     out = []
     for node in cache.values():
         for c in node.values():
+            if isinstance(c, CrossKV):
+                continue
             if isinstance(c, SSMCache):
                 out += [c.conv, c.state]
             elif isinstance(c, RingKVCache):
@@ -336,16 +355,19 @@ def _decode_body(model: Model, params, cache: dict, eos_id: Optional[int],
 
 class ServeEngine:
     def __init__(self, model: Model, params, slots: int = 4,
-                 max_len: int = 512, eos_id: Optional[int] = None,
+                 max_len: int = 512, src_len: int = 0,
+                 eos_id: Optional[int] = None,
                  tracer=None, decode_chunk: int = 8,
                  prefill_buckets: bool = True,
                  metrics=None, admission=None, chaos=None, clock=None,
                  max_retries: int = 3, backoff_s: float = 1e-3,
                  guard=None, paged: bool = False, page_size: int = 16,
                  kv_pages: Optional[int] = None, eager: bool = False):
-        """The reference's arguments and defaults (no src_len, no
-        min_bucket or recycle: MIN_BUCKET is fixed and lanes recycle
-        inside a chunk exactly when paged).
+        """The reference's arguments and defaults (no min_bucket or
+        recycle: MIN_BUCKET is fixed and lanes recycle inside a chunk
+        exactly when paged). src_len sizes the encoder-decoder family's
+        cross K/V lanes (the frames a request may carry; 0 for every
+        decoder-only arch).
         eager=True runs the step runners eagerly on the card too (no CUDA
         graphs): the run a graphed one is held against. On the CPU every
         runner runs eagerly either way."""
@@ -353,6 +375,7 @@ class ServeEngine:
         self.params = params
         self.slots = slots
         self.max_len = max_len
+        self.src_len = src_len
         self.eos_id = eos_id
         # optional duck-typed event sink (tenancy.ServeTraceRecorder): gets
         # on_prefill(rid, prompt_len) / on_decode(lanes, contexts) in the
@@ -377,9 +400,9 @@ class ServeEngine:
             self._pool = PagePool(kv_pages, page_size, slots, max_len,
                                   chunk_slack=self.decode_chunk)
             self.cache = model.init_cache(slots, max_len, page_size=page_size,
-                                          kv_pages=kv_pages)
+                                          kv_pages=kv_pages, src_len=src_len)
         else:
-            self.cache = model.init_cache(slots, max_len)
+            self.cache = model.init_cache(slots, max_len, src_len=src_len)
         # in-chunk lane recycling: on exactly when paged
         self.recycle = bool(paged)
         self.active: list[Optional[Request]] = [None] * slots
@@ -644,7 +667,12 @@ class ServeEngine:
         """Validate + enqueue. Raises InvalidRequest (typed, names the
         offending field) for malformed requests; the admission policy may
         shed instead (request ends ``rejected``: ``queue-full``,
-        ``shed-predicted-miss`` or, paged, ``pages-exhausted``)."""
+        ``shed-predicted-miss`` or, paged, ``pages-exhausted``). A paged
+        engine refuses a request with extras (field ``extras``)."""
+        if self._pool is not None and req.extras:
+            raise InvalidRequest(
+                "extras", "paged serving cannot prefill per-request extra "
+                "modalities (exact-length fallback is dense-only)")
         if self.admission.on_submit(self.queue, req, self._clock()):
             self.queue.append(req)
         if self.metrics is not None:
@@ -766,7 +794,9 @@ class ServeEngine:
             free = self._free_slots()
             if not free:
                 return
-            if not self.bucketed:
+            if not self.bucketed or self.queue[0].extras:
+                # extras carry per-request shapes (frames) that cannot
+                # join a shared bucket batch: exact-length prefill
                 self._prefill_into(free[0], self.queue.pop(0))
                 continue
             # group the head-of-queue bucket: every queued request of the
@@ -775,7 +805,8 @@ class ServeEngine:
             take: list[Request] = []
             rest: list[Request] = []
             for r in self.queue:
-                if len(take) < len(free) and self._bucket(len(r.prompt)) == b:
+                if len(take) < len(free) and not r.extras and \
+                        self._bucket(len(r.prompt)) == b:
                     if self._pool is not None:
                         # a lane starts only if its worst-case page count
                         # (prompt + clamped budget + one chunk of inert
@@ -891,21 +922,25 @@ class ServeEngine:
 
     # -- exact-length prefill -------------------------------------------
     def _prefill_into(self, slot: int, req: Request) -> None:
-        """Prefill one request, [1, S], into a fresh 1-lane cache, then copy
-        that lane into `slot`. The first token and its finiteness come back
-        in one host read; a non-finite one rejects the request and leaves
-        the slot untouched."""
+        """Prefill one request, [1, S], into a fresh 1-lane cache (its
+        CrossKV src_len rows wide), then copy that lane into `slot`. The
+        request's extras join the prefill batch. The first token and its
+        finiteness come back in one host read; a non-finite one rejects
+        the request and leaves the slot untouched."""
         S = len(req.prompt)
         self._buckets_seen.add(S)
         t_start = self._clock()
-        lane_cache = self.model.init_cache(1, self.max_len)
-        tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
-                                 device=self.device)[None, :]
+        lane_cache = self.model.init_cache(1, self.max_len,
+                                           src_len=self.src_len)
+        batch = {"tokens": torch.as_tensor(np.asarray(req.prompt, np.int64),
+                                           device=self.device)[None, :]}
+        for key, val in req.extras.items():
+            batch[key] = torch.as_tensor(val, device=self.device)
 
         def call():
             wall0 = time.perf_counter()
-            logits, lane = self.model.prefill(self.params,
-                                              {"tokens": tokens}, lane_cache)
+            logits, lane = self.model.prefill(self.params, batch,
+                                              lane_cache)
             last = logits[0]
             first = torch.where(torch.isfinite(last).all(),
                                 torch.argmax(last), -1)

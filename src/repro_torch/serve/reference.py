@@ -4,8 +4,9 @@ AdmissionController as ServeEngine: validation at submit and the terminal
 states).
 
 One exact-length prefill per request (for a sliding-window ring cache:
-the last window of the prompt rolled into its slots) and one host read
-per decoded token.
+the last window of the prompt rolled into its slots; a request's extras,
+whisper's frames, join its prefill batch, and `src_len` sizes the cross
+K/V lanes as in ServeEngine) and one host read per decoded token.
 `Request.out` holds max_new_tokens greedy tokens (the first from prefill),
 truncated at eos_id inclusive: the contract ServeEngine shares. The oracle
 also keeps, per request, the top-1 minus top-2 logit margin and the
@@ -42,14 +43,16 @@ class ReferenceEngine:
     """Step-locked continuous batching, host-synced per token."""
 
     def __init__(self, model: Model, params, slots: int = 4,
-                 max_len: int = 512, eos_id: Optional[int] = None):
+                 max_len: int = 512, src_len: int = 0,
+                 eos_id: Optional[int] = None):
         self.model = model
         self.params = params
         self.slots = slots
         self.max_len = max_len
+        self.src_len = src_len
         self.eos_id = eos_id
         self.device = model.device
-        self.cache = model.init_cache(slots, max_len)
+        self.cache = model.init_cache(slots, max_len, src_len=src_len)
         self.active: list[Optional[Request]] = [None] * slots
         self.positions = np.zeros(slots, np.int64)
         self.budgets = np.zeros(slots, np.int64)
@@ -77,11 +80,13 @@ class ReferenceEngine:
 
     def _prefill_into(self, slot: int, req: Request) -> None:
         S = len(req.prompt)
-        lane_cache = self.model.init_cache(1, self.max_len)
-        tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
-                                 device=self.device)[None, :]
-        logits, lane_cache = self.model.prefill(self.params,
-                                                {"tokens": tokens},
+        lane_cache = self.model.init_cache(1, self.max_len,
+                                           src_len=self.src_len)
+        batch = {"tokens": torch.as_tensor(np.asarray(req.prompt, np.int64),
+                                           device=self.device)[None, :]}
+        for key, val in req.extras.items():
+            batch[key] = torch.as_tensor(val, device=self.device)
+        logits, lane_cache = self.model.prefill(self.params, batch,
                                                 lane_cache)
         tok, fin, margin, top = to_host(_pick(logits))[0]
         if not fin:

@@ -86,10 +86,12 @@ def test_bridge_keeps_the_moe_router_in_f32():
     assert tp["moe"]["moe"]["router"].dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "mamba2-370m", "dbrx-132b"])
+@pytest.mark.parametrize("arch", ["granite-8b", "mamba2-370m", "dbrx-132b",
+                                  "whisper-small"])
 def test_model_aware_bridge_is_params_from_jax_on_stacked_segments(arch):
-    """Every segment of these has more than one layer: the model-aware
-    form converts exactly as params_from_jax does, to the port's schema."""
+    """Every segment of these has more than one layer (whisper's encoder
+    subtree is stacked in both packages): the model-aware form converts
+    exactly as params_from_jax does, to the port's schema."""
     tp = _bridge_bit_exact(arch)
     cfg = reduced(get_arch(arch))
     jp = jax.tree.map(np.asarray, JaxModel(cfg).init(jax.random.PRNGKey(0)))
