@@ -32,9 +32,11 @@ Phases, one JSON line each; any failure exits non-zero:
                256000-row head), and whisper-small's (the encoder's q,
                up with GELU and down at M = 1500 on wgmma, the decoder's
                at M = 4 on splitk, the head [4 and 64, 768] x [768,
-               51865], N odd, on wmma), bf16 and f32 out within their
-               tolerances, each timed beside its plain version,
-               torch.matmul with the activation and its bound.
+               51865], N odd, on wmma), and llama-3.2-vision-90b's
+               (q, k, o, gate with SiLU, down and the 128256-row head at
+               M = 4 on splitk, up at M = 600 on wgmma), bf16 and f32 out
+               within their tolerances, each timed beside its plain
+               version, torch.matmul with the activation and its bound.
   3. gemm_nt - the same for the transposed-weight kernel (w [N, K], the
                tied LM head), with mamba2's head [4, 1024] x [50280, 1024]^T
                among the shapes (a 104-column ragged tail) and its NT
@@ -64,7 +66,8 @@ Phases, one JSON line each; any failure exits non-zero:
                over 8, D 192) at [4, 2048] on the mma mainloop, against
                both plain versions, timed beside SDPA. whisper-small's
                encoder, [1, 1500, 12 over 12, 64] non-causal (G = 1, a
-               ragged last key tile), among the cases.
+               ragged last key tile), and llama-3.2-vision-90b's dense
+               layers, [1, 600, 64 over 8, 128] causal, among the cases.
   5. ssd     - the SSD chunk-scan kernel against the Pallas kernel's own
                arithmetic (ssd_kernel_ref) at about one bf16 ulp and
                against the reference (ssd_ref, bf16 state) at its stated
@@ -219,6 +222,33 @@ Phases, one JSON line each; any failure exits non-zero:
                and the margin rule reported at 12 + 12 layers, the margin
                rule held on the first ORACLE_LAYERS encoder and decoder
                layers of the same weights.
+ 14e. serve_vlm - after audio_oracle (whisper's weights freed):
+               llama-3.2-vision-90b at full width and VLM_LAYERS = 30 of
+               its 100 layers (6 groups of 4 dense layers and a
+               cross_layer; d 8192, 64 heads over 8 of 128, d_ff 28672
+               gated SiLU, vocab 128256 untied, 1601 image tokens; 55.7 GB
+               of random bf16 weights) as Model(attention_impl="pallas",
+               use_pallas=True), served by ServeEngine(slots 4, max_len
+               1024, decode_chunk 8; src_len 0: the cross cache takes
+               1601 rows) on 8 prompts of 16-600 tokens, each request
+               with its own bf16 image embeddings [1, 1601, 8192] in
+               `extras`, graphed against eager as every serve phase: every
+               request done, 8 exact-length prefills of [1, S], 187
+               pod-GEMM launches a forward (7 a dense layer, 3 a cross
+               layer, the head), on splitk at M <= 64 (decode, a 16-token
+               prompt) and wgmma above, the head (N = 128256) with them;
+               24 flash launches a prefill on wgmma and none a decode
+               step; no NT, grouped or SSD launch; one host sync per
+               prefill and decode chunk; a paged engine refuses image
+               embeddings. Reports the image path's ms (img_adapter and
+               the 12 cross K/V projections) beside prefill ms/call, the
+               self KV and cross K/V bytes, the decode floor and the
+               profiled decode chunk's top kernels.
+ 14f. vlm_oracle - the served tokens against the per-token
+               ReferenceEngine on the same weights and images: agreement
+               and the margin rule reported at 30 layers, the margin rule
+               held on the first group (5 layers) of the same weights; a
+               6-layer cut (not whole groups) must be refused.
  15. serve_hybrid - hymba-1.5b at full width and depth (32 layers, d
                1600, 25 heads over 5 of 64, a 50-head Mamba-2 mixer beside
                the attention in every layer, a 1024-token window except in
@@ -349,7 +379,10 @@ Phases, one JSON line each; any failure exits non-zero:
                whisper-small's GEMMs (an encoder pass, a decode step) and
                flash rows (the encoder's non-causal [1, 1500], a decoder
                prefill's [1, 64]) with its served launches under
-               "whisper" in rows 1 and 2.
+               "whisper" in rows 1 and 2; llama-3.2-vision-90b's GEMMs (a
+               decode step over the 30-layer cut) and flash row ([1, 600,
+               64 over 8, 128], a prefill's 24) with its served launches
+               under "vlm" in rows 1 and 2.
 
 The last lines are the card's name and power limit, the kernels line, and
 {"ok": true, "device": {...}}.
@@ -399,6 +432,7 @@ from repro_torch.models.layers import (apply_norm, apply_rope, embed,  # noqa: E
                                        pod_dense)
 from repro_torch.runtime import no_tf32  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.models.transformer import cross_kv_precompute  # noqa: E402
 from repro_torch.obs.drift import effective_tops_summary  # noqa: E402
 from repro_torch.obs.metrics import MetricsRegistry  # noqa: E402
 from repro_torch.serve import engine as engine_mod  # noqa: E402
@@ -459,6 +493,20 @@ AUDIO_PREFIX = (50258, 50259, 50359, 50363)
 # the pod GEMMs of an encoder layer and of a decoder layer (the cross
 # attention's projections are einsums, as in the reference)
 AUDIO_GEMMS_PER_LAYER = ("q", "k", "v", "o", "up", "down")
+# llama-3.2-vision-90b at full width, depth cut to 30 of 100 layers in
+# whole groups (6 groups of 4 dense layers and a cross layer), 55.7 GB of
+# bf16 weights (all 100 layers hold 175.5 GB: several cards); 1601 image
+# tokens a request (src_len 0: the cross cache takes the config's
+# n_image_tokens), each request with its own bf16 image embeddings (the
+# vision tower is a stub, as in the reference)
+VLM_ARCH, VLM_LAYERS = "llama-3.2-vision-90b", 30
+VLM_SERVE = dict(slots=4, max_len=1024, decode_chunk=8)
+N_VLM_REQUESTS = 8
+VLM_MAX_PROMPT = 600
+# the pod GEMMs of a cross layer: its MLP (the cross attention's q/k/v/o
+# and img_adapter are einsums, as in the reference); a dense layer's are
+# GEMMS_PER_LAYER
+VLM_CROSS_GEMMS_PER_LAYER = ("gate", "up", "down")
 
 
 class SmokeFailure(RuntimeError):
@@ -615,6 +663,19 @@ AUDIO_GEMMS = [
     ("whisper-small", "head", SLOTS, 768, 51865, None),
     ("whisper-small", "head_prefill", 64, 768, 51865, None),
 ]
+# llama-3.2-vision-90b's at decode (M = 4, splitk): q and o [8192 ->
+# 8192], k (as v) [8192 -> 1024], gate with SiLU (as up) [8192 -> 28672],
+# down and the untied 128256-row head; and up at its longest served
+# prompt (M = 600, wgmma)
+VLM_GEMMS = [
+    (VLM_ARCH, "q", SLOTS, 8192, 8192, None),
+    (VLM_ARCH, "k", SLOTS, 8192, 1024, None),
+    (VLM_ARCH, "o", SLOTS, 8192, 8192, None),
+    (VLM_ARCH, "gate", SLOTS, 8192, 28672, "silu"),
+    (VLM_ARCH, "down", SLOTS, 28672, 8192, None),
+    (VLM_ARCH, "head", SLOTS, 8192, 128256, None),
+    (VLM_ARCH, "up_prefill", VLM_MAX_PROMPT, 8192, 28672, None),
+]
 
 
 def torch_activation(y: torch.Tensor, act) -> torch.Tensor:
@@ -629,16 +690,20 @@ def torch_activation(y: torch.Tensor, act) -> torch.Tensor:
 
 
 def dense_arch_gemms(seed: int) -> dict:
-    """DENSE_ARCH_GEMMS and AUDIO_GEMMS on the pod GEMM against its plain
-    version, bf16 out (gemm_bf16out) and f32 out (gemm_bf16_f32out), each
-    timed with L2 flushed beside its plain version, torch.matmul with the
-    same activation, and its bound, with its mainloop; nemotron's
-    decode step summed over its 4 served layers and head, whisper's
-    encoder pass and decode step over its 12 layers (and the head)."""
+    """DENSE_ARCH_GEMMS, AUDIO_GEMMS and VLM_GEMMS on the pod GEMM against
+    its plain version, bf16 out (gemm_bf16out) and f32 out
+    (gemm_bf16_f32out), each timed with L2 flushed beside its plain
+    version, torch.matmul with the same activation, and its bound, with
+    its mainloop; nemotron's decode step summed over its 4 served layers
+    and head, whisper's encoder pass and decode step over its 12 layers
+    (and the head), llama-3.2-vision's decode step over its 24 dense and 6
+    cross layers at the 30-layer cut (and the head; v counted at k's
+    time, up at gate's: the same shapes)."""
     g = torch.Generator("cuda").manual_seed(seed)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
     rows, failures = [], []
-    for arch, name, M, K, N, act in DENSE_ARCH_GEMMS + AUDIO_GEMMS:
+    for arch, name, M, K, N, act in DENSE_ARCH_GEMMS + AUDIO_GEMMS + \
+            VLM_GEMMS:
         x, w = gemm_inputs(M, K, N, torch.bfloat16, g)
         row = {"arch": arch, "gemm": name, "M": M, "K": K, "N": N,
                "activation": act,
@@ -688,10 +753,26 @@ def dense_arch_gemms(seed: int) -> dict:
         "decode_step": {"gemms": 6 * L + 1, **{k: L * (
             4 * wh["q"][k] + wh["up"][k] + wh["down"][k]) + wh["head"][k]
             for k in keys}}}
-    return {"rows": [r for r in rows if r["arch"] != AUDIO_ARCH],
+    vl = {r["gemm"]: r for r in rows if r["arch"] == VLM_ARCH}
+    vcfg = dataclasses.replace(get_arch(VLM_ARCH), n_layers=VLM_LAYERS)
+    groups = VLM_LAYERS // vcfg.cross_attn_every
+    dense_layers = VLM_LAYERS - groups
+    vlm = {
+        "rows": [r for r in rows if r["arch"] == VLM_ARCH],
+        "decode_step": {
+            "n_layers": VLM_LAYERS, "dense_layers": dense_layers,
+            "cross_layers": groups,
+            "gemms": len(GEMMS_PER_LAYER) * dense_layers
+            + len(VLM_CROSS_GEMMS_PER_LAYER) * groups + 1,
+            **{k: dense_layers * (vl["q"][k] + 2 * vl["k"][k] + vl["o"][k]
+                                  + 2 * vl["gate"][k] + vl["down"][k])
+               + groups * (2 * vl["gate"][k] + vl["down"][k])
+               + vl["head"][k] for k in keys}}}
+    return {"rows": [r for r in rows
+                     if r["arch"] not in (AUDIO_ARCH, VLM_ARCH)],
             "nemotron_decode_step": {
                 "n_layers": layers, "gemms": 6 * layers + 1, **decode},
-            "whisper": whisper, "failures": failures}
+            "whisper": whisper, "vlm": vlm, "failures": failures}
 
 
 
@@ -927,6 +1008,9 @@ FLASH_CASES = [
     # whisper-small's encoder: 12 heads over 12 (G = 1), D 64, non-causal
     # over its 1500 frames (11 key tiles of 128 and a ragged 92)
     (1, 1500, 1500, 12, 12, 64, False, None, None),
+    # llama-3.2-vision-90b's dense layers: 64 heads over 8 (G = 8), D 128,
+    # causal at its longest served prompt
+    (1, VLM_MAX_PROMPT, VLM_MAX_PROMPT, 64, 8, 128, True, None, None),
 ]
 
 
@@ -1993,7 +2077,9 @@ def cut_depth(model, params, n_layers: int):
     hybrid model keeps its global layers among them (the 2-layer cut of
     hymba is glob0 and the first layer of swa1, as glob0 | swa_tail);
     each segment of the cut takes its layers from the one segment of the
-    full model that holds them."""
+    full model that holds them. A vlm's segment counts groups, so its cut
+    slices whole groups (`plain` [n, 4, ...] and `cross` [n, ...] alike),
+    and a cut that is not whole groups raises ValueError (segments)."""
     cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
     if cfg.family == "hybrid":
         cfg = dataclasses.replace(cfg, global_attn_layers=tuple(
@@ -3009,12 +3095,17 @@ def phase_mla_oracle(model, params) -> None:
 # 14c. serve_audio and 14d. audio_oracle
 # --------------------------------------------------------------------------
 
-def audio_frames(seed: int, d_model: int) -> torch.Tensor:
-    """One request's frames [1, src_len, d_model] in bf16, as a bf16
-    frontend would give them, drawn on the card from `seed`."""
+def request_embeddings(seed: int, rows: int, d_model: int) -> torch.Tensor:
+    """One request's precomputed embeddings [1, rows, d_model] in bf16
+    (whisper's frames, a vlm's image tokens), as a bf16 frontend would give
+    them, drawn on the card from `seed`."""
     g = torch.Generator("cuda").manual_seed(seed)
-    return torch.randn((1, AUDIO_SERVE["src_len"], d_model), generator=g,
+    return torch.randn((1, rows, d_model), generator=g,
                        device="cuda").to(torch.bfloat16)
+
+
+def audio_frames(seed: int, d_model: int) -> torch.Tensor:
+    return request_embeddings(seed, AUDIO_SERVE["src_len"], d_model)
 
 
 def make_audio_requests(vocab: int) -> list[Request]:
@@ -3032,43 +3123,43 @@ def make_audio_requests(vocab: int) -> list[Request]:
         for i, n in enumerate(lens)]
 
 
-def audio_cache_bytes(cache: dict) -> dict:
-    """A served whisper cache's bytes: the cross K/V (every decoder layer,
-    slot and frame) and the decoder's self-attention KV cache."""
-    node = cache["dec"]
-    return {"cross_kv_bytes": node["cross"].k.nbytes + node["cross"].v.nbytes,
-            "self_kv_bytes": node["attn"].k.nbytes + node["attn"].v.nbytes}
+def cross_cache_bytes(node: dict) -> dict:
+    """A served cache node's bytes by kind: the self-attention KV (every
+    layer, slot and position to max_len) and the cross K/V (every cross
+    layer, slot and source row); whisper's `dec`, a vlm's `blocks`."""
+    return {"self_kv_bytes": node["attn"].k.nbytes + node["attn"].v.nbytes,
+            "cross_kv_bytes": node["cross"].k.nbytes + node["cross"].v.nbytes}
 
 
-def paged_refuses_extras(model, params) -> dict:
-    """A paged engine refuses a request that carries frames at submit
-    (InvalidRequest, field "extras"): on reduced granite-8b on the card (a
-    bucketed family: whisper's family prefills exact-length and cannot
-    page, which its engine refuses at construction)."""
-    frames = audio_frames(7, model.cfg.d_model)
+def paged_refuses_extras(model, params, extras: dict,
+                         serve_kw: dict) -> dict:
+    """A paged engine refuses a request that carries `extras` (whisper's
+    frames, a vlm's image embeddings) at submit (InvalidRequest, field
+    "extras"): on reduced granite-8b on the card (a bucketed family:
+    `model`'s family prefills exact-length and cannot page, which its
+    engine refuses at construction, with serve_kw's slots and lengths)."""
     gm = Model(reduced(get_arch(ARCH)), use_pallas=True)
     gp = gm.init(torch.Generator("cuda").manual_seed(0))
     eng = ServeEngine(gm, gp, slots=2, max_len=32, paged=True, page_size=8)
-    out = {}
+    out = {"extras": sorted(extras)}
     try:
-        eng.submit(Request(rid=0, prompt=np.arange(5),
-                           extras={"frames": frames}))
+        eng.submit(Request(rid=0, prompt=np.arange(5), extras=dict(extras)))
         out["submit"] = "accepted"
     except InvalidRequest as err:
         out["submit"] = {"field": err.field, "message": str(err)}
     out["queued"] = len(eng.queue)
     try:
         ServeEngine(model, params, paged=True, page_size=8,
-                    **{k: v for k, v in AUDIO_SERVE.items()
+                    **{k: v for k, v in serve_kw.items()
                        if k != "decode_chunk"})
-        out["whisper_paged"] = "built"
+        out["own_paged"] = "built"
     except ValueError as err:
-        out["whisper_paged"] = str(err)
+        out["own_paged"] = str(err)
     check(isinstance(out["submit"], dict) and
           out["submit"]["field"] == "extras" and out["queued"] == 0,
-          f"a paged engine took a request with frames: {out}")
-    check(out["whisper_paged"] != "built",
-          "whisper's engine was built paged")
+          f"a paged engine took a request with {sorted(extras)}: {out}")
+    check(out["own_paged"] != "built",
+          f"{model.cfg.name}'s engine was built paged")
     return out
 
 
@@ -3144,7 +3235,7 @@ def phase_serve_audio(model, params):
                          flush)
     prefill_ms = pair["graphed"]["second_pass"]["prefill_ms_per_call"]
     weights = sum(t.nbytes for t in param_tensors(params))
-    cache = audio_cache_bytes(out["eng"].cache)
+    cache = cross_cache_bytes(out["eng"].cache["dec"])
     dec = params["dec"]
     # what a decode step reads: the decoder's weights but the cross k and
     # v projections, the head, every lane's cross K/V and self KV cache
@@ -3164,7 +3255,9 @@ def phase_serve_audio(model, params):
                                    if prefill_ms else None),
          cache=cache, weight_bytes=weights, decode_step_bytes=step_bytes,
          decode_floor_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
-         paged=paged_refuses_extras(model, params))
+         paged=paged_refuses_extras(
+             model, params, {"frames": audio_frames(7, cfg.d_model)},
+             AUDIO_SERVE))
     return reqs, launches
 
 
@@ -3181,44 +3274,205 @@ def audio_cut(model, params, n_layers: int):
     return Model(cfg, attention_impl=model.impl, use_pallas=True), cut
 
 
-def phase_audio_oracle(model, params, served: list[Request]) -> None:
-    """whisper's engine against the per-token ReferenceEngine on the same
-    weights and frames: at full depth (serve_audio's tokens) agreement
-    and the margin rule reported, and on the first ORACLE_LAYERS encoder
-    and decoder layers of the same weights the margin rule held (tokens
-    agree, or differ first after a near tie of the oracle)."""
+def extras_oracle(phase: str, model, params, served: list[Request], cut,
+                  make_requests, serve_kw: dict, **fields) -> None:
+    """An exact-length engine whose requests carry extras (whisper's
+    frames, a vlm's image embeddings) against the per-token
+    ReferenceEngine on the same weights and extras: at full depth
+    (`served`, the serve phase's tokens) agreement and the margin rule
+    reported, and on `cut` (a smaller model and its weights, views of the
+    same) the margin rule held: tokens agree, or differ first after a
+    near tie of the oracle. `fields` join the emitted line."""
     tol = TOLERANCES["token_margin"]
     vocab = model.cfg.vocab
-    oracle_kw = {k: v for k, v in AUDIO_SERVE.items() if k != "decode_chunk"}
+    oracle_kw = {k: v for k, v in serve_kw.items() if k != "decode_chunk"}
     out = {}
     for label, (m, p) in (("full_depth", (model, params)),
-                          ("cut_depth", audio_cut(model, params,
-                                                  ORACLE_LAYERS))):
+                          ("cut_depth", cut)):
         if label == "full_depth":
             got = served
         else:
-            got = make_audio_requests(vocab)
-            serve(ServeEngine(m, p, **AUDIO_SERVE), got)
-        oracle = make_audio_requests(vocab)
+            got = make_requests(vocab)
+            serve(ServeEngine(m, p, **serve_kw), got)
+        oracle = make_requests(vocab)
         ref = ReferenceEngine(m, p, **oracle_kw)
         wall = serve(ref, oracle)
         diffs = first_differences(got, oracle, ref)
         out[label] = {
             "n_layers": m.cfg.n_layers,
-            "n_encoder_layers": m.cfg.n_encoder_layers,
+            "segments": [[seg.name, seg.n] for seg in m.segs],
             "token_exact": len(got) - len(diffs), "of": len(got),
             "first_differences": diffs, "oracle_wall_s": wall,
             "margin_rule_holds": all(
                 d["margin"] <= tol.atol * d["max_abs_logit"] for d in diffs)}
-    emit("audio_oracle", requests=N_AUDIO_REQUESTS, **out,
+        if m.cfg.encoder_decoder:
+            out[label]["n_encoder_layers"] = m.cfg.n_encoder_layers
+    emit(phase, requests=len(served), **out, **fields,
          margin_tolerance=f"{tol.atol} x max|logit| at the first "
                           f"difference")
     for d in out["cut_depth"]["first_differences"]:
         check(d["margin"] <= tol.atol * d["max_abs_logit"],
-              f"{ORACLE_LAYERS}+{ORACLE_LAYERS}-layer whisper cut: request "
+              f"{phase} cut to {out['cut_depth']['segments']}: request "
               f"{d['rid']} differs at token {d['step']} with oracle margin "
               f"{d['margin']} > {tol.atol} x max|logit| "
               f"{d['max_abs_logit']}")
+
+
+def phase_audio_oracle(model, params, served: list[Request]) -> None:
+    """whisper's engine against the per-token ReferenceEngine
+    (extras_oracle), the cut on the first ORACLE_LAYERS encoder and
+    decoder layers of the same weights."""
+    extras_oracle("audio_oracle", model, params, served,
+                  audio_cut(model, params, ORACLE_LAYERS),
+                  make_audio_requests, AUDIO_SERVE)
+
+
+# --------------------------------------------------------------------------
+# 14e. serve_vlm and 14f. vlm_oracle
+# --------------------------------------------------------------------------
+
+def make_vlm_requests(vocab: int) -> list[Request]:
+    """N_VLM_REQUESTS prompts of 16 to VLM_MAX_PROMPT tokens (the first
+    16 long, the last VLM_MAX_PROMPT: prefills on both sides of splitk's
+    M <= 64), each with its own image embeddings, MAX_NEW new tokens
+    each."""
+    rng = np.random.default_rng(9)
+    cfg = get_arch(VLM_ARCH)
+    lens = rng.integers(16, VLM_MAX_PROMPT + 1, N_VLM_REQUESTS)
+    lens[0], lens[-1] = 16, VLM_MAX_PROMPT
+    return [Request(rid=i, prompt=rng.integers(0, vocab, int(n)),
+                    max_new_tokens=MAX_NEW,
+                    extras={"image_embeds": request_embeddings(
+                        700 + i, cfg.n_image_tokens, cfg.d_model)})
+            for i, n in enumerate(lens)]
+
+
+def image_path_ms(model, params, images: torch.Tensor, flush) -> dict:
+    """The image path of one prefill, timed with L2 flushed: img_adapter
+    (image embeddings [1, 1601, d] x [d, d]) alone, and with the K/V
+    projections of every cross layer; einsums, as in the reference."""
+    cross = params["blocks"]["cross"]["cross"]
+    groups = cross["k"].shape[0]
+
+    def adapter():
+        return model._cross_source(params, {"image_embeds": images})
+
+    def path():
+        src = adapter()
+        for g in range(groups):
+            cross_kv_precompute({k: v[g] for k, v in cross.items()}, src,
+                                model.cfg)
+    return {"img_adapter_ms": time_ms(adapter, 5, flush),
+            "image_path_ms": time_ms(path, 5, flush),
+            "image_path_projections": 2 * groups}
+
+
+def phase_serve_vlm(model, params):
+    """llama-3.2-vision-90b at VLM_LAYERS of its 100 layers through
+    exact-length prefill (each request's image embeddings through
+    img_adapter, every cross layer's K/V written into the static cache,
+    causal flash in every dense layer) and fused decode (the cross layers
+    read their K/V from the cache), graphed and eager. Gates: every
+    request done, 8 prefills of [1, S], 7 pod GEMMs a dense layer, 3 a
+    cross layer and the head a forward (187 at 30 layers), one flash
+    launch a dense layer a prefill and none a decode step; by mainloop
+    every GEMM of a forward at M <= 64 (decode, and a prompt of up to 64
+    tokens) on splitk and at M > 64 on wgmma, the head (N = 128256, a
+    multiple of 128) with them; every flash launch on wgmma; no NT,
+    grouped or SSD launch; one decode step's logits bit-equal graphed and
+    eager; a paged engine refuses image embeddings."""
+    cfg = model.cfg
+    groups = cfg.n_layers // cfg.cross_attn_every
+    dense_layers = cfg.n_layers - groups
+    warm = {"image_embeds": request_embeddings(699, cfg.n_image_tokens,
+                                               cfg.d_model)}
+    out = exact_length_run("serve_vlm", model, params, VLM_SERVE,
+                           make_vlm_requests, extras=warm)
+    reqs, st, launches = out["reqs"], out["st"], out["launches"]
+    prefills, steps = st["prefill_calls"], st["decode_steps"]
+    per_forward = (len(GEMMS_PER_LAYER) * dense_layers
+                   + len(VLM_CROSS_GEMMS_PER_LAYER) * groups + 1)
+    check_per_forward("serve_vlm", launches, {"pod_gemm": per_forward},
+                      out["forwards"])
+    check(launches["flash"] == dense_layers * prefills,
+          f"serve_vlm: flash launches {launches['flash']} != "
+          f"{dense_layers} x {prefills} prefills (none per decode step)")
+    long = sum(len(r.prompt) > sg.SPLITK_MAX_M for r in reqs)
+    head = {M: sg.nn_plan(M, cfg.vocab, cfg.d_model, torch.bfloat16,
+                          True).mainloop
+            for M in (SLOTS, VLM_MAX_PROMPT)}
+    check(head == {SLOTS: "splitk", VLM_MAX_PROMPT: "wgmma"},
+          f"serve_vlm: the head's plan {head} is not splitk at decode and "
+          f"wgmma at the longest prompt")
+    by = hopper_mainloops("serve_vlm")
+    check(by == {"splitk": per_forward * (prefills - long + steps),
+                 "wgmma": per_forward * long, "wmma": 0, "simt": 0},
+          f"serve_vlm: pod-GEMM launches by mainloop {by}: {long} prefills "
+          f"of more than {sg.SPLITK_MAX_M} tokens on wgmma, the rest and "
+          f"every decode step on splitk, {per_forward} a forward")
+    launches["pod_gemm_by_mainloop"] = by
+    launches["flash_by_mainloop"] = flash_mainloops("serve_vlm")
+    check(launches["gemm_nt"] == 0 and launches["grouped"] == 0 and
+          launches["ssd"] == 0,
+          f"the vlm launched an NT, grouped or SSD kernel: {launches}")
+    pair = graphed_vs_eager("serve_vlm", model, params, out["eng"],
+                            out["run"], reqs, make_vlm_requests, VLM_SERVE,
+                            extras=warm)
+    check(pair["decode_logits"]["bit_equal"],
+          f"serve_vlm: one decode step's logits differ graphed and eager: "
+          f"{pair['decode_logits']}")
+    for label in ("graphed", "eager"):
+        prof = pair[label]["decode_chunk_profile"]
+        prof["kernels_per_decode_step"] = prof["kernels"] / prof["steps"]
+        prof["top_kernels"] = top_kernels(f"serve_vlm-{label}")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    image = image_path_ms(model, params, warm["image_embeds"], flush)
+    prefill_ms = pair["graphed"]["second_pass"]["prefill_ms_per_call"]
+    weights = sum(t.nbytes for t in param_tensors(params))
+    cache = cross_cache_bytes(out["eng"].cache["blocks"])
+    cross = params["blocks"]["cross"]["cross"]
+    # what a decode step reads: the weights but the token table (4 rows
+    # of it), the cross layers' k and v projections and img_adapter (a
+    # prefill's), every lane's self KV to max_len and image K/V
+    step_bytes = (weights - params["embed"]["tok"].nbytes
+                  - cross["k"].nbytes - cross["v"].nbytes
+                  - params["img_adapter"].nbytes
+                  + cache["self_kv_bytes"] + cache["cross_kv_bytes"])
+    emit("serve_vlm", arch=cfg.name, n_layers=cfg.n_layers,
+         of_layers=get_arch(VLM_ARCH).n_layers, groups=groups,
+         dense_layers=dense_layers, cross_layers=groups,
+         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+         d_ff=cfg.d_ff, vocab=cfg.vocab,
+         image_tokens=cfg.n_image_tokens, attention_impl=model.impl,
+         **VLM_SERVE, **out["figures"], graphed_vs_eager=pair,
+         launches=launches,
+         launches_per_forward={"pod_gemm": per_forward},
+         launches_per_prefill={"flash": dense_layers},
+         launches_per_decode_step={"pod_gemm": per_forward, "flash": 0},
+         head_mainloop=head, prefill_ms_per_call=prefill_ms, **image,
+         image_share_of_prefill=(image["image_path_ms"] / prefill_ms
+                                 if prefill_ms else None),
+         cache=cache, weight_bytes=weights, decode_step_bytes=step_bytes,
+         decode_floor_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+         paged=paged_refuses_extras(model, params, warm, VLM_SERVE))
+    return reqs, launches
+
+
+def phase_vlm_oracle(model, params, served: list[Request]) -> None:
+    """The vlm's engine against the per-token ReferenceEngine
+    (extras_oracle), the cut on the first group of the same weights
+    (cut_depth: 4 dense layers and a cross layer). A cut that is not
+    whole groups must be refused."""
+    group = model.cfg.cross_attn_every
+    try:
+        cut_depth(model, params, group + 1)
+        ragged = "built"
+    except ValueError as err:
+        ragged = str(err)
+    check(ragged != "built", f"a {group + 1}-layer cut of the vlm was built")
+    extras_oracle("vlm_oracle", model, params, served,
+                  cut_depth(model, params, group), make_vlm_requests,
+                  VLM_SERVE, ragged_cut=ragged)
 
 
 # --------------------------------------------------------------------------
@@ -4058,7 +4312,8 @@ def gemm_line(cfg, launches: int, by_mainloop: dict, moe_cfg,
               moe_launches: int, moe_by_mainloop: dict, hybrid_cfg,
               hybrid_table: dict, guard: dict, dense: dict,
               dense_served: dict, mla_cfg, mla_launches: dict,
-              audio_cfg, audio_launches: dict) -> dict:
+              audio_cfg, audio_launches: dict, vlm_cfg,
+              vlm_launches: dict) -> dict:
     """granite-8b's pod GEMMs at decode (M = SLOTS) and a [SLOTS, 256]
     prefill, the line's own numbers; dbrx-132b's q/k/v/o and untied head
     at decode and at its longest exact-length prefill (M = 1277) under
@@ -4074,8 +4329,11 @@ def gemm_line(cfg, launches: int, by_mainloop: dict, moe_cfg,
     exact-length prefill (M = 1277) under "deepseek"; whisper-small's
     (phase kernel: the encoder's at M = 1500, the decoder's at decode, the
     51865-wide head at M = 4 and 64; an encoder pass and a decode step
-    summed over 12 layers) with its served launches under "whisper".
-    Launches by mainloop are the served runs'."""
+    summed over 12 layers) with its served launches under "whisper";
+    llama-3.2-vision-90b's (phase kernel: q, k, o, gate, down and the
+    128256-row head at decode, up at M = 600; a decode step summed over
+    the 30-layer cut's 24 dense and 6 cross layers) with its served
+    launches under "vlm". Launches by mainloop are the served runs'."""
     rows, totals, worst, per_fwd = pod_gemm_rows(
         cfg, (("decode", SLOTS, 20), ("prefill", SLOTS * 256, 5)), seed=2)
     moe_rows, moe_totals, moe_worst, moe_per_fwd = pod_gemm_rows(
@@ -4097,7 +4355,8 @@ def gemm_line(cfg, launches: int, by_mainloop: dict, moe_cfg,
         "launches": launches, "launches_by_mainloop": by_mainloop,
         "max_abs_err": max(worst, moe_worst, h_worst, ds_worst,
                            *(r["max_abs_err"]
-                             for r in dense["whisper"]["rows"])),
+                             for r in dense["whisper"]["rows"]
+                             + dense["vlm"]["rows"])),
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": "bytes",
         "library_ms": dec["library_ms"],
@@ -4150,6 +4409,10 @@ def gemm_line(cfg, launches: int, by_mainloop: dict, moe_cfg,
                     "per_decoder_forward": len(AUDIO_GEMMS_PER_LAYER)
                     * audio_cfg.n_layers + 1,
                     **dense["whisper"]},
+        "vlm": {"arch": vlm_cfg.name, "n_layers": vlm_cfg.n_layers,
+                "launches": vlm_launches["pod_gemm"],
+                "launches_by_mainloop": vlm_launches["pod_gemm_by_mainloop"],
+                **dense["vlm"]},
     }
 
 
@@ -4213,7 +4476,8 @@ def flash_row(B, S, Hq, Hkv, D, iters: int, g, flush,
 
 def flash_line(cfg, by_mainloop: dict, moe_cfg, moe_by_mainloop: dict,
                hybrid_cfg, hybrid_table: dict, nemotron: dict,
-               dense_served: dict, audio_cfg, audio_launches: dict) -> dict:
+               dense_served: dict, audio_cfg, audio_launches: dict,
+               vlm_cfg, vlm_launches: dict) -> dict:
     """granite-8b's prefill attention at buckets 256 and 2048 (B = SLOTS),
     the line's own numbers (a forward's 36 launches at 2048), and dbrx-
     132b's longest exact-length prefill, [1, 1277, 48 over 8, 128]; under
@@ -4225,7 +4489,10 @@ def flash_line(cfg, by_mainloop: dict, moe_cfg, moe_by_mainloop: dict,
     archs' served launches by mainloop. Under "whisper", whisper-small's
     encoder, [1, 1500, 12 over 12, 64] non-causal, and its decoder's
     prefill at the longest served prompt, [1, 64, 12 over 12, 64] causal,
-    each summed over its 12 layers, with the served launches."""
+    each summed over its 12 layers, with the served launches. Under
+    "vlm", llama-3.2-vision-90b's longest served prefill, [1, 600, 64
+    over 8, 128] causal, and its sum over the 30-layer cut's 24 dense
+    layers, with the served launches."""
     g = torch.Generator("cuda").manual_seed(4)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
     D = cfg.resolved_head_dim
@@ -4246,6 +4513,10 @@ def flash_line(cfg, by_mainloop: dict, moe_cfg, moe_by_mainloop: dict,
                         ac.resolved_head_dim, iters, g, flush, causal=causal)
               for S, iters, causal in ((AUDIO_SERVE["src_len"], 10, False),
                                        (64, 20, True))]
+    vc = vlm_cfg
+    v_row = flash_row(1, VLM_MAX_PROMPT, vc.n_heads, vc.n_kv_heads,
+                      vc.resolved_head_dim, 10, g, flush)
+    v_dense = vc.n_layers - vc.n_layers // vc.cross_attn_every
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     top, L = rows[1], cfg.n_layers
     return {
@@ -4276,8 +4547,14 @@ def flash_line(cfg, by_mainloop: dict, moe_cfg, moe_by_mainloop: dict,
                     "decoder_prefill_64": {k: ac.n_layers * w_rows[1][k]
                                            for k in keys},
                     "shapes": w_rows},
+        "vlm": {"arch": vc.name, "n_layers": vc.n_layers,
+                "launches": vlm_launches["flash"],
+                "launches_by_mainloop": vlm_launches["flash_by_mainloop"],
+                "prefill_600": {**{k: v_dense * v_row[k] for k in keys},
+                                "launches": v_dense},
+                "shapes": [v_row]},
         "max_abs_err": max(r["max_abs_err"] for r in rows + h_rows +
-                           w_rows + [nemotron]),
+                           w_rows + [nemotron, v_row]),
         "ms": L * top["ms"], "plain_ms": L * top["plain_ms"],
         "bound_ms": L * top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": L * top["library_ms"],
@@ -4671,6 +4948,29 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+        vlm_cfg = dataclasses.replace(get_arch(VLM_ARCH), n_layers=VLM_LAYERS)
+        t0 = time.perf_counter()
+        freed = torch.cuda.memory_allocated()
+        vlm_model = Model(vlm_cfg, attention_impl="pallas", use_pallas=True)
+        vlm_params = vlm_model.init(torch.Generator("cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        emit("init", arch=vlm_cfg.name, n_layers=VLM_LAYERS,
+             of_layers=get_arch(VLM_ARCH).n_layers,
+             params=vlm_model.param_count(),
+             seconds=time.perf_counter() - t0,
+             gib_allocated_before=freed / 2 ** 30,
+             gib_allocated=torch.cuda.memory_allocated() / 2 ** 30)
+        vlm_served, vlm_launches = phase_serve_vlm(vlm_model, vlm_params)
+        torch.cuda.synchronize()
+        gc.collect()
+        phase_vlm_oracle(vlm_model, vlm_params, vlm_served)
+        torch.cuda.synchronize()
+        emit("vlm_memory",
+             gib_peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del vlm_params, vlm_served
+        gc.collect()
+        torch.cuda.empty_cache()
+
         hybrid_cfg = get_arch(HYBRID_ARCH)
         t0 = time.perf_counter()
         hybrid_model = Model(hybrid_cfg, attention_impl="pallas",
@@ -4698,12 +4998,13 @@ def main() -> int:
             cfg, launches, by_mainloop, moe_cfg, moe_launches["pod_gemm"],
             moe_launches["pod_gemm_by_mainloop"], hybrid_cfg,
             hybrid["pod_gemm"], guard, dense_gemms, dense_served, mla_cfg,
-            mla_launches, audio_cfg, audio_launches),
+            mla_launches, audio_cfg, audio_launches, vlm_cfg, vlm_launches),
                                flash_line(cfg, flash_by_mainloop, moe_cfg,
                                           moe_launches["flash_by_mainloop"],
                                           hybrid_cfg, hybrid["flash"],
                                           nemotron_flash, dense_served,
-                                          audio_cfg, audio_launches),
+                                          audio_cfg, audio_launches,
+                                          vlm_cfg, vlm_launches),
                                gemm_nt_line(
                                    ssm_cfg, ssm_launches["gemm_nt"],
                                    ssm_launches["gemm_nt_by_mainloop"],

@@ -12,7 +12,9 @@ axis, segment by segment (hymba's global-attention segments are one layer
 each; so is deepseek-v2's dense0, and its moe at reduced()). An
 encoder-decoder arch's `encoder` subtree is not a segment: both packages
 stack its blocks [n_encoder_layers, ...] at any depth, so it passes as
-it is.
+it is. Nor does a vision-language arch's one segment of groups gain an
+axis: both packages stack its `plain` blocks [groups, inner, ...] and its
+`cross` blocks [groups, ...] at any depth, one group included.
 """
 
 from __future__ import annotations
@@ -40,12 +42,13 @@ def params_from_jax(tree, device="cpu"):
 
 def model_params_from_jax(model, tree, device="cpu"):
     """params_from_jax for `model` (a repro_torch Model): every leaf of a
-    one-layer segment gains the leading layer axis the port's schema has.
-    Equal to params_from_jax where every segment has more than one
+    one-layer segment gains the leading layer axis the port's schema has,
+    but a vlm's segment of groups, which the reference stacks at every
+    depth. Equal to params_from_jax where every segment has more than one
     layer."""
     out = params_from_jax(tree, device)
     for seg in model.segs:
-        if seg.n == 1:
+        if seg.n == 1 and seg.kind != "vlm":
             out[seg.name] = _stack_one(out[seg.name])
     return out
 

@@ -17,9 +17,10 @@ bounds the queue (over-budget submissions are shed with
 `Request.state == "rejected"`), and `--chaos-*` arm the seeded fault
 injector so the retry and shedding machinery shows from the command line.
 
-`--arch` takes any arch, and the launcher passes no frames, as the
-reference's does not: an encoder-decoder arch (whisper-small) fails at
-its first prefill with a KeyError that names them.
+`--arch` takes any arch, and the launcher passes no frames and no
+image embeddings, as the reference's does not: an encoder-decoder arch
+(whisper-small) and the vision-language arch (llama-3.2-vision-90b) fail
+at their first prefill with a KeyError that names them.
 """
 
 from __future__ import annotations

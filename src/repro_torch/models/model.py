@@ -10,6 +10,8 @@ repro/models/model.py).
     # or Model(get_arch("deepseek-v2-236b"), use_pallas=True)  # MLA
     # or Model(get_arch("whisper-small"), attention_impl="pallas",
     #          use_pallas=True)                                # enc-dec
+    # or Model(get_arch("llama-3.2-vision-90b"), attention_impl="pallas",
+    #          use_pallas=True)                                # vlm
     params = model.init(torch.Generator("cuda").manual_seed(0))
     logits, cache = model.prefill(params, batch, model.init_cache(4, 512))
     logits, cache = model.decode_step(params, tok, cache, position)
@@ -27,6 +29,15 @@ prefill runs the encoder over them and writes each decoder layer's cross
 K/V into the cache (`init_cache(src_len=)` sizes it); decode runs no
 encoder and reads them back. Positions are sinusoids added to the
 frames and to the token embeddings (`use_rope=False`).
+
+The vision-language family (llama-3.2-vision) takes its image tokens in
+the batch: `batch["image_embeds"]` [B, n_image_tokens, d_model], the
+embeddings a vision tower would give (the tower is a stub, as in the
+reference), which a prefill multiplies by `img_adapter` [d, d] into the
+cross source of every group's `cross_layer`. Its one segment holds
+`plain` dense blocks stacked [groups, cross_attn_every - 1, ...] and
+`cross` blocks [groups, ...], stacked at every depth as the reference
+stacks them. Its cache is flat (init_cache).
 """
 
 from __future__ import annotations
@@ -37,9 +48,9 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..runtime import resolve_device
-from .attention import KVCache, PagedKVCache, RingKVCache
-from .layers import (apply_norm, embed, embed_schema, init_from_schema,
-                     norm_schema, param_count, unembed)
+from .attention import KVCache, PagedKVCache, RingKVCache, einsum
+from .layers import (ParamSpec, apply_norm, embed, embed_schema,
+                     init_from_schema, norm_schema, param_count, unembed)
 from .ssm import SSMCache
 from .transformer import (MLACache, Segment, apply_block, block_schema,
                           segments)
@@ -47,11 +58,11 @@ from .transformer import (MLACache, Segment, apply_block, block_schema,
 
 @dataclasses.dataclass
 class CrossKV:
-    """Cross-attention K/V of the encoder output, per layer and lane,
-    updated in place: `k`/`v` [(L,) B, S_src, H, D]. A prefill writes the
-    first S rows (S the frames it was given); decode reads it whole and
-    never writes it. It has no length: the cross attention attends every
-    row, as the reference's does."""
+    """Cross-attention K/V of the encoder output or the image tokens, per
+    layer and lane, updated in place: `k`/`v` [(L,) B, S_src, H_kv, D]. A
+    prefill writes the first S rows (S the frames or image tokens it was
+    given); decode reads it whole and never writes it. It has no length:
+    the cross attention attends every row, as the reference's does."""
     k: torch.Tensor
     v: torch.Tensor
 
@@ -91,6 +102,13 @@ def _sinusoid(seq: int, d: int, offset=0, device=None):
     dim = torch.arange(0, d, 2, dtype=torch.float32, device=pos.device)
     ang = pos[..., None] / torch.pow(10000.0, dim / d)
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _stack_schema(sch, n: int):
+    """A block schema with a leading axis of n (the vlm's groups)."""
+    if isinstance(sch, dict):
+        return {k: _stack_schema(v, n) for k, v in sch.items()}
+    return dataclasses.replace(sch, shape=(n,) + sch.shape)
 
 
 def _index(tree, i: int):
@@ -135,11 +153,19 @@ class Model:
                                            cfg.tie_embeddings),
                      "ln_f": norm_schema(cfg.d_model, cfg.norm)}
         for seg in self.segs:
-            sch[seg.name] = block_schema(cfg, seg.kind, seg.n)
+            if seg.kind == "vlm":
+                sch[seg.name] = {
+                    "plain": _stack_schema(block_schema(
+                        cfg, "dense", cfg.cross_attn_every - 1), seg.n),
+                    "cross": block_schema(cfg, "cross_layer", seg.n)}
+            else:
+                sch[seg.name] = block_schema(cfg, seg.kind, seg.n)
         if cfg.encoder_decoder:
             sch["encoder"] = {
                 "blocks": block_schema(cfg, "encoder", cfg.n_encoder_layers),
                 "ln_f": norm_schema(cfg.d_model, cfg.norm)}
+        if cfg.family == "vlm":
+            sch["img_adapter"] = ParamSpec((cfg.d_model, cfg.d_model))
         return sch
 
     def init(self, generator: torch.Generator) -> dict:
@@ -157,10 +183,30 @@ class Model:
         kw = dict(positions=positions, window=seg.window, impl=self.impl,
                   ssd_impl=self.ssd_impl, use_pallas=self.use_pallas,
                   true_lens=true_lens, cross_src=cross_src)
+        if seg.kind == "vlm":
+            return self._run_vlm_segment(seg, p_seg, x, cache_seg, kw)
         for i in range(seg.n):
             x = apply_block(_index(p_seg, i), x, self.cfg, seg.kind,
                             cache=None if cache_seg is None
                             else _index(cache_seg, i), **kw)
+        return x
+
+    def _run_vlm_segment(self, seg: Segment, p_seg, x, cache_seg, kw):
+        """The vlm's groups in order: each group's cross_attn_every - 1
+        dense blocks, each with its self KV (flat layer g * inner + l of
+        the cache's KVCache), then its cross_layer block with the group's
+        CrossKV."""
+        inner = self.cfg.cross_attn_every - 1
+        for g in range(seg.n):
+            p_g = _index(p_seg, g)
+            for l in range(inner):
+                x = apply_block(
+                    _index(p_g["plain"], l), x, self.cfg, "dense",
+                    cache=None if cache_seg is None else
+                    {"attn": cache_seg["attn"].layer(g * inner + l)}, **kw)
+            x = apply_block(p_g["cross"], x, self.cfg, "cross_layer",
+                            cache=None if cache_seg is None else
+                            {"cross": cache_seg["cross"].layer(g)}, **kw)
         return x
 
     def _embed_in(self, params, tokens, offset=0):
@@ -192,8 +238,18 @@ class Model:
         return apply_norm(params["encoder"]["ln_f"], x, cfg.norm)
 
     def _cross_source(self, params, batch):
-        """The encoder output for the crossdec blocks (None for a
-        decoder-only arch)."""
+        """The encoder output for the crossdec blocks, or the image tokens
+        through `img_adapter` for the cross_layer blocks (a plain product,
+        as in the reference, in the promoted dtype of the embeddings and
+        the adapter); None for an arch without cross attention."""
+        if self.cfg.family == "vlm":
+            if "image_embeds" not in batch:
+                raise KeyError(
+                    "image_embeds: a vision-language prefill needs the image "
+                    "embeddings [B, n_image_tokens, d_model] in the batch "
+                    "(serving: Request.extras['image_embeds'])")
+            return einsum("bnd,de->bne", batch["image_embeds"],
+                          params["img_adapter"])
         if not self.cfg.encoder_decoder:
             return None
         if "frames" not in batch:
@@ -212,10 +268,11 @@ class Model:
         ring caches gather each lane's last-window real tokens, so the
         padding is inert (models/ssm.py::apply_ssm,
         attention.py::RingKVCache.fill_prefill). An encoder-decoder arch
-        runs its encoder over batch["frames"] without a cache or when S >
-        1, never at decode (S == 1 with a cache: the crossdec blocks read
-        their cross K/V from the cache, also for a one-token prompt, as
-        the reference does)."""
+        runs its encoder over batch["frames"] (a vision-language arch
+        adapts batch["image_embeds"]) without a cache or when S > 1,
+        never at decode (S == 1 with a cache: the cross-attention blocks
+        read their cross K/V from the cache, also for a one-token prompt,
+        as the reference does)."""
         tokens = batch["tokens"]
         S = tokens.shape[1]
         if positions is None:
@@ -252,8 +309,10 @@ class Model:
         MLACache of the latent when cfg.mla is set); hybrid,
         an SSMCache beside a RingKVCache of min(window, ring_len) slots in
         a window segment and a KVCache in a global one; crossdec, a
-        KVCache beside a CrossKV of src_len rows (the encoder's frames).
-        ring_len defaults to max_len; the paged engine's prefill transient
+        KVCache beside a CrossKV of src_len rows (the encoder's frames);
+        vlm, a KVCache of groups x (cross_attn_every - 1) layers beside a
+        CrossKV of one layer a group and `src_len or n_image_tokens` rows,
+        n_kv_heads wide (the reference's size). ring_len defaults to max_len; the paged engine's prefill transient
         spans a bucket's pages only but keeps the engine's ring width.
 
         page_size/kv_pages set builds a *paged* cache: every KVCache
@@ -261,7 +320,16 @@ class Model:
         (serve/paging.PagePool owns the host-side allocation). SSM state
         and rings are fixed-size per lane, so they stay lane-resident
         either way. Only the bucketed-prefill families page: their prefill
-        scatters whole pages of a padded bucket into the pool."""
+        scatters whole pages of a padded bucket into the pool.
+
+        The vlm node is flat, {"attn": KVCache [groups * inner, B, ...],
+        "cross": CrossKV [groups, B, ...]} with inner = cross_attn_every -
+        1, where the reference nests {"plain": {"attn": [groups, inner, B,
+        ...]}, "cross": {"cross": ...}}: plain layer (g, l) lives at index
+        g * inner + l. So every node is {key: stacked cache} with the lane
+        axis second, the layout the serve engine's lane helpers walk
+        (_write_lane, _copy_lanes, _reset, _fix_lengths, _decode_state),
+        and the vlm needs none of its own."""
         cfg = self.cfg
         if (page_size is None) != (kv_pages is None):
             raise ValueError("page_size and kv_pages must be set together")
@@ -295,6 +363,11 @@ class Model:
                 node["cross"] = CrossKV.zeros(batch, src_len, cfg.n_kv_heads,
                                               hd, dtype, layers=seg.n,
                                               device=dev)
+            elif seg.kind == "vlm":
+                node["attn"] = kv(seg.n * (cfg.cross_attn_every - 1))
+                node["cross"] = CrossKV.zeros(
+                    batch, src_len or cfg.n_image_tokens, cfg.n_kv_heads, hd,
+                    dtype, layers=seg.n, device=dev)
             elif seg.kind != "ssm":
                 node["attn"] = kv(seg.n) if seg.window is None else \
                     RingKVCache.zeros(batch, min(seg.window, ring_len),

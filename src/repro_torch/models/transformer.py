@@ -1,5 +1,5 @@
-"""Model assembly for the dense, SSM, MoE, hybrid and encoder-decoder
-families (counterpart of repro/models/transformer.py).
+"""Model assembly for the dense, SSM, MoE, hybrid, encoder-decoder and
+vision-language families (counterpart of repro/models/transformer.py).
 
 A model is a list of segments; a segment is a homogeneous stack of layers
 whose parameters carry a leading `layers` axis. The reference scans the
@@ -16,9 +16,12 @@ segments) and the encoder-decoder family (whisper: `encoder` blocks,
 non-causal self-attention over the input frames, which model.py runs
 before the decoder; `crossdec` blocks, causal self-attention, then
 cross-attention to the encoder output, whose per-layer K/V a prefill
-writes into the cache and a decode step reads back). The
-vision-language family (5-layer groups with `cross_layer` blocks) is
-not ported yet and raises NotImplementedError.
+writes into the cache and a decode step reads back) and the
+vision-language family (llama-3.2-vision: one segment of groups, each
+`cross_attn_every - 1` dense blocks and then a `cross_layer` block,
+which has no self-attention: a pre-norm cross attention of the tokens
+over the image tokens, then the pre-norm MLP; model.py walks the
+groups).
 """
 
 from __future__ import annotations
@@ -41,17 +44,21 @@ from .ssm import apply_ssm, ssm_schema
 @dataclasses.dataclass(frozen=True)
 class Segment:
     name: str
-    kind: str                  # dense | ssm | moe | hybrid | crossdec
-    n: int                     # number of layers
+    kind: str                  # dense | ssm | moe | hybrid | crossdec | vlm
+    n: int                     # number of layers (of groups for vlm)
     window: int | None = None  # sliding window of the attention (hybrid)
 
 
 def segments(cfg: ArchConfig) -> list[Segment]:
     if cfg.family == "vlm":
-        raise NotImplementedError(
-            "family 'vlm' is not ported yet (its 5-layer groups, "
-            "cross_layer blocks and image cache); repro_torch serves the "
-            "dense, ssm, moe, hybrid and encoder-decoder families")
+        # one segment of groups: cross_attn_every - 1 dense blocks, then a
+        # cross_layer block (model.py::Model._run_vlm_segment)
+        if cfg.n_layers % cfg.cross_attn_every:
+            raise ValueError(
+                f"a vlm's n_layers ({cfg.n_layers}) must be a multiple of "
+                f"cross_attn_every ({cfg.cross_attn_every}): it runs in "
+                f"whole groups")
+        return [Segment("blocks", "vlm", cfg.n_layers // cfg.cross_attn_every)]
     if cfg.family == "moe":
         fd = cfg.moe.first_dense_layers
         segs = [Segment("dense0", "dense", fd)] if fd else []
@@ -76,7 +83,8 @@ def segments(cfg: ArchConfig) -> list[Segment]:
     if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; repro_torch serves "
-            f"the dense, ssm, moe, hybrid and encoder-decoder families")
+            f"the dense, ssm, moe, hybrid, encoder-decoder and "
+            f"vision-language families")
     return [Segment("layers", cfg.family, cfg.n_layers)]
 
 
@@ -271,6 +279,13 @@ def block_schema(cfg: ArchConfig, kind: str, layers: int | None) -> dict:
     if kind == "ssm":
         return {"ln_ssm": _norms(cfg, cfg.d_model, layers),
                 "ssm": ssm_schema(cfg, layers)}
+    if kind == "cross_layer":
+        return {"ln_cross": _norms(cfg, cfg.d_model, layers),
+                "cross": attn_schema(dataclasses.replace(cfg, mla=None),
+                                     layers),
+                "ln_mlp": _norms(cfg, cfg.d_model, layers),
+                "mlp": mlp_schema(cfg.d_model, cfg.d_ff, cfg.activation,
+                                  layers)}
     if kind not in ATTENTION_BLOCKS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     sch = {"ln_attn": _norms(cfg, cfg.d_model, layers),
@@ -313,20 +328,36 @@ def cross_kv_precompute(p_cross, src, cfg: ArchConfig):
 
 
 def _cross_kv(p_cross, x, cfg: ArchConfig, cache: dict | None, cross_src):
-    """(k, v) of a crossdec block's cross attention: read from the
-    cache's CrossKV (model.py) at decode (a cache and S == 1, where
-    nothing is computed from the encoder), else computed from `cross_src`
-    and, with a cache, written into it."""
+    """(k, v) of a crossdec or cross_layer block's cross attention: read
+    from the cache's CrossKV (model.py) at decode (a cache and S == 1,
+    where nothing is computed from the source), else computed from
+    `cross_src` (the encoder output, or the adapted image embeddings) and,
+    with a cache, written into it."""
     c = cache.get("cross") if cache else None
     if c is not None and x.shape[1] == 1:
         return c.k, c.v
     if cross_src is None:
         raise ValueError("a cross-attention layer needs cross_src (the "
-                         "encoder output) outside decode")
+                         "encoder output or the image embeddings) outside "
+                         "decode")
     k, v = cross_kv_precompute(p_cross, cross_src, cfg)
     if c is not None:
         c.write(k, v)
     return k, v
+
+
+def _cross_attend(p, x, cfg: ArchConfig, cache: dict | None, cross_src):
+    """The pre-norm cross attention of a crossdec or cross_layer block,
+    without its residual: q and o projections on einsums and chunked
+    attention over every source row (no mask), as in the reference, also
+    under use_pallas and attention_impl="pallas"."""
+    h = apply_norm(p["ln_cross"], x, cfg.norm)
+    k, v = _cross_kv(p["cross"], h, cfg, cache, cross_src)
+    q = einsum("bsd,dhk->bshk", h, p["cross"]["q"])
+    out = chunked_attention(q, k, v, causal=False)
+    B, S = h.shape[0], h.shape[1]
+    return einsum("bshk,hkd->bsd", out.reshape(B, S, cfg.n_heads, -1),
+                  p["cross"]["o"])
 
 
 def apply_block(p, x, cfg: ArchConfig, kind: str, *, positions,
@@ -353,13 +384,22 @@ def apply_block(p, x, cfg: ArchConfig, kind: str, *, positions,
     at decode, are read from the cache (_cross_kv). Its q/o and K/V
     projections are einsums and its attention chunked torch ops even
     under use_pallas and attention_impl="pallas", as in the reference.
-    `true_lens`: the per-lane lengths of a right-padded prefill. Caches
-    update in place."""
+    cross_layer (the vision-language family's image layer): no
+    self-attention; a pre-norm cross attention of the tokens over the
+    image tokens `cross_src` (the adapted image embeddings), then the
+    pre-norm MLP (on the pod GEMM under use_pallas); `cache` {"cross":
+    CrossKV} or None, its K/V as crossdec's. `true_lens`: the per-lane
+    lengths of a right-padded prefill. Caches update in place."""
     if kind == "ssm":
         h = apply_norm(p["ln_ssm"], x, cfg.norm)
         return x + apply_ssm(p["ssm"], h, cfg,
                              cache=cache["ssm"] if cache else None,
                              impl=ssd_impl, true_lens=true_lens)
+    if kind == "cross_layer":
+        x = x + _cross_attend(p, x, cfg, cache, cross_src)
+        h = apply_norm(p["ln_mlp"], x, cfg.norm)
+        return x + apply_mlp(p["mlp"], h, cfg.activation,
+                             use_pallas=use_pallas)
     if kind not in ATTENTION_BLOCKS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     h = apply_norm(p["ln_attn"], x, cfg.norm)
@@ -379,13 +419,7 @@ def apply_block(p, x, cfg: ArchConfig, kind: str, *, positions,
     else:
         x = x + a
     if kind == "crossdec":
-        h = apply_norm(p["ln_cross"], x, cfg.norm)
-        k, v = _cross_kv(p["cross"], h, cfg, cache, cross_src)
-        q = einsum("bsd,dhk->bshk", h, p["cross"]["q"])
-        out = chunked_attention(q, k, v, causal=False)
-        B, S = h.shape[0], h.shape[1]
-        x = x + einsum("bshk,hkd->bsd", out.reshape(B, S, cfg.n_heads, -1),
-                       p["cross"]["o"])
+        x = x + _cross_attend(p, x, cfg, cache, cross_src)
     h = apply_norm(p["ln_mlp"], x, cfg.norm)
     if kind == "moe":
         return x + apply_moe(p["moe"], h, cfg, use_pallas=use_pallas)

@@ -17,7 +17,8 @@ prefill into free slots, and decode step-locked with the rest of the batch.
   * Exact-length prefill, for the families whose prefill padding is not
     inert (`Model.bucketed_prefill_ok` False: MoE, where padding tokens
     would take expert capacity from real ones, and the encoder-decoder
-    family, whose prompts carry frames), for every request with `extras`
+    and vision-language families, whose prompts carry frames or image
+    embeddings), for every request with `extras`
     (per-request inputs that cannot join a shared bucket batch), or with
     prefill_buckets=False: one request per prefill, [1, S], into a fresh
     1-lane cache that is then copied into its slot. `bucketed` says which
@@ -30,6 +31,12 @@ prefill into free slots, and decode step-locked with the rest of the batch.
     engine's static cache and runs no encoder, so a captured decode chunk
     reads them without a host copy. A paged engine refuses extras at
     submit.
+  * Vision-language (llama-3.2-vision): `Request.extras` {"image_embeds":
+    [1, n_image_tokens, d_model]} goes the same way: the prefill's
+    forward adapts them (`img_adapter`) and writes every cross layer's
+    K/V into the lane cache, whose CrossKV is n_image_tokens rows wide
+    (`src_len` 0); the vlm's cache is flat (Model.init_cache), so the
+    lane helpers below walk it as every other family's.
   * Fused decode: a chunk of n decode steps runs as a Python loop whose
     tokens, positions, budgets and alive masks stay on the device; nothing
     is read back inside the loop. A lane whose budget runs out keeps
@@ -148,8 +155,9 @@ class Request:
     out: list = dataclasses.field(default_factory=list)
     done: bool = False
     # extra prefill-batch arrays (batch axis included), e.g. whisper's
-    # {"frames": [1, src_len, d_model]}, merged into the prefill batch; a
-    # request with extras always prefills exact-length
+    # {"frames": [1, src_len, d_model]} or a vlm's {"image_embeds": [1,
+    # n_image_tokens, d_model]}, merged into the prefill batch; a request
+    # with extras always prefills exact-length
     extras: dict = dataclasses.field(default_factory=dict)
     # QoS envelope (serve/admission.py): deadline is seconds from submit
     # on the engine's clock; priority breaks deadline ties (lower = more
@@ -367,7 +375,8 @@ class ServeEngine:
         recycle: MIN_BUCKET is fixed and lanes recycle inside a chunk
         exactly when paged). src_len sizes the encoder-decoder family's
         cross K/V lanes (the frames a request may carry; 0 for every
-        decoder-only arch).
+        decoder-only arch, and for the vision-language family, whose
+        cross K/V lanes then take its config's n_image_tokens rows).
         eager=True runs the step runners eagerly on the card too (no CUDA
         graphs): the run a graphed one is held against. On the CPU every
         runner runs eagerly either way."""

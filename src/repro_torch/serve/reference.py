@@ -5,8 +5,9 @@ states).
 
 One exact-length prefill per request (for a sliding-window ring cache:
 the last window of the prompt rolled into its slots; a request's extras,
-whisper's frames, join its prefill batch, and `src_len` sizes the cross
-K/V lanes as in ServeEngine) and one host read per decoded token.
+whisper's frames or a vlm's image embeddings, join its prefill batch,
+and `src_len` sizes the cross K/V lanes as in ServeEngine) and one host
+read per decoded token.
 `Request.out` holds max_new_tokens greedy tokens (the first from prefill),
 truncated at eos_id inclusive: the contract ServeEngine shares. The oracle
 also keeps, per request, the top-1 minus top-2 logit margin and the

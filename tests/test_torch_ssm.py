@@ -284,8 +284,8 @@ def test_segments_and_bucketing_cover_the_ported_families():
     audio = t_reduced(t_get_arch("whisper-small"))
     assert [(s.kind, s.n) for s in segments(audio)] == [("crossdec", 2)]
     vlm = t_reduced(t_get_arch("llama-3.2-vision-90b"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        segments(vlm)
+    assert [(s.kind, s.n) for s in segments(vlm)] == [("vlm", 1)]
+    assert Model(vlm, device="cpu").bucketed_prefill_ok is False
     with pytest.raises(ValueError, match="ssd_impl"):
         Model(t_reduced(t_get_arch(ARCH)), device="cpu", ssd_impl="cuda")
     # a cut of the same config keeps its schema
