@@ -356,7 +356,31 @@ Phases, one JSON line each; any failure exits non-zero:
                one epilogue a layer; a second pass's figures, one
                profiled decode chunk, the oracle's margin rule at
                ORACLE_LAYERS layers of the same weights.
- 22. kernels - each kernel's time at the served shapes beside its bound,
+ 22. train_flash_vjp - run after phase 21, training's flash backward
+               (models/attention.py::_FlashVJP, torch ops: the reference's
+               training path reaches no Pallas kernel) against autograd
+               through naive_attention in f32 without TF32: yi-6b's heads
+               [2, 1024, 32 over 4, 128] causal with 256-key blocks, a
+               ragged S = 1000, deepseek-v2's MLA widths (128 heads, D
+               192, Dv 128), in f32 and bf16 (flash_vjp_f32,
+               flash_vjp_bf16_card); the planted backward without its
+               delta term must fail both; fwd+bwd ms beside SDPA's.
+ 23. train   - yi-6b at full width, 8 of 32 layers (1.91 G parameters,
+               26.7 GB of params and AdamW state), its attention
+               projections drawn at fan-in d_model (fan_in_attention),
+               batch 8 x 1024 from the synthetic stream, 12 AdamW steps
+               with remat: every loss finite and the last 3 below the
+               first 3; remat off equal to on (loss and gradients);
+               microbatches=4 within the reference's test bounds of 1;
+               a checkpoint saved at step 6 and restored into fresh state
+               repeats steps 7-9's losses. Step ms, tokens/s, TFLOP/s
+               against the bf16 floor, AdamW's ms, peak memory of a step
+               and of the gradients with remat on and off, the
+               checkpoint's bytes and save and restore seconds.
+ 24. launch_train - the train launcher in-process at reduced yi-6b:
+               --kill-at 7 exits 42, --resume goes on from step 5 and
+               prints the steps of a run that was not killed.
+ 25. kernels - each kernel's time at the served shapes beside its bound,
                its plain version and one PyTorch call (a yardstick only);
                the pod GEMM at granite-8b's, dbrx-132b's and hymba-1.5b's
                shapes (hymba's head on wmma at M = 4 and 8192), flash
@@ -397,8 +421,10 @@ import io
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
@@ -431,6 +457,14 @@ from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.layers import (apply_norm, apply_rope, embed,  # noqa: E402
                                        pod_dense)
 from repro_torch.runtime import no_tf32  # noqa: E402
+from repro_torch.train import tree as train_tree  # noqa: E402
+from repro_torch.train.checkpoint import (restore_checkpoint,  # noqa: E402
+                                          save_checkpoint)
+from repro_torch.train.data import DataConfig, batches  # noqa: E402
+from repro_torch.train.optimizer import (AdamWConfig, AdamWState,  # noqa: E402
+                                         adamw_update, init_adamw)
+from repro_torch.train.train_step import (TrainConfig, grads_fn,  # noqa: E402
+                                          make_train_step)
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.transformer import cross_kv_precompute  # noqa: E402
 from repro_torch.obs.drift import effective_tops_summary  # noqa: E402
@@ -4193,7 +4227,359 @@ def phase_dense_archs() -> dict:
 
 
 # --------------------------------------------------------------------------
-# 22. kernels line
+# 22. train_flash_vjp, 23. train and 24. launch_train
+# --------------------------------------------------------------------------
+
+# B, S, Hq, Hkv, D, Dv, kv_block: yi-6b's heads with the key blocks walked,
+# a ragged S, deepseek-v2's MLA widths (q/k 192, v 128, 128 heads)
+FLASH_VJP_CASES = [("yi", 2, 1024, 32, 4, 128, 128, 256),
+                   ("ragged", 2, 1000, 32, 4, 128, 128, 256),
+                   ("mla", 1, 1024, 128, 128, 192, 128, 256)]
+# yi-6b at full width, depth cut to 8 of 32 layers: 1.91 G parameters,
+# 26.7 GB of params and AdamW state (bf16 params, f32 master, m and v),
+# 3.8 GB of bf16 gradients; all 32 layers need ~97 GB with the grads.
+# Its attention projections are drawn at fan-in d_model (fan_in_attention)
+TRAIN_ARCH, TRAIN_LAYERS = "yi-6b", 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_SAVE_AT = 8, 1024, 12, 6
+TRAIN_OPT = dict(lr_peak=3e-4, warmup_steps=3, total_steps=TRAIN_STEPS)
+
+
+def vjp_grads(q, k, v, w, kv_block: int, planted: bool = False):
+    """dq, dk, dv of sum(chunked_attention(q, k, v) * w) through _FlashVJP
+    (causal), or with the planted control: the backward without its delta
+    term (delta = rowsum(dO O) with O zeroed)."""
+    from repro_torch.models import attention as attn
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = attn.chunked_attention(q, k, v, causal=True, kv_block=kv_block)
+    if not planted:
+        return torch.autograd.grad((out.float() * w).sum(), (q, k, v))
+    L = attn._flash_fwd_pass(q.detach(), k.detach(), v.detach(), True,
+                             kv_block, None)[1]
+    dout = w.to(out.dtype)
+    return attn._flash_bwd_pass(q.detach(), k.detach(), v.detach(),
+                                torch.zeros_like(out), L, dout, True,
+                                kv_block, None)
+
+
+def naive_grads(q, k, v, w):
+    """The same gradients by autograd through naive_attention in f32 (full
+    f32 products, never TF32)."""
+    from repro_torch.models.attention import naive_attention
+    q, k, v = (t.detach().float().requires_grad_() for t in (q, k, v))
+    with no_tf32():
+        out = naive_attention(q, k, v, causal=True)
+        return torch.autograd.grad((out * w).sum(), (q, k, v))
+
+
+def phase_train_flash_vjp() -> None:
+    """_FlashVJP's gradients on the card against autograd through
+    naive_attention in f32, f32 and bf16 inputs, within flash_vjp_f32 and
+    flash_vjp_bf16_card; the planted backward without delta must fail both.
+    Also the forward-and-backward time beside SDPA's (a yardstick)."""
+    from repro_torch.models import attention as attn
+    rows = []
+    for name, B, S, Hq, Hkv, D, Dv, kv_block in FLASH_VJP_CASES:
+        g = torch.Generator("cuda").manual_seed(S + D)
+        q = torch.randn((B, S, Hq, D), generator=g, device="cuda")
+        k = torch.randn((B, S, Hkv, D), generator=g, device="cuda")
+        v = torch.randn((B, S, Hkv, Dv), generator=g, device="cuda")
+        w = torch.randn((B, S, Hq, Dv), generator=g, device="cuda")
+        for dtype, tol_name in ((torch.float32, "flash_vjp_f32"),
+                                (torch.bfloat16, "flash_vjp_bf16_card")):
+            tol = TOLERANCES[tol_name]
+            qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+            ref = naive_grads(qd, kd, vd, w)
+            with no_tf32():
+                got = vjp_grads(qd, kd, vd, w, kv_block)
+                bad = vjp_grads(qd, kd, vd, w, kv_block, planted=True)
+            ex = {n: tol.excess(a.float(), r) for n, a, r in
+                  zip("qkv", got, ref)}
+            ex_bad = max(tol.excess(a.float(), r) for a, r in
+                         zip(bad[:2], ref[:2]))
+            row = {"case": name, "shape": [B, S, Hq, Hkv, D, Dv],
+                   "kv_block": kv_block, "dtype": str(dtype)[6:],
+                   "excess": ex, "planted_excess": ex_bad}
+            if name == "yi":
+                flush = torch.empty(64 << 20, dtype=torch.int8,
+                                    device="cuda")
+                qs, ks, vs = (t.detach().requires_grad_()
+                              for t in (qd, kd, vd))
+                wd = w.to(dtype)
+
+                def fwd_bwd():
+                    o = attn.chunked_attention(qs, ks, vs, causal=True,
+                                               kv_block=kv_block)
+                    torch.autograd.grad(o, (qs, ks, vs), wd)
+
+                def sdpa():
+                    o = F.scaled_dot_product_attention(
+                        qs.transpose(1, 2), ks.transpose(1, 2),
+                        vs.transpose(1, 2), is_causal=True, enable_gqa=True)
+                    torch.autograd.grad(o, (qs, ks, vs), wd.transpose(1, 2))
+                row["ms"] = time_ms(fwd_bwd, 5, flush)
+                row["sdpa_ms"] = time_ms(sdpa, 5, flush)
+            rows.append(row)
+            emit("train_flash_vjp", **row)
+    for row in rows:
+        check(max(row["excess"].values()) <= 1.0,
+              f"train_flash_vjp {row['case']} {row['dtype']}: gradients off "
+              f"the naive f32 autograd: {row['excess']}")
+        check(row["planted_excess"] > 4.0,
+              f"train_flash_vjp {row['case']} {row['dtype']}: the planted "
+              f"backward without delta passes ({row['planted_excess']})")
+
+
+def train_batch(stream) -> dict:
+    return {k: torch.from_numpy(v).to("cuda") for k, v in
+            next(stream).items()}
+
+
+def grads_close(a, b, tol_name: str) -> float:
+    """Largest excess of tree a against tree b under TOLERANCES[tol_name]
+    (0 where every leaf is equal)."""
+    tol = TOLERANCES[tol_name]
+    return max(tol.excess(x.float(), y.float()) for x, y in
+               zip(train_tree.tree_leaves(a), train_tree.tree_leaves(b)))
+
+
+def phase_train():
+    """yi-6b at full width, 8 of 32 layers, batch 8 x 1024 from the
+    synthetic stream, AdamW with warmup, remat on. Gates: (a) every loss
+    finite, the mean of the last 3 of 12 below the mean of the first 3;
+    (b) a step's loss and gradients with remat off equal to remat on's on
+    the same batch; (c) microbatches=4 against 1 within the reference's
+    own test's bounds; (d) a checkpoint saved at step 6, restored into
+    fresh state, gives steps 7-9's losses again. Reports step ms, tokens/s,
+    achieved TFLOP/s against the bf16 floor, and peak memory with remat on
+    and off."""
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    freed = torch.cuda.memory_allocated()
+    model = Model(cfg, remat=True)
+    params = fan_in_attention(model.init(
+        torch.Generator("cuda").manual_seed(0)))
+    opt = init_adamw(params)
+    torch.cuda.synchronize()
+    n_params = model.param_count()
+    emit("init", arch=cfg.name, n_layers=TRAIN_LAYERS,
+         of_layers=get_arch(TRAIN_ARCH).n_layers, params=n_params,
+         seconds=time.perf_counter() - t0,
+         gib_allocated_before=freed / 2 ** 30,
+         gib_allocated=torch.cuda.memory_allocated() / 2 ** 30)
+    tcfg = TrainConfig(optimizer=AdamWConfig(**TRAIN_OPT))
+    step_fn = make_train_step(model, tcfg)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    stream = batches(dcfg)
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="train_ckpt_",
+                                     dir=_build.REPO_ROOT / "build"))
+    losses, times = [], []
+    ckpt = {"disk_free_gb": shutil.disk_usage(ckpt_dir).free / 1e9}
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for step in range(TRAIN_STEPS):
+            batch = train_batch(stream)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(float(m["loss"]))
+            if step + 1 == TRAIN_SAVE_AT:
+                t = time.perf_counter()
+                save_checkpoint(str(ckpt_dir), step + 1, (params, opt))
+                ckpt["save_s"] = time.perf_counter() - t
+                ckpt["bytes"] = sum(f.stat().st_size for f in
+                                    ckpt_dir.rglob("*") if f.is_file())
+        peak_step = torch.cuda.max_memory_allocated()
+        # the optimizer's share of a step, on the last batch's gradients
+        grads = grads_fn(model, tcfg)(params, batch)[1]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        adamw_update(tcfg.optimizer, opt, grads)
+        torch.cuda.synchronize()
+        adamw_s = time.perf_counter() - t
+        del grads
+
+        # (b) remat off against remat on, one step's loss and gradients;
+        # each call's peak above what was allocated before it
+        batch = train_batch(batches(dcfg, start_step=TRAIN_STEPS))
+        peaks = {}
+
+        def grads_peak(remat: bool):
+            gc.collect()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = grads_fn(Model(cfg, remat=remat), tcfg)(params, batch)
+            torch.cuda.synchronize()
+            peaks[remat] = (torch.cuda.max_memory_allocated(),
+                            torch.cuda.max_memory_allocated() - before)
+            return out
+        loss_on, g_on = grads_peak(True)
+        loss_off, g_off = grads_peak(False)
+        remat_equal = bool(torch.equal(loss_on, loss_off)) and all(
+            torch.equal(a, b) for a, b in zip(
+                train_tree.tree_leaves(g_on), train_tree.tree_leaves(g_off)))
+        remat_excess = grads_close(g_off, g_on, "train_remat_card")
+        del g_off
+        # (c) microbatches=4 against 1 on the same batch
+        loss_mb, g_mb = grads_fn(model, TrainConfig(
+            microbatches=4, optimizer=tcfg.optimizer))(params, batch)
+        mb_loss_diff = abs(float(loss_mb) - float(loss_on))
+        mb_grad_diff = max(float((a.float() - b.float()).abs().max())
+                           for a, b in zip(train_tree.tree_leaves(g_mb),
+                                           train_tree.tree_leaves(g_on)))
+        del g_mb, g_on
+        # (d) restore step 6 into fresh state and take steps 7-9 again
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        like_p = model_like(model)
+        like = (like_p, init_adamw_like(like_p))
+        t = time.perf_counter()
+        (params, opt), at = restore_checkpoint(str(ckpt_dir), like)
+        torch.cuda.synchronize()
+        ckpt["restore_s"] = time.perf_counter() - t
+        resumed = batches(dcfg, start_step=at)
+        again = []
+        for _ in range(3):
+            params, opt, m = step_fn(params, opt, train_batch(resumed))
+            again.append(float(m["loss"]))
+        del params, opt
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    layer_params = n_params - cfg.vocab * cfg.d_model * 2   # tok, unembed
+    flops = 6 * n_params * tokens + 2 * layer_params * tokens
+    step_s = sum(times[3:]) / len(times[3:])
+    row = {"arch": cfg.name, "n_layers": TRAIN_LAYERS,
+           "of_layers": get_arch(TRAIN_ARCH).n_layers, "params": n_params,
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "losses": losses,
+           "step_ms": step_s * 1e3,
+           "step_ms_each": [x * 1e3 for x in times],
+           "adamw_ms": adamw_s * 1e3, "tokens_per_s": tokens / step_s,
+           "flop_per_step": flops, "tflop_per_s": flops / step_s / 1e12,
+           "floor_ms": flops / BF16_FLOP_PER_S * 1e3,
+           "gib_peak_step": peak_step / 2 ** 30,
+           "gib_peak_grads_remat_on": peaks[True][0] / 2 ** 30,
+           "gib_peak_grads_remat_off": peaks[False][0] / 2 ** 30,
+           "gib_above_state_remat_on": peaks[True][1] / 2 ** 30,
+           "gib_above_state_remat_off": peaks[False][1] / 2 ** 30,
+           "remat_equal": remat_equal, "remat_excess": remat_excess,
+           "microbatch_loss_diff": mb_loss_diff,
+           "microbatch_grad_max_diff": mb_grad_diff,
+           "checkpoint": {**ckpt, "losses_7_9": losses[6:9],
+                          "resumed_7_9": again},
+           "gpu": gpu_name_and_power()}
+    emit("train", **row)
+    check(all(math.isfinite(x) for x in losses),
+          f"train: a loss is not finite {losses}")
+    check(sum(losses[-3:]) < sum(losses[:3]),
+          f"train: the loss did not fall over {TRAIN_STEPS} steps {losses}")
+    check(remat_excess <= 1.0,
+          f"train: remat off differs from remat on ({remat_excess} under "
+          f"train_remat_card)")
+    check(mb_loss_diff <= TOLERANCES["microbatch_loss"].atol and
+          mb_grad_diff <= TOLERANCES["microbatch_grads"].atol,
+          f"train: microbatches=4 off 1 by {mb_loss_diff} (loss), "
+          f"{mb_grad_diff} (grads)")
+    check(TOLERANCES["train_resume_card"].ok(torch.tensor(again),
+                                             torch.tensor(losses[6:9])),
+          f"train: resumed losses {again} against {losses[6:9]}")
+    return row
+
+
+def fan_in_attention(params):
+    """The attention projections redrawn at fan-in d_model, in place: q, k
+    and v [L, d, H, hd] times sqrt(H / d), o [L, H, hd, d] times
+    sqrt(1 / H). The init of both packages takes the fan-in of q, k and v
+    over the head axis (32 and 4 at yi-6b, not 4096), which makes scores
+    ~128 wide at full width; the backward then grows ~10**2.5 a layer
+    (max |dq| 2.5, 120 and 6e5 at 1, 2 and 4 layers on the CPU), the
+    global norm's f32 sum of squares overflows at 8 layers, the clip scale
+    is 0 and no step moves a weight."""
+    for node in (params[k] for k in params if k not in ("embed", "ln_f")):
+        a = node["attn"]
+        for n in ("q", "k", "v"):
+            a[n].mul_(math.sqrt(a[n].shape[-2] / a[n].shape[-3]))
+        a["o"].mul_(math.sqrt(1 / a["o"].shape[-3]))
+    return params
+
+
+def model_like(model):
+    """The model's parameter tree as zero-stride views of one element each
+    (shapes, dtypes and the device without the memory)."""
+    return train_tree.tree_map(lambda sch: torch.empty(
+        (), dtype=sch.dtype, device="cuda").expand(sch.shape), model.schema())
+
+
+def init_adamw_like(params_like):
+    """An AdamWState of `params_like`'s structure, as zero-stride views."""
+    def f32():
+        return train_tree.tree_map(lambda p: torch.empty(
+            (), dtype=torch.float32, device="cuda").expand(p.shape),
+            params_like)
+    return AdamWState(torch.zeros((), dtype=torch.int32, device="cuda"),
+                      f32(), f32(), f32())
+
+
+def launch_train_run(argv) -> tuple[int, list[str]]:
+    """repro_torch.launch.train in-process: (exit code, its step lines)."""
+    from repro_torch.launch import train as launch
+    out = io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(out):
+        try:
+            launch.main(argv)
+        except SystemExit as e:
+            code = e.code
+    lines = out.getvalue().splitlines()
+    return code, lines
+
+
+def phase_launch_train() -> None:
+    """The launcher on the card at reduced yi-6b: --kill-at 7 exits 42 after
+    a checkpoint at step 5, --resume continues from it to step 12 and
+    exits 0, and its steps print the losses, grad norms and learning
+    rates of a run that was not killed."""
+    root = Path(tempfile.mkdtemp(prefix="launch_train_",
+                                 dir=_build.REPO_ROOT / "build"))
+    base = ["--arch", TRAIN_ARCH, "--reduced", "--steps", "12", "--seq",
+            "128", "--ckpt-every", "5"]
+    t0 = time.perf_counter()
+    try:
+        killed = launch_train_run(base + ["--ckpt-dir", str(root / "a"),
+                                          "--kill-at", "7"])
+        resumed = launch_train_run(base + ["--ckpt-dir", str(root / "a"),
+                                           "--resume"])
+        whole = launch_train_run(base + ["--ckpt-dir", str(root / "b")])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def steps(lines):
+        # "step    5 loss=... gnorm=... lr=... (0.01s/it)" without the time
+        return {ln.split()[1]: ln.rsplit(" (", 1)[0] for ln in lines
+                if ln.startswith("step ")}
+    emit("launch_train", wall_s=time.perf_counter() - t0,
+         exit_codes=[killed[0], resumed[0], whole[0]],
+         resumed=[ln for ln in resumed[1] if ln.startswith(("resumed",
+                                                             "step"))],
+         whole=[ln for ln in whole[1] if ln.startswith("step")])
+    check(killed[0] == 42 and resumed[0] in (0, None) and
+          whole[0] in (0, None),
+          f"launch_train: exit codes {killed[0]}, {resumed[0]}, {whole[0]}")
+    check("resumed from step 5" in resumed[1],
+          f"launch_train: did not resume from step 5 {resumed[1]}")
+    r, w = steps(resumed[1]), steps(whole[1])
+    check(set(r) == {"5", "10", "11"} and all(r[s] == w[s] for s in r),
+          f"launch_train: resumed {r} against {w}")
+
+
+# --------------------------------------------------------------------------
+# 25. kernels line
 # --------------------------------------------------------------------------
 
 def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
@@ -4992,6 +5378,15 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         dense_served = phase_dense_archs()
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        phase_train_flash_vjp()
+        torch.cuda.synchronize()
+        phase_train()
+        torch.cuda.synchronize()
+        phase_launch_train()
         torch.cuda.synchronize()
 
         kernels = {"kernels": [gemm_line(

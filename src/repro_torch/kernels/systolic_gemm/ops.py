@@ -6,7 +6,9 @@ hot-loop form `fused_lane_gemm`, their transposed-weight forms
 the same signatures and contract.
 
 A CPU tensor runs the plain version (ref.py); a CUDA tensor launches the
-Hopper kernel, which raises if it cannot run. There is no other path.
+Hopper kernel, which raises if it cannot run. There is no other path. No
+form has a backward: with grad mode on, an input that requires grad
+raises on both devices (runtime.refuse_autograd).
 
 The JAX wrappers pad to block multiples, call the kernel and slice back.
 The Hopper kernel masks ragged M/N/K edges itself, so nothing is padded
@@ -26,6 +28,7 @@ import math
 
 import torch
 
+from ...runtime import refuse_autograd
 from .guard import OFF, guarded_gemm
 from .ref import (grouped_systolic_gemm_ref, systolic_gemm_ref,
                   systolic_gemm_t_ref)
@@ -34,6 +37,7 @@ from .systolic_gemm import (grouped_systolic_gemm_cuda, systolic_gemm_cuda,
 
 
 def _gemm(plain, kernel, x, w, scale, bias, activation, out_dtype):
+    refuse_autograd("systolic_gemm", x, w, scale, bias)
     if x.device.type == "cpu":
         return plain(x, w, scale, bias, activation=activation,
                      out_dtype=out_dtype)

@@ -60,18 +60,15 @@ def _mask_ok(q_pos, k_pos, causal: bool, window: int | None):
     return ok
 
 
-def chunked_attention(q, k, v, *, causal: bool = True,
-                      window: int | None = None, q_offset: int = 0,
-                      kv_block: int = 1024, softmax_scale: float | None = None,
-                      kv_valid_len=None):
-    """Online-softmax attention over KV blocks (forward only). A short last
-    block stands in for the reference's zero padding, whose keys are masked
-    and add exact zeros."""
+def _forward_blocks(q, k, v, *, causal, window, q_offset, kv_block, scale,
+                    kv_valid_len):
+    """The online-softmax loop over KV blocks: (acc [B,Hkv,G,Sq,Dv], m, l
+    [B,Hkv,G,Sq]) in f32. A short last block stands in for the
+    reference's zero padding, whose keys are masked and add exact zeros."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
     G = Hq // Hkv
-    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
     qg = _scale_q(q, scale).reshape(B, Sq, Hkv, G, D)
     q_pos = q_offset + torch.arange(Sq, device=q.device)
 
@@ -96,8 +93,117 @@ def chunked_attention(q, k, v, *, causal: bool = True,
         acc = acc * corr[..., None] + _gqa_out(
             p.to(q.dtype), vblk).permute(0, 2, 3, 1, 4).float()
         m = m_new
+    return acc, m, l
+
+
+def _out_of(acc, l, q):
+    """acc / max(l, 1e-30) as [B, Sq, Hq, Dv] in q's dtype."""
+    B, Hkv, G, Sq, Dv = acc.shape
     out = acc / torch.clamp_min(l, 1e-30)[..., None]        # [B,Hkv,G,Sq,Dv]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, Dv).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hkv * G, Dv).to(q.dtype)
+
+
+def _scale_of(q, softmax_scale):
+    return softmax_scale if softmax_scale is not None \
+        else 1.0 / math.sqrt(q.shape[-1])
+
+
+def chunked_attention(q, k, v, *, causal: bool = True,
+                      window: int | None = None, q_offset: int = 0,
+                      kv_block: int = 1024, softmax_scale: float | None = None,
+                      kv_valid_len=None):
+    """Online-softmax attention over KV blocks. Where the reference takes
+    its flash custom VJP (no window, no kv_valid_len, q_offset 0) and a
+    gradient can flow (grad mode on, an input requiring grad), this takes
+    `_FlashVJP`: the same forward, which saves only (q, k, v, out, L) and
+    recomputes the scores blockwise in the backward. Every other case is
+    the forward loop, which autograd differentiates as JAX's autodiff does
+    the reference's; with no gradient to take, the flash case runs the
+    same loop without L."""
+    if (window is None and kv_valid_len is None and q_offset == 0
+            and torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return _FlashVJP.apply(q, k, v, causal, kv_block, softmax_scale)
+    acc, _, l = _forward_blocks(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset, kv_block=kv_block,
+                                scale=_scale_of(q, softmax_scale),
+                                kv_valid_len=kv_valid_len)
+    return _out_of(acc, l, q)
+
+
+# ---------------------------------------------------------------------------
+# flash attention with a flash backward (the reference's custom VJP)
+# ---------------------------------------------------------------------------
+
+def _flash_fwd_pass(q, k, v, causal, kv_block, softmax_scale):
+    """The forward of the flash VJP: (out, L), L = m + log(max(l, 1e-30))
+    the rowwise logsumexp of the scaled scores, [B, Hkv, G, Sq] in f32.
+    Its arithmetic is chunked_attention's."""
+    acc, m, l = _forward_blocks(q, k, v, causal=causal, window=None,
+                                q_offset=0, kv_block=kv_block,
+                                scale=_scale_of(q, softmax_scale),
+                                kv_valid_len=None)
+    return _out_of(acc, l, q), m + torch.log(torch.clamp_min(l, 1e-30))
+
+
+def _flash_bwd_pass(q, k, v, out, L, dout, causal, kv_block,
+                    softmax_scale):
+    """Flash backward, at the reference's rounding points
+    (repro/models/attention.py::_flash_vjp_bwd): per KV block the scores
+    from the *unscaled* q, times scale in f32, masked (causal) and
+    exponentiated against L; dv from p in dO's dtype; dp in f32; ds = p
+    (dp - delta) scale, delta = rowsum(dO O) in f32, cast to q's dtype
+    for dk (against the unscaled q) and dq (summed in f32 over the blocks,
+    cast at the end). D may differ from Dv (MLA). Mixed dtypes (a bf16
+    query against an f32 encoder's K/V) promote as jnp.einsum does."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = Hq // Hkv
+    scale = _scale_of(q, softmax_scale)
+    qg = q.reshape(B, Sq, Hkv, G, D)
+    dog = dout.reshape(B, Sq, Hkv, G, Dv)
+    delta = einsum("bqhgd,bqhgd->bhgq", dog.float(),
+                   out.reshape(B, Sq, Hkv, G, Dv).float())
+    q_pos = torch.arange(Sq, device=q.device)
+    dq = torch.zeros((B, Sq, Hkv, G, D), dtype=torch.float32,
+                     device=q.device)
+    dks, dvs = [], []
+    for start in range(0, Skv, kv_block):
+        kblk = k[:, start:start + kv_block]
+        vblk = v[:, start:start + kv_block]
+        k_pos = start + torch.arange(kblk.shape[1], device=q.device)
+        s = _gqa_scores(qg, kblk).float() * scale
+        if causal:
+            s = torch.where(k_pos[None, :] <= q_pos[:, None], s, NEG_INF)
+        p = torch.exp(s - L[..., None])                      # [B,Hkv,G,Sq,kb]
+        dvs.append(einsum("bhgqk,bqhgd->bkhd", p.to(dout.dtype), dog))
+        dp = einsum("bqhgd,bkhd->bhgqk", dog, vblk).float()
+        dsq = (p * (dp - delta[..., None]) * scale).to(q.dtype)
+        dq = dq + einsum("bhgqk,bkhd->bqhgd", dsq, kblk).float()
+        dks.append(einsum("bhgqk,bqhgd->bkhd", dsq, qg))
+    return (dq.reshape(B, Sq, Hq, D).to(q.dtype),
+            torch.cat(dks, dim=1).to(k.dtype),
+            torch.cat(dvs, dim=1).to(v.dtype))
+
+
+class _FlashVJP(torch.autograd.Function):
+    """chunked_attention with the flash backward: the forward saves (q, k,
+    v, out, L), O(S D) with no score-sized tensor; the backward recomputes
+    the scores block by block (_flash_bwd_pass)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, kv_block, softmax_scale):
+        out, L = _flash_fwd_pass(q, k, v, causal, kv_block, softmax_scale)
+        ctx.save_for_backward(q, k, v, out, L)
+        ctx.args = (causal, kv_block, softmax_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, L = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_pass(q, k, v, out, L, dout, *ctx.args)
+        return dq, dk, dv, None, None, None
 
 
 def naive_attention(q, k, v, *, causal=True, window=None, q_offset=0,

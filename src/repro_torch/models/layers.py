@@ -195,3 +195,18 @@ def unembed(p: dict, x, use_pallas: bool = False):
     if "unembed" in p:
         return torch.einsum("...d,dv->...v", x, p["unembed"])
     return torch.einsum("...d,vd->...v", x, p["tok"])
+
+
+def cross_entropy_loss(logits, labels, ignore_id: int = -1):
+    """Mean next-token cross entropy over the labels that are not
+    `ignore_id`: logits in f32, logsumexp minus the label's logit, summed
+    and divided by max(count, 1), as the reference's. An ignored label
+    reads logit 0 (its term is multiplied by 0)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    keep = labels != ignore_id
+    idx = torch.where(keep, labels, 0).long()
+    ll = torch.gather(logits, -1, idx[..., None])[..., 0]
+    mask = keep.float()
+    loss = (lse - ll) * mask
+    return loss.sum() / torch.clamp_min(mask.sum(), 1.0)

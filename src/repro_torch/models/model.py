@@ -15,6 +15,8 @@ repro/models/model.py).
     params = model.init(torch.Generator("cuda").manual_seed(0))
     logits, cache = model.prefill(params, batch, model.init_cache(4, 512))
     logits, cache = model.decode_step(params, tok, cache, position)
+    loss = Model(cfg, remat=True).loss(params, batch)   # train (batch
+                                                        # with "labels")
 
 Parameters are nested dicts of tensors with the reference's names and
 stacked per-layer weights [L, ...] (also for a one-layer segment, which
@@ -45,12 +47,14 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..runtime import resolve_device
 from .attention import KVCache, PagedKVCache, RingKVCache, einsum
-from .layers import (ParamSpec, apply_norm, embed, embed_schema,
-                     init_from_schema, norm_schema, param_count, unembed)
+from .layers import (ParamSpec, apply_norm, cross_entropy_loss, embed,
+                     embed_schema, init_from_schema, norm_schema,
+                     param_count, unembed)
 from .ssm import SSMCache
 from .transformer import (MLACache, Segment, apply_block, block_schema,
                           segments)
@@ -124,7 +128,7 @@ def _index(tree, i: int):
 class Model:
     def __init__(self, cfg: ArchConfig, attention_impl: str = "chunked",
                  use_pallas: bool = False, ssd_impl: str = "jnp",
-                 device=None):
+                 device=None, remat: bool = False):
         """device None means the card (raises without one); tests pass
         device="cpu". attention_impl picks the prefill attention: "chunked"
         (torch ops) or "pallas" (the flash-attention kernel on the card,
@@ -134,7 +138,14 @@ class Model:
         CPU). use_pallas routes every dense projection, the MLP and the LM
         head (tied or not) through the pod GEMM and the MoE experts through
         the grouped pod GEMM (kernels on the card, their plain versions on
-        the CPU); off, they are plain torch einsums."""
+        the CPU); off, they are plain torch einsums. None of the kernels
+        has a backward, so training (train/train_step.py) takes a model
+        with all three off, as the reference does. remat checkpoints each
+        layer body of a forward without a cache when autograd records it
+        (torch.utils.checkpoint, non-reentrant): the backward keeps each
+        layer's input and recomputes the rest, where the reference wraps
+        its scan bodies in jax.checkpoint. It changes memory, never a
+        number."""
         if attention_impl not in ("chunked", "pallas"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}")
         if ssd_impl not in ("jnp", "pallas"):
@@ -143,6 +154,7 @@ class Model:
         self.impl = attention_impl
         self.ssd_impl = ssd_impl
         self.use_pallas = use_pallas
+        self.remat = remat
         self.device = resolve_device(device)
         self.segs = segments(cfg)
 
@@ -178,6 +190,16 @@ class Model:
         return param_count(self.schema())
 
     # -- forward -----------------------------------------------------------
+    def _layer(self, fn, x, cached: bool = False):
+        """fn(x), checkpointed under remat when autograd records a forward
+        without a cache (the reference's Model._body). fn binds its layer's
+        parameters by value: the backward recomputes it after the loop has
+        moved on."""
+        if self.remat and not cached and torch.is_grad_enabled():
+            return checkpoint(fn, x, use_reentrant=False,
+                              preserve_rng_state=False)
+        return fn(x)
+
     def _run_segment(self, seg: Segment, p_seg, x, positions, cache_seg,
                      true_lens=None, cross_src=None):
         kw = dict(positions=positions, window=seg.window, impl=self.impl,
@@ -186,9 +208,11 @@ class Model:
         if seg.kind == "vlm":
             return self._run_vlm_segment(seg, p_seg, x, cache_seg, kw)
         for i in range(seg.n):
-            x = apply_block(_index(p_seg, i), x, self.cfg, seg.kind,
-                            cache=None if cache_seg is None
-                            else _index(cache_seg, i), **kw)
+            p_i = _index(p_seg, i)
+            c_i = None if cache_seg is None else _index(cache_seg, i)
+            x = self._layer(lambda h, p=p_i, c=c_i: apply_block(
+                p, h, self.cfg, seg.kind, cache=c, **kw), x,
+                cached=c_i is not None)
         return x
 
     def _run_vlm_segment(self, seg: Segment, p_seg, x, cache_seg, kw):
@@ -197,16 +221,18 @@ class Model:
         the cache's KVCache), then its cross_layer block with the group's
         CrossKV."""
         inner = self.cfg.cross_attn_every - 1
+        cached = cache_seg is not None
         for g in range(seg.n):
             p_g = _index(p_seg, g)
             for l in range(inner):
-                x = apply_block(
-                    _index(p_g["plain"], l), x, self.cfg, "dense",
-                    cache=None if cache_seg is None else
-                    {"attn": cache_seg["attn"].layer(g * inner + l)}, **kw)
-            x = apply_block(p_g["cross"], x, self.cfg, "cross_layer",
-                            cache=None if cache_seg is None else
-                            {"cross": cache_seg["cross"].layer(g)}, **kw)
+                p_l = _index(p_g["plain"], l)
+                c_l = {"attn": cache_seg["attn"].layer(g * inner + l)} \
+                    if cached else None
+                x = self._layer(lambda h, p=p_l, c=c_l: apply_block(
+                    p, h, self.cfg, "dense", cache=c, **kw), x, cached)
+            c_g = {"cross": cache_seg["cross"].layer(g)} if cached else None
+            x = self._layer(lambda h, p=p_g["cross"], c=c_g: apply_block(
+                p, h, self.cfg, "cross_layer", cache=c, **kw), x, cached)
         return x
 
     def _embed_in(self, params, tokens, offset=0):
@@ -232,9 +258,10 @@ class Model:
         pos = torch.arange(frames.shape[1], device=frames.device)
         blocks = params["encoder"]["blocks"]
         for i in range(cfg.n_encoder_layers):
-            x = apply_block(_index(blocks, i), x, cfg, "encoder",
-                            positions=pos, impl=self.impl, causal=False,
-                            use_pallas=self.use_pallas)
+            p_i = _index(blocks, i)
+            x = self._layer(lambda h, p=p_i: apply_block(
+                p, h, cfg, "encoder", positions=pos, impl=self.impl,
+                causal=False, use_pallas=self.use_pallas), x)
         return apply_norm(params["encoder"]["ln_f"], x, cfg.norm)
 
     def _cross_source(self, params, batch):
@@ -287,6 +314,14 @@ class Model:
                                   true_lens, cross_src)
         x = apply_norm(params["ln_f"], x, self.cfg.norm)
         return unembed(params["embed"], x, use_pallas=self.use_pallas), cache
+
+    # -- training ----------------------------------------------------------
+    def loss(self, params, batch):
+        """Mean next-token cross entropy of a forward without a cache over
+        batch["labels"] (-1 ignored). The batch carries frames or
+        image_embeds as it does for forward."""
+        logits, _ = self.forward(params, batch)
+        return cross_entropy_loss(logits, batch["labels"])
 
     # -- serving -----------------------------------------------------------
     @property

@@ -213,3 +213,16 @@ def _dispatch_sort(p, xt, gate_vals, expert_idx, pos, keep, cap, cfg, act,
                         [..., None].expand(G, nK, D))
     w = (gate_vals.reshape(G, nK) * flat_keep).to(xt.dtype)
     return (back * w[..., None]).reshape(G, n, K, D).sum(dim=2)
+
+
+def load_balance_loss(logits, expert_idx, num_experts: int):
+    """Auxiliary load-balancing loss (Switch eq. 4), as the reference's:
+    E * sum(density * density_proxy), density the share of tokens whose
+    first choice is each expert and density_proxy the mean router
+    probability, both over axis 0, in f32. Nothing calls it in the
+    training loss, as nothing does in the reference."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    density = torch.mean(
+        F.one_hot(expert_idx[..., 0].long(), num_experts).float(), dim=0)
+    density_proxy = torch.mean(probs, dim=0)
+    return num_experts * torch.sum(density * density_proxy)

@@ -7,6 +7,8 @@
   helper, which counts it. It is the counterpart of the `np.asarray`
   syncs the JAX engine's tests count (tests/test_serving.py).
 * `no_tf32`: full f32 products in a plain version on the card.
+* `refuse_autograd`: the kernel wrappers' guard against a silent loss of
+  gradients (a Hopper kernel has no backward).
 * `TOLERANCES`: every comparison of the port against a plain version or
   against the JAX reference takes its tolerance from here, with its reason.
 """
@@ -60,6 +62,23 @@ def no_tf32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def refuse_autograd(kernel: str, *tensors) -> None:
+    """Raise where autograd would take a gradient through `kernel`'s
+    wrapper: grad mode on and any input requiring grad. The Hopper kernel
+    returns a tensor without a backward, so on the card the gradient of
+    every input would be lost without a word; on the CPU the plain version
+    would give one. The wrapper refuses on both devices alike."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: an input requires grad, and the Hopper kernel has "
+            f"no backward. The reference does not differentiate its Pallas "
+            f"kernels either (jax.grad through pallas_call raises). Train "
+            f"with Model(use_pallas=False, attention_impl='chunked', "
+            f"ssd_impl='jnp'), or call the kernel under torch.no_grad()")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -288,6 +307,99 @@ TOLERANCES: dict[str, Tol] = {
                            "forwards, fed the same tokens, differ by up to "
                            "0.26 of max|logit| over a prefill and 3 "
                            "decode steps on f32 images (seen: port 0.22)"),
+    # training, port against the JAX package on the CPU
+    # (tests/test_torch_train_grads.py, tests/test_torch_train.py)
+    "loss_f32": Tol(1e-6, 0.0,
+                    "a mean of f32 per-token losses summed in another "
+                    "order (seen: 1.1e-7 relative over 7 archs x 3 seeds)"),
+    "loss_bf16": Tol(2e-3, 0.0,
+                     "bf16 logits round at other places in the two "
+                     "frameworks (seen: 1.0e-3 relative, reduced mamba2, "
+                     "whose random init gives a loss of ~35)"),
+    "grads_f32": Tol(0.0, 5e-4,
+                     "atol is relative to max|ref| of each gradient leaf: "
+                     "f32 sums in another order through the backward of "
+                     "2-4 layers (seen over 7 archs x 3 seeds: 2.3e-4 for "
+                     "whisper's ~50-sized residual, 7.4e-5 elsewhere)"),
+    "grads_bf16": Tol(2.0, 0.05,
+                      "per gradient leaf, |got - ref| (Frobenius) at most "
+                      "rtol x the reference's own bf16 error (its bf16 "
+                      "gradient against its f32 one on the same inputs) + "
+                      "atol x |ref|: bf16 gradients of a random reduced "
+                      "model are noise-dominated for some leaves (the "
+                      "reference's own bf16 reads 2.7x |ref| away from its "
+                      "f32 at whisper's dec/attn/k), and a flipped top-k "
+                      "routes a token to another expert (seen: 1.79x, "
+                      "deepseek-v2's moe/up; 1.3x elsewhere)"),
+    "flash_vjp_bf16": Tol(2 ** -7, 2 ** -8,
+                          "the reference's rounding points: one bf16 ulp "
+                          "where f32 sums in another order round the other "
+                          "way (seen: 2 of 12 gradients off by one ulp, the "
+                          "rest bit-equal)"),
+    "adamw_f32": Tol(4e-6, 1e-7,
+                     "the reference's f32 arithmetic op for op; XLA's and "
+                     "torch's pow and cos differ in the last bit, and the "
+                     "global norm sums ~10**5 squares in another order "
+                     "(seen: 1.5e-6)"),
+    "grad_norm_f32": Tol(1e-3, 0.0,
+                         "the global norm of f32 gradients after Adam steps "
+                         "that differ where m / sqrt(v) divides tiny "
+                         "moments (seen: 5e-4 at step 2)"),
+    "params_after_steps_f32": Tol(0.0, 0.25,
+                                  "atol in units of lr_peak: Adam divides m "
+                                  "by sqrt(v), so where both are tiny an f32 "
+                                  "gradient summed in another order moves "
+                                  "the step by a share of lr (seen: 0.12 lr "
+                                  "after 3 steps, in 2e-5 of the elements)"),
+    "moments_f32": Tol(0.0, 5e-3,
+                       "atol is relative to max|ref| of each leaf: the "
+                       "moments of f32 gradients summed in another order "
+                       "(seen: 1.2e-3 after 3 steps)"),
+    "grad_norm_bf16": Tol(0.35, 0.0,
+                          "bf16 gradients of a random reduced model: the "
+                          "reference's own bf16 norm is 5% off its f32 one "
+                          "at step 1, and once the two packages' Adam steps "
+                          "differ in sign where their bf16 gradients do, "
+                          "the norms drift apart (seen: 28% at step 3)"),
+    "params_after_steps_bf16": Tol(0.0, 4.0,
+                                   "atol in units of the summed learning "
+                                   "rates: where the two packages' bf16 "
+                                   "gradients differ in sign, Adam moves a "
+                                   "weight by up to lr the other way each "
+                                   "step (seen: 1.9x the sum after 3 "
+                                   "steps)"),
+    # training on the card (chip_smoke.py phases train_flash_vjp, train)
+    "flash_vjp_f32": RmsTol(1e-4, 1e-4,
+                            "_FlashVJP in f32 against autograd through "
+                            "naive_attention in f32 (no TF32): f32 sums in "
+                            "another order over up to 1024 keys"),
+    "flash_vjp_bf16_card": RmsTol(2 ** -5, 2 ** -1,
+                                  "_FlashVJP in bf16 against autograd "
+                                  "through naive_attention in f32 on the "
+                                  "same bf16 inputs: the backward "
+                                  "recomputes the scores in bf16 and "
+                                  "rounds p and ds to bf16 (the "
+                                  "reference's rounding points, which the "
+                                  "CPU test holds to one ulp), so over "
+                                  "1000 random keys a few dq and dk "
+                                  "entries land a quarter of the rms off "
+                                  "the f32 gradient (seen on the card: "
+                                  "0.29 of the rms); the planted backward "
+                                  "without delta reads ~80 rms off"),
+    "train_remat_card": Tol(0.0, 0.0,
+                            "remat recomputes the same kernels on the same "
+                            "inputs: equal"),
+    "train_resume_card": Tol(0.0, 0.0,
+                             "the restored state and batches are the saved "
+                             "ones: equal losses"),
+    "microbatch_loss": Tol(0.0, 0.05,
+                           "microbatches=4 against 1: the reference's own "
+                           "bound (tests/test_train_serve.py:47-59); bf16 "
+                           "activations and gradients summed in pieces"),
+    "microbatch_grads": Tol(0.0, 0.1,
+                            "microbatches=4 against 1, the largest |diff| of "
+                            "any gradient element: the reference's own "
+                            "bound (tests/test_train_serve.py:47-59)"),
     # served tokens: where two engines pick different tokens, the
     # reference's top-1 minus top-2 logit at the first differing step must
     # be below atol * max|logit| (a near tie that rounding may flip)

@@ -25,12 +25,16 @@ _NO_JAX = r"""
 import pkgutil, sys
 sys.modules["jax"] = None        # any import of jax or repro now fails
 sys.modules["repro"] = None
+sys.modules["ml_dtypes"] = None  # bf16 checkpoints go through torch views
 import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     __import__(m.name)
 import chip_smoke
 assert sys.modules["jax"] is None and sys.modules["repro"] is None
 assert "repro_torch.serve.graphs" in sys.modules
+for m in ("train.optimizer", "train.train_step", "train.checkpoint",
+          "train.data", "train.tree", "launch.train"):
+    assert "repro_torch." + m in sys.modules, m
 print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
 """
 
@@ -42,7 +46,8 @@ def test_port_and_chip_smoke_import_without_jax():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
     # every module was imported: flash attention, paging, the SSD kernel
-    # package, the SSM model, the MoE model and the step runners included
+    # package, the SSM model, the MoE model, the step runners and the
+    # training modules included
     assert int(proc.stdout.split()[1]) >= 32
 
 
