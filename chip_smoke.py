@@ -380,7 +380,25 @@ Phases, one JSON line each; any failure exits non-zero:
  24. launch_train - the train launcher in-process at reduced yi-6b:
                --kill-at 7 exits 42, --resume goes on from step 5 and
                prints the steps of a run that was not killed.
- 25. kernels - each kernel's time at the served shapes beside its bound,
+ 25. parallel - run after phase 24 on freed memory: an NCCL process group
+               of one rank on the card (tcp://127.0.0.1, a free port),
+               make_host_mesh(model=1) (data 1, model 1); yi-6b at full
+               width, 8 of 32 layers, phase 23's batch and redrawn
+               attention projections: grads_fn on the plain parameters,
+               then on the same storage wrapped as DTensors
+               (DTensor.from_local with pspecs_from_schema's placements,
+               no copy; the batch on batch_sharding; make_constrain the
+               Model's hook; parallel/sharding.py::sharded_step): the loss
+               and every gradient leaf bit-equal, both steps' ms (the cost
+               of DTensor's dispatch, first call and warm). The DTensor
+               gradients (Partial over data) through
+               make_grad_sync(mesh, "data", impl): psum, butterfly,
+               butterfly2 and ring return them bit-equal; compressed's
+               reduced + new_error equals the input within one f32 ulp,
+               its error below 0.05 of each 256-block's maximum; the flat
+               vector's bytes and each reducer's ms and GB/s. No gloo, no
+               CPU path; the group is destroyed at the end.
+ 26. kernels - each kernel's time at the served shapes beside its bound,
                its plain version and one PyTorch call (a yardstick only);
                the pod GEMM at granite-8b's, dbrx-132b's and hymba-1.5b's
                shapes (hymba's head on wmma at M = 4 and 8192), flash
@@ -422,6 +440,7 @@ import json
 import math
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -432,7 +451,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -450,6 +471,11 @@ from repro_torch.kernels.ssd.ref import (  # noqa: E402
 from repro_torch.kernels.systolic_gemm import guard as guard_mod  # noqa: E402
 from repro_torch.kernels.systolic_gemm import ops as sg_ops  # noqa: E402
 from repro_torch.kernels.systolic_gemm import systolic_gemm as sg  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh, mesh_shape_dict  # noqa: E402
+from repro_torch.parallel.compression import BLOCK, compressed_psum  # noqa: E402
+from repro_torch.parallel.sharding import (  # noqa: E402
+    batch_sharding, make_constrain, placements, pspec_for_axes, sharded_step)
+from repro_torch.train.grad_sync import make_grad_sync, pending  # noqa: E402
 from repro_torch.kernels.systolic_gemm.ref import (  # noqa: E402
     epilogue_ref, grouped_systolic_gemm_ref, splitk_partials, systolic_gemm_ref,
     systolic_gemm_t_ref)
@@ -4579,7 +4605,174 @@ def phase_launch_train() -> None:
 
 
 # --------------------------------------------------------------------------
-# 25. kernels line
+# 25. parallel
+# --------------------------------------------------------------------------
+
+REDUCERS = ("psum", "butterfly", "butterfly2", "ring", "compressed")
+
+
+def free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def timed_ms(fn, *args):
+    """(fn(*args), wall ms between two device syncs)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def compressed_gates(flat: torch.Tensor, group) -> dict:
+    """compressed_psum on one rank: reduced + new_error against the input
+    (at most one f32 ulp of it apart) and the largest error of `reduced`
+    over its 256-block's maximum, chunk by chunk (6.6 GB in f32 at yi-6b's
+    8 layers)."""
+    red, err = compressed_psum(flat, group)
+    ulps, block_rel = 0.0, 0.0
+    step = BLOCK * (1 << 20)
+    for i in range(0, flat.numel(), step):
+        x, r, e = flat[i:i + step], red[i:i + step], err[i:i + step]
+        ulp = torch.nextafter(x.abs(), torch.full_like(x, math.inf)) - \
+            x.abs()
+        ulps = max(ulps, float(((r + e - x).abs() / ulp).max()))
+        pad = (-x.numel()) % BLOCK
+        xb = F.pad(x, (0, pad)).view(-1, BLOCK)
+        rb = F.pad(r, (0, pad)).view(-1, BLOCK)
+        bmax = xb.abs().amax(dim=1)
+        rel = (rb - xb).abs().amax(dim=1) / bmax
+        block_rel = max(block_rel, float(rel[bmax > 0].max()))
+    return {"ulps_of_input": ulps, "max_block_rel_err": block_rel,
+            "error": err}
+
+
+def phase_parallel() -> None:
+    """The sharded step and the gradient reducers on one card (NCCL, one
+    rank): see the module docstring's phase 25."""
+    t0 = time.perf_counter()
+    gpu = gpu_name_and_power()
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+        world_size=1, rank=0, device_id=torch.device("cuda", 0))
+    try:
+        check(dist.get_backend() == "nccl",
+              f"parallel: backend {dist.get_backend()}, not nccl")
+        mesh = make_host_mesh(model=1)
+        check(mesh.device_type == "cuda", f"parallel: mesh on "
+              f"{mesh.device_type}")
+        cfg = dataclasses.replace(get_arch(TRAIN_ARCH),
+                                  n_layers=TRAIN_LAYERS)
+        model = Model(cfg, remat=True)
+        params = fan_in_attention(model.init(
+            torch.Generator("cuda").manual_seed(0)))
+        tcfg = TrainConfig(optimizer=AdamWConfig(**TRAIN_OPT))
+        batch = train_batch(batches(DataConfig(
+            vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)))
+        dparams = train_tree.tree_map(
+            lambda p, s: DTensor.from_local(
+                p, mesh, placements(pspec_for_axes(s.axes, s.shape, mesh),
+                                    mesh), shape=p.shape, stride=p.stride()),
+            params, model.schema())
+        no_copy = all(
+            d.to_local().data_ptr() == p.data_ptr() for d, p in zip(
+                train_tree.tree_leaves(dparams),
+                train_tree.tree_leaves(params)))
+        dbatch = {k: DTensor.from_local(v, mesh, batch_sharding(mesh, v.ndim))
+                  for k, v in batch.items()}
+        smodel = Model(cfg, remat=True,
+                       constrain=make_constrain(mesh, cfg.vocab))
+        plain_fn = grads_fn(model, tcfg)
+        dt_fn = sharded_step(grads_fn(smodel, tcfg))
+        (loss_p, g_p), plain_first = timed_ms(plain_fn, params, batch)
+        (loss_d, g_d), dt_first = timed_ms(dt_fn, dparams, dbatch)
+        loss_equal = bool(torch.equal(loss_p, loss_d.full_tensor()))
+        unequal = [k for (k, a), (_, b) in zip(
+            train_tree.leaves_with_paths(g_p),
+            train_tree.leaves_with_paths(g_d))
+            if not torch.equal(a, b.full_tensor())]
+        placements_seen = sorted({str(g.placements) for g in
+                                  train_tree.tree_leaves(g_d)})
+        del g_p, g_d
+        _, plain_ms = timed_ms(plain_fn, params, batch)
+        (loss_d, g_d), dt_ms = timed_ms(dt_fn, dparams, dbatch)
+        del params, dparams
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the DTensor gradients' pending sum over data, by each reducer
+        group = mesh.get_group("data")
+        local = [g.to_local() for g in train_tree.tree_leaves(g_d)
+                 if pending(g, "data")]
+        flat = torch.cat([t.reshape(-1).float() for t in local])
+        flat_bytes = flat.numel() * flat.element_size()
+        gates = compressed_gates(flat, group)
+        del flat
+        torch.cuda.empty_cache()
+        reducers = {}
+        for impl in REDUCERS:
+            sync = make_grad_sync(mesh, "data", impl)
+            sync(g_d)                                  # warm
+            (red, err), ms = timed_ms(sync, g_d)
+            row = {"ms": ms, "gb_per_s": flat_bytes / ms / 1e6,
+                   "placements": sorted({str(g.placements) for g in
+                                         train_tree.tree_leaves(red)})}
+            out = [g.to_local() for g in train_tree.tree_leaves(red)]
+            inp = [g.to_local() for g in train_tree.tree_leaves(g_d)]
+            if impl == "compressed":
+                row["error_equal"] = bool(torch.equal(err, gates["error"]))
+            else:
+                row["bit_equal"] = all(torch.equal(a, b)
+                                       for a, b in zip(out, inp))
+            row["none_partial_over_data"] = not any(
+                pending(g, "data") for g in train_tree.tree_leaves(red))
+            reducers[impl] = row
+            del red, err, out, inp
+            torch.cuda.empty_cache()
+        del gates["error"]
+        row = {"nccl": ".".join(map(str, torch.cuda.nccl.version())),
+               "backend": dist.get_backend(), "world_size":
+               dist.get_world_size(), "mesh": mesh_shape_dict(mesh),
+               "arch": cfg.name, "n_layers": TRAIN_LAYERS,
+               "batch": [TRAIN_BATCH, TRAIN_SEQ], "no_copy": no_copy,
+               "loss": float(loss_p), "loss_equal": loss_equal,
+               "grads_unequal": unequal,
+               "grad_placements": placements_seen,
+               "plain_ms_first": plain_first, "dtensor_ms_first": dt_first,
+               "plain_ms": plain_ms, "dtensor_ms": dt_ms,
+               "dispatch_ms": dt_ms - plain_ms,
+               "pending_leaves": len(local),
+               "leaves": len(train_tree.tree_leaves(g_d)),
+               "flat_bytes": flat_bytes, "reducers": reducers,
+               "compressed": gates, "gpu": gpu}
+        del g_d, local
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - t0
+    emit("parallel", **row)
+    check(row["no_copy"], "parallel: from_local copied a parameter")
+    check(loss_equal and not unequal,
+          f"parallel: the DTensor step differs from the plain one (loss "
+          f"equal {loss_equal}; leaves {unequal})")
+    check(row["pending_leaves"] > 0, "parallel: no gradient is pending "
+          "over data")
+    for impl, r in reducers.items():
+        check(r["none_partial_over_data"],
+              f"parallel: {impl} left a sum over data pending")
+        check(r.get("bit_equal", r.get("error_equal")),
+              f"parallel: {impl} at one rank changed the gradients {r}")
+    check(gates["ulps_of_input"] <= 1.0 and
+          gates["max_block_rel_err"] < 0.05,
+          f"parallel: compressed_psum {gates}")
+
+
+# --------------------------------------------------------------------------
+# 26. kernels line
 # --------------------------------------------------------------------------
 
 def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
@@ -5387,6 +5580,8 @@ def main() -> int:
         phase_train()
         torch.cuda.synchronize()
         phase_launch_train()
+        torch.cuda.synchronize()
+        phase_parallel()
         torch.cuda.synchronize()
 
         kernels = {"kernels": [gemm_line(

@@ -1,1 +1,2 @@
-"""Launchers: `serve.py`, the port of repro/launch/serve.py."""
+"""Launchers (the ports of repro/launch): `serve.py`, `train.py` and the
+mesh builders of `mesh.py`."""

@@ -39,6 +39,48 @@ def einsum(eq: str, *operands):
     return torch.einsum(eq, *(o.to(dt) for o in operands))
 
 
+def is_dtensor(t) -> bool:
+    """True for a DTensor (the sharded step's). torch.distributed.tensor is
+    imported only when a tensor is not a plain one: the import takes about
+    a second."""
+    if type(t) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def replicate_dim(t, dim: int):
+    """A DTensor `t` redistributed with axis `dim` replicated (an
+    all-gather over the mesh dimensions that shard it); any other tensor
+    as it is. The sharded step's explicit redistribution at an op whose
+    DTensor sharding rule fails on a sharded axis (heads_replicated,
+    layers.embed, layers.cross_entropy_loss)."""
+    if not is_dtensor(t):
+        return t
+    dim %= t.ndim
+    if not any(pl.is_shard(dim) for pl in t.placements):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [
+        Replicate() if pl.is_shard(dim) else pl for pl in t.placements])
+
+
+def heads_replicated(*ts):
+    """The attention's [B, S, H, D] operands with the head axis replicated
+    where they are DTensors (the sharded step's; the batch axis stays
+    sharded). DTensor has no sharding rule for two of the attention's ops
+    when heads are sharded: the GQA view [B, S, Hq, D] -> [B, S, Hkv, G,
+    D] of a head axis sharded over more ranks than Hkv divides into
+    (aten.view: "Cannot unflatten unevenly sharded tensor"; reduced
+    yi-6b's 4 query heads on a 4-way model axis), and, in torch 2.11, the
+    batched products of _gqa_scores and _gqa_out, whose batch and head
+    axes einsum flattens into one (aten._unsafe_view: "Attempted to
+    flatten multiple dimensions, with dimension 1 being sharded"). So the
+    heads are gathered here, explicitly, as GSPMD would gather them;
+    plain tensors pass unchanged."""
+    return tuple(replicate_dim(t, 2) for t in ts)
+
+
 def _gqa_scores(q, k):
     """q [B,Sq,Hkv,G,D] x k [B,Skv,Hkv,D] -> [B,Hkv,G,Sq,Skv]."""
     return einsum("bqhgd,bkhd->bhgqk", q, k)
@@ -69,6 +111,7 @@ def _forward_blocks(q, k, v, *, causal, window, q_offset, kv_block, scale,
     Skv, Hkv = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
     G = Hq // Hkv
+    q, k, v = heads_replicated(q, k, v)
     qg = _scale_q(q, scale).reshape(B, Sq, Hkv, G, D)
     q_pos = q_offset + torch.arange(Sq, device=q.device)
 
@@ -161,6 +204,7 @@ def _flash_bwd_pass(q, k, v, out, L, dout, causal, kv_block,
     Dv = v.shape[-1]
     G = Hq // Hkv
     scale = _scale_of(q, softmax_scale)
+    q, k, v, out, dout = heads_replicated(q, k, v, out, dout)
     qg = q.reshape(B, Sq, Hkv, G, D)
     dog = dout.reshape(B, Sq, Hkv, G, Dv)
     delta = einsum("bqhgd,bqhgd->bhgq", dog.float(),
@@ -213,6 +257,7 @@ def naive_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
+    q, k, v = heads_replicated(q, k, v)
     qg = _scale_q(q, scale).reshape(B, Sq, Hkv, G, D)
     s = _gqa_scores(qg, k).float()
     q_pos = q_offset + torch.arange(Sq, device=q.device)
@@ -227,12 +272,14 @@ def naive_attention(q, k, v, *, causal=True, window=None, q_offset=0,
 
 
 def attention(q, k, v, *, impl: str = "chunked", causal: bool = True,
-              window: int | None = None):
-    """Prefill attention by implementation: "chunked" (torch ops) or
-    "pallas" (the flash-attention kernel on the card, its plain version on
-    the CPU)."""
+              window: int | None = None, kv_block: int = 1024):
+    """Prefill attention by implementation: "chunked" (torch ops over KV
+    blocks of kv_block keys) or "pallas" (the flash-attention kernel on
+    the card, its plain version on the CPU; kv_block does not reach it,
+    as in the reference)."""
     if impl == "chunked":
-        return chunked_attention(q, k, v, causal=causal, window=window)
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 kv_block=kv_block)
     if impl == "pallas":
         # imported here: the kernel's plain version imports this module
         from ..kernels.flash_attention import ops as fl

@@ -1,11 +1,14 @@
 """Common layers and the parameter schema (counterpart of
 repro/models/layers.py).
 
-A model declares a *schema*: nested dicts of `ParamSpec`s with shape, init
-style and dtype. `init_from_schema` materializes it on a device from a
-`torch.Generator`, with the JAX package's init styles (normal with fan-in
-scale, ones, zeros). The numbers differ from `jax.random`'s, so parity
-tests convert the reference's own parameters instead (bridge.py).
+A model declares a *schema*: nested dicts of `ParamSpec`s with shape,
+logical axis names, init style and dtype. The axis names ("embed", "heads",
+"ff", "experts", "vocab", ...) are the reference's; parallel/sharding.py
+maps them onto mesh dimensions. `init_from_schema` materializes it on a
+device from a `torch.Generator`, with the JAX package's init styles
+(normal with fan-in scale, ones, zeros). The numbers differ from
+`jax.random`'s, so parity tests convert the reference's own parameters
+instead (bridge.py).
 
 Layers are plain functions over dicts of tensors. Where the result depends
 on the order of rounding, they follow the reference step for step.
@@ -20,16 +23,23 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.systolic_gemm.guard import active_guard
-from .attention import einsum
+from .attention import is_dtensor, einsum, replicate_dim
 from ..kernels.systolic_gemm.ops import fused_lane_gemm, fused_lane_gemm_t
 
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
+    axes: tuple[str | None, ...] | None = None   # logical axis names;
+    # None: one unnamed axis per dimension
     init: str = "normal"                  # normal | zeros | ones
     scale: float | None = None            # stddev; default fan-in
     dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        if self.axes is None:
+            object.__setattr__(self, "axes", (None,) * len(self.shape))
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
 def _init_leaf(spec: ParamSpec, generator: torch.Generator, device):
@@ -87,9 +97,9 @@ def layernorm(x, w, b, eps: float = 1e-5):
 
 def norm_schema(d: int, kind: str) -> dict:
     if kind == "layernorm":
-        return {"scale": ParamSpec((d,), init="ones"),
-                "bias": ParamSpec((d,), init="zeros")}
-    return {"scale": ParamSpec((d,), init="ones")}
+        return {"scale": ParamSpec((d,), ("embed",), init="ones"),
+                "bias": ParamSpec((d,), ("embed",), init="zeros")}
+    return {"scale": ParamSpec((d,), ("embed",), init="ones")}
 
 
 def apply_norm(p: dict, x, kind: str):
@@ -144,10 +154,11 @@ def mlp_schema(d_model: int, d_ff: int, activation: str,
                layers: int | None = None) -> dict:
     """Gated (GLU) for silu archs; plain up/down for relu2/gelu."""
     lead = (layers,) if layers else ()
-    sch = {"up": ParamSpec(lead + (d_model, d_ff)),
-           "down": ParamSpec(lead + (d_ff, d_model))}
+    la = ("layers",) if layers else ()
+    sch = {"up": ParamSpec(lead + (d_model, d_ff), la + ("embed", "ff")),
+           "down": ParamSpec(lead + (d_ff, d_model), la + ("ff", "embed"))}
     if activation in ("silu",):
-        sch["gate"] = ParamSpec(lead + (d_model, d_ff))
+        sch["gate"] = ParamSpec(lead + (d_model, d_ff), la + ("embed", "ff"))
     return sch
 
 
@@ -170,14 +181,23 @@ def apply_mlp(p: dict, x, activation: str, use_pallas: bool = False):
 
 
 def embed_schema(vocab: int, d_model: int, tie: bool) -> dict:
-    sch = {"tok": ParamSpec((vocab, d_model), scale=1.0)}
+    sch = {"tok": ParamSpec((vocab, d_model), ("vocab", "embed"), scale=1.0)}
     if not tie:
-        sch["unembed"] = ParamSpec((d_model, vocab))
+        sch["unembed"] = ParamSpec((d_model, vocab), ("embed", "vocab"))
     return sch
 
 
 def embed(p: dict, tokens):
-    return p["tok"][tokens]
+    """The token table's rows. A DTensor batch (the sharded step's) looks
+    its rows up with the token ids replicated, and the rows come back in
+    the ids' placements: DTensor's rule for the lookup's backward
+    (aten.index_put with accumulate, its indices sharded over data) fails
+    in torch 2.11 ("Shard dim -1 ... must be normalized"), so the ids are
+    gathered explicitly here."""
+    if not is_dtensor(tokens):
+        return p["tok"][tokens]
+    rows = p["tok"][replicate_dim(tokens, 0)]
+    return rows.redistribute(tokens.device_mesh, tokens.placements)
 
 
 def unembed(p: dict, x, use_pallas: bool = False):
@@ -201,8 +221,12 @@ def cross_entropy_loss(logits, labels, ignore_id: int = -1):
     """Mean next-token cross entropy over the labels that are not
     `ignore_id`: logits in f32, logsumexp minus the label's logit, summed
     and divided by max(count, 1), as the reference's. An ignored label
-    reads logit 0 (its term is multiplied by 0)."""
-    logits = logits.float()
+    reads logit 0 (its term is multiplied by 0). A DTensor's vocab axis
+    is replicated before the torch.gather: DTensor's rule for a gather
+    along a sharded axis leaves a masked partial sum whose mask no longer
+    fits once the gathered axis is dropped (aten.sub then fails), so the
+    sharded step redistributes explicitly here."""
+    logits = replicate_dim(logits.float(), -1)
     lse = torch.logsumexp(logits, dim=-1)
     keep = labels != ignore_id
     idx = torch.where(keep, labels, 0).long()

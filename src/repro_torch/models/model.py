@@ -112,7 +112,8 @@ def _stack_schema(sch, n: int):
     """A block schema with a leading axis of n (the vlm's groups)."""
     if isinstance(sch, dict):
         return {k: _stack_schema(v, n) for k, v in sch.items()}
-    return dataclasses.replace(sch, shape=(n,) + sch.shape)
+    return dataclasses.replace(sch, shape=(n,) + sch.shape,
+                               axes=("layers",) + sch.axes)
 
 
 def _index(tree, i: int):
@@ -128,7 +129,8 @@ def _index(tree, i: int):
 class Model:
     def __init__(self, cfg: ArchConfig, attention_impl: str = "chunked",
                  use_pallas: bool = False, ssd_impl: str = "jnp",
-                 device=None, remat: bool = False):
+                 device=None, remat: bool = False, kv_rep: int = 1,
+                 constrain=None, kv_block: int = 1024):
         """device None means the card (raises without one); tests pass
         device="cpu". attention_impl picks the prefill attention: "chunked"
         (torch ops) or "pallas" (the flash-attention kernel on the card,
@@ -145,7 +147,17 @@ class Model:
         (torch.utils.checkpoint, non-reentrant): the backward keeps each
         layer's input and recomputes the rest, where the reference wraps
         its scan bodies in jax.checkpoint. It changes memory, never a
-        number."""
+        number.
+
+        The reference's three parallelism knobs: kv_rep repeats each K/V
+        head kv_rep times in the GQA attention and widens init_cache's KV
+        caches to n_kv_heads * kv_rep heads (a head count that divides the
+        model axis). constrain(x, kind) is called on the residual stream
+        after the embedding and after every layer ("residual"), on the
+        logits ("logits") and on the MoE's dispatched tokens
+        ("moe_dispatched"), at the reference's sites; the sharded step
+        passes parallel/sharding.py::make_constrain. kv_block is the KV
+        block of the chunked attention. The defaults change nothing."""
         if attention_impl not in ("chunked", "pallas"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}")
         if ssd_impl not in ("jnp", "pallas"):
@@ -155,6 +167,9 @@ class Model:
         self.ssd_impl = ssd_impl
         self.use_pallas = use_pallas
         self.remat = remat
+        self.kv_rep = kv_rep
+        self.constrain = constrain or (lambda x, kind: x)
+        self.kv_block = kv_block
         self.device = resolve_device(device)
         self.segs = segments(cfg)
 
@@ -177,7 +192,8 @@ class Model:
                 "blocks": block_schema(cfg, "encoder", cfg.n_encoder_layers),
                 "ln_f": norm_schema(cfg.d_model, cfg.norm)}
         if cfg.family == "vlm":
-            sch["img_adapter"] = ParamSpec((cfg.d_model, cfg.d_model))
+            sch["img_adapter"] = ParamSpec((cfg.d_model, cfg.d_model),
+                                           ("embed", None))
         return sch
 
     def init(self, generator: torch.Generator) -> dict:
@@ -204,15 +220,18 @@ class Model:
                      true_lens=None, cross_src=None):
         kw = dict(positions=positions, window=seg.window, impl=self.impl,
                   ssd_impl=self.ssd_impl, use_pallas=self.use_pallas,
-                  true_lens=true_lens, cross_src=cross_src)
+                  true_lens=true_lens, cross_src=cross_src,
+                  kv_rep=self.kv_rep, kv_block=self.kv_block,
+                  constrain=self.constrain)
         if seg.kind == "vlm":
             return self._run_vlm_segment(seg, p_seg, x, cache_seg, kw)
         for i in range(seg.n):
             p_i = _index(p_seg, i)
             c_i = None if cache_seg is None else _index(cache_seg, i)
-            x = self._layer(lambda h, p=p_i, c=c_i: apply_block(
-                p, h, self.cfg, seg.kind, cache=c, **kw), x,
-                cached=c_i is not None)
+            x = self.constrain(self._layer(
+                lambda h, p=p_i, c=c_i: apply_block(
+                    p, h, self.cfg, seg.kind, cache=c, **kw), x,
+                cached=c_i is not None), "residual")
         return x
 
     def _run_vlm_segment(self, seg: Segment, p_seg, x, cache_seg, kw):
@@ -228,11 +247,15 @@ class Model:
                 p_l = _index(p_g["plain"], l)
                 c_l = {"attn": cache_seg["attn"].layer(g * inner + l)} \
                     if cached else None
-                x = self._layer(lambda h, p=p_l, c=c_l: apply_block(
-                    p, h, self.cfg, "dense", cache=c, **kw), x, cached)
+                x = self.constrain(self._layer(
+                    lambda h, p=p_l, c=c_l: apply_block(
+                        p, h, self.cfg, "dense", cache=c, **kw), x, cached),
+                    "residual")
             c_g = {"cross": cache_seg["cross"].layer(g)} if cached else None
-            x = self._layer(lambda h, p=p_g["cross"], c=c_g: apply_block(
-                p, h, self.cfg, "cross_layer", cache=c, **kw), x, cached)
+            x = self.constrain(self._layer(
+                lambda h, p=p_g["cross"], c=c_g: apply_block(
+                    p, h, self.cfg, "cross_layer", cache=c, **kw), x,
+                cached), "residual")
         return x
 
     def _embed_in(self, params, tokens, offset=0):
@@ -244,7 +267,7 @@ class Model:
         if not cfg.use_rope and cfg.family != "ssm":
             x = x + _sinusoid(x.shape[1], cfg.d_model, offset,
                               device=x.device).to(x.dtype)
-        return x
+        return self.constrain(x, "residual")
 
     def _encode(self, params, frames):
         """The encoder over precomputed frame embeddings [B, S_src, d]:
@@ -255,13 +278,14 @@ class Model:
         cfg = self.cfg
         x = frames + _sinusoid(frames.shape[1], cfg.d_model,
                                device=frames.device).to(frames.dtype)
+        x = self.constrain(x, "residual")
         pos = torch.arange(frames.shape[1], device=frames.device)
         blocks = params["encoder"]["blocks"]
         for i in range(cfg.n_encoder_layers):
             p_i = _index(blocks, i)
-            x = self._layer(lambda h, p=p_i: apply_block(
+            x = self.constrain(self._layer(lambda h, p=p_i: apply_block(
                 p, h, cfg, "encoder", positions=pos, impl=self.impl,
-                causal=False, use_pallas=self.use_pallas), x)
+                causal=False, use_pallas=self.use_pallas), x), "residual")
         return apply_norm(params["encoder"]["ln_f"], x, cfg.norm)
 
     def _cross_source(self, params, batch):
@@ -313,7 +337,8 @@ class Model:
             x = self._run_segment(seg, params[seg.name], x, positions, cseg,
                                   true_lens, cross_src)
         x = apply_norm(params["ln_f"], x, self.cfg.norm)
-        return unembed(params["embed"], x, use_pallas=self.use_pallas), cache
+        logits = unembed(params["embed"], x, use_pallas=self.use_pallas)
+        return self.constrain(logits, "logits"), cache
 
     # -- training ----------------------------------------------------------
     def loss(self, params, batch):
@@ -375,15 +400,16 @@ class Model:
         if page_size is not None and cfg.mla is not None:
             raise ValueError("paged KV cache does not support MLA caches")
         hd = cfg.resolved_head_dim
+        kv_v = max(1, cfg.n_kv_heads) * self.kv_rep
         dev = self.device
         ring_len = max_len if ring_len is None else ring_len
 
         def kv(n):
             if page_size is not None:
                 return PagedKVCache.zeros(
-                    batch, max_len, cfg.n_kv_heads, hd, n_pages=kv_pages,
+                    batch, max_len, kv_v, hd, n_pages=kv_pages,
                     page_size=page_size, dtype=dtype, layers=n, device=dev)
-            return KVCache.zeros(batch, max_len, cfg.n_kv_heads, hd, dtype,
+            return KVCache.zeros(batch, max_len, kv_v, hd, dtype,
                                  layers=n, device=dev)
         caches: dict = {}
         for seg in self.segs:
@@ -406,7 +432,7 @@ class Model:
             elif seg.kind != "ssm":
                 node["attn"] = kv(seg.n) if seg.window is None else \
                     RingKVCache.zeros(batch, min(seg.window, ring_len),
-                                      cfg.n_kv_heads, hd, dtype,
+                                      kv_v, hd, dtype,
                                       layers=seg.n, device=dev)
             if seg.kind in ("ssm", "hybrid"):
                 node["ssm"] = SSMCache.zeros(cfg, batch, layers=seg.n,

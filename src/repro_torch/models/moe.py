@@ -36,17 +36,22 @@ def moe_schema(cfg: ArchConfig, layers: int | None = None) -> dict:
     m = cfg.moe
     d, f, e = cfg.d_model, m.d_ff_expert, m.num_experts
     lead = (layers,) if layers else ()
+    la = ("layers",) if layers else ()
     sch = {
-        "router": ParamSpec(lead + (d, e), dtype=torch.float32),
-        "up": ParamSpec(lead + (e, d, f)),
-        "gate": ParamSpec(lead + (e, d, f)),
-        "down": ParamSpec(lead + (e, f, d)),
+        "router": ParamSpec(lead + (d, e), la + ("embed", None),
+                            dtype=torch.float32),
+        "up": ParamSpec(lead + (e, d, f), la + ("experts", "embed",
+                                                 "expert_ff")),
+        "gate": ParamSpec(lead + (e, d, f), la + ("experts", "embed",
+                                                   "expert_ff")),
+        "down": ParamSpec(lead + (e, f, d), la + ("experts", "expert_ff",
+                                                   "embed")),
     }
     if m.num_shared_experts:
         fs = f * m.num_shared_experts
-        sch["shared_up"] = ParamSpec(lead + (d, fs))
-        sch["shared_gate"] = ParamSpec(lead + (d, fs))
-        sch["shared_down"] = ParamSpec(lead + (fs, d))
+        sch["shared_up"] = ParamSpec(lead + (d, fs), la + ("embed", "ff"))
+        sch["shared_gate"] = ParamSpec(lead + (d, fs), la + ("embed", "ff"))
+        sch["shared_down"] = ParamSpec(lead + (fs, d), la + ("ff", "embed"))
     return sch
 
 
@@ -113,33 +118,46 @@ def _route(p, xt, m: MoEConfig, use_sort: bool | None = None):
     return gate_vals, expert_idx, pos, keep, cap
 
 
-def _experts(p, xe, act):
+def _experts(p, xe, act, constrain=None):
     """xe [G,E,C,D] -> ye [G,E,C,D]: the expert FFNs as einsums (the
-    oracle), in the operands' promoted dtype."""
+    oracle), in the operands' promoted dtype. `constrain` sees xe and ye
+    as "moe_dispatched", as in the reference (the expert-parallel
+    boundary)."""
+    if constrain is not None:
+        xe = constrain(xe, "moe_dispatched")
     dt = torch.promote_types(xe.dtype, p["up"].dtype)
     xe = xe.to(dt)
     h = torch.einsum("gecd,edf->gecf", xe, p["up"].to(dt))
     g = act(torch.einsum("gecd,edf->gecf", xe, p["gate"].to(dt)))
-    return torch.einsum("gecf,efd->gecd", h * g, p["down"].to(dt))
+    ye = torch.einsum("gecf,efd->gecd", h * g, p["down"].to(dt))
+    if constrain is not None:
+        ye = constrain(ye, "moe_dispatched")
+    return ye
 
 
-def _experts_grouped(p, xe, activation: str):
+def _experts_grouped(p, xe, activation: str, constrain=None):
     """xe [G,E,C,D] -> ye [G,E,C,D] on the grouped pod GEMM: experts are
     the kernel's groups and each expert's G*C capacity rows its M axis, so
     the E (G*C x D x F) GEMMs of a projection run as ONE launch, the gate
     activation in the fused epilogue. Every output rounds to the promoted
-    dtype, as in the reference."""
+    dtype, as in the reference. `constrain` as in _experts."""
     G, E, C, D = xe.shape
+    if constrain is not None:
+        xe = constrain(xe, "moe_dispatched")
     dt = torch.promote_types(xe.dtype, p["up"].dtype)
     xg = xe.transpose(0, 1).reshape(E, G * C, D).to(dt)
     h = grouped_gemm(xg, p["up"].to(dt), out_dtype=dt)
     g = grouped_gemm(xg, p["gate"].to(dt), activation=activation,
                      out_dtype=dt)
     ye = grouped_gemm(h * g, p["down"].to(dt), out_dtype=dt)
-    return ye.reshape(E, G, C, D).transpose(0, 1)
+    ye = ye.reshape(E, G, C, D).transpose(0, 1)
+    if constrain is not None:
+        ye = constrain(ye, "moe_dispatched")
+    return ye
 
 
-def apply_moe(p: dict, x, cfg: ArchConfig, use_pallas: bool = False):
+def apply_moe(p: dict, x, cfg: ArchConfig, use_pallas: bool = False,
+              constrain=None):
     """x: [B, S, D] -> [B, S, D].
 
     Grouped top-k routing with per-group capacity; over-capacity
@@ -147,7 +165,8 @@ def apply_moe(p: dict, x, cfg: ArchConfig, use_pallas: bool = False):
     "onehot" and "hybrid" the GShard einsums (with one-hot or argsort
     positions), "sort" the scatter dispatch with einsum experts. use_pallas
     forces the scatter dispatch with the experts on the grouped pod GEMM
-    and the shared experts on `pod_dense`."""
+    and the shared experts on `pod_dense`. `constrain` (the Model's hook)
+    sees the dispatched [G, E, C, D] tensors (_experts)."""
     m = cfg.moe
     act = activation_fn(cfg.activation)
     B, S, D = x.shape
@@ -158,7 +177,8 @@ def apply_moe(p: dict, x, cfg: ArchConfig, use_pallas: bool = False):
 
     if use_pallas or m.dispatch == "sort":
         out = _dispatch_sort(p, xt, gate_vals, expert_idx, pos, keep, cap,
-                             cfg, act, use_pallas=use_pallas)
+                             cfg, act, use_pallas=use_pallas,
+                             constrain=constrain)
     else:
         expert_oh = F.one_hot(expert_idx, m.num_experts).to(x.dtype)
         slot_oh = F.one_hot(torch.where(keep, pos, cap),
@@ -167,7 +187,7 @@ def apply_moe(p: dict, x, cfg: ArchConfig, use_pallas: bool = False):
         combine = torch.einsum("gnke,gnkc,gnk->gnec", expert_oh, slot_oh,
                                gate_vals.to(x.dtype))
         xe = torch.einsum("gnec,gnd->gecd", dispatch, xt)     # [G,E,C,D]
-        ye = _experts(p, xe, act)
+        ye = _experts(p, xe, act, constrain)
         out = torch.einsum("gnec,gecd->gnd", combine.to(ye.dtype), ye)
 
     if m.num_shared_experts:
@@ -184,7 +204,7 @@ def apply_moe(p: dict, x, cfg: ArchConfig, use_pallas: bool = False):
 
 
 def _dispatch_sort(p, xt, gate_vals, expert_idx, pos, keep, cap, cfg, act,
-                   use_pallas: bool = False):
+                   use_pallas: bool = False, constrain=None):
     """Scatter dispatch: the one-hot path's (expert, slot) assignment built
     by indexing. Kept assignments land in row expert * cap + pos of a
     per-group buffer, dropped ones in a dump row E * cap that is sliced
@@ -204,9 +224,9 @@ def _dispatch_sort(p, xt, gate_vals, expert_idx, pos, keep, cap, cfg, act,
     xe = buf[:, :E * cap].reshape(G, E, cap, D)
 
     if use_pallas:
-        ye = _experts_grouped(p, xe, cfg.activation)
+        ye = _experts_grouped(p, xe, cfg.activation, constrain)
     else:
-        ye = _experts(p, xe, act)
+        ye = _experts(p, xe, act, constrain)
 
     ye_flat = ye.reshape(G, E * cap, D)
     back = torch.gather(ye_flat, 1, torch.clamp_max(slot, E * cap - 1)

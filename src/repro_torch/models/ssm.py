@@ -34,17 +34,20 @@ def ssm_schema(cfg: ArchConfig, layers: int | None = None) -> dict:
     H = s.n_heads(d)
     G, N, K = s.n_groups, s.d_state, s.conv_kernel
     lead = (layers,) if layers else ()
+    la = ("layers",) if layers else ()
     conv_dim = di + 2 * G * N
     return {
         # in_proj -> [z (gate), x, B, C, dt]
-        "in_proj": ParamSpec(lead + (d, 2 * di + 2 * G * N + H)),
-        "conv_w": ParamSpec(lead + (K, conv_dim)),
-        "conv_b": ParamSpec(lead + (conv_dim,), init="zeros"),
-        "A_log": ParamSpec(lead + (H,), init="zeros"),
-        "D": ParamSpec(lead + (H,), init="ones"),
-        "dt_bias": ParamSpec(lead + (H,), init="zeros"),
-        "norm": ParamSpec(lead + (di,), init="ones"),
-        "out_proj": ParamSpec(lead + (di, d)),
+        "in_proj": ParamSpec(lead + (d, 2 * di + 2 * G * N + H),
+                             la + ("embed", "ssm_inner")),
+        "conv_w": ParamSpec(lead + (K, conv_dim), la + (None, "ssm_inner")),
+        "conv_b": ParamSpec(lead + (conv_dim,), la + ("ssm_inner",),
+                            init="zeros"),
+        "A_log": ParamSpec(lead + (H,), la + ("ssm_heads",), init="zeros"),
+        "D": ParamSpec(lead + (H,), la + ("ssm_heads",), init="ones"),
+        "dt_bias": ParamSpec(lead + (H,), la + ("ssm_heads",), init="zeros"),
+        "norm": ParamSpec(lead + (di,), la + ("ssm_inner",), init="ones"),
+        "out_proj": ParamSpec(lead + (di, d), la + ("ssm_inner", "embed")),
     }
 
 

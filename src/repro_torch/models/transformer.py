@@ -92,32 +92,44 @@ def attn_schema(cfg: ArchConfig, layers: int | None) -> dict:
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     lead = (layers,) if layers else ()
+    la = ("layers",) if layers else ()
     if cfg.mla:
         m = cfg.mla
         qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
         return {
-            "q_a": ParamSpec(lead + (d, m.q_lora_rank)),
-            "q_a_norm": ParamSpec(lead + (m.q_lora_rank,), init="ones"),
-            "q_b": ParamSpec(lead + (m.q_lora_rank, cfg.n_heads, qk_dim)),
+            "q_a": ParamSpec(lead + (d, m.q_lora_rank), la + ("embed", None)),
+            "q_a_norm": ParamSpec(lead + (m.q_lora_rank,), la + (None,),
+                                  init="ones"),
+            "q_b": ParamSpec(lead + (m.q_lora_rank, cfg.n_heads, qk_dim),
+                             la + (None, "heads", None)),
             "kv_a": ParamSpec(lead + (d, m.kv_lora_rank
-                                      + m.qk_rope_head_dim)),
-            "kv_a_norm": ParamSpec(lead + (m.kv_lora_rank,), init="ones"),
+                                      + m.qk_rope_head_dim),
+                              la + ("embed", None)),
+            "kv_a_norm": ParamSpec(lead + (m.kv_lora_rank,), la + (None,),
+                                   init="ones"),
             "kv_b": ParamSpec(lead + (m.kv_lora_rank, cfg.n_heads,
-                                      m.qk_nope_head_dim + m.v_head_dim)),
-            "o": ParamSpec(lead + (cfg.n_heads, m.v_head_dim, d)),
+                                      m.qk_nope_head_dim + m.v_head_dim),
+                              la + (None, "heads", None)),
+            "o": ParamSpec(lead + (cfg.n_heads, m.v_head_dim, d),
+                           la + ("heads", None, "embed")),
         }
     return {
-        "q": ParamSpec(lead + (d, cfg.n_heads, hd)),
-        "k": ParamSpec(lead + (d, cfg.n_kv_heads, hd)),
-        "v": ParamSpec(lead + (d, cfg.n_kv_heads, hd)),
-        "o": ParamSpec(lead + (cfg.n_heads, hd, d)),
+        "q": ParamSpec(lead + (d, cfg.n_heads, hd),
+                       la + ("embed", "heads", None)),
+        "k": ParamSpec(lead + (d, cfg.n_kv_heads, hd),
+                       la + ("embed", "kv_heads", None)),
+        "v": ParamSpec(lead + (d, cfg.n_kv_heads, hd),
+                       la + ("embed", "kv_heads", None)),
+        "o": ParamSpec(lead + (cfg.n_heads, hd, d),
+                       la + ("heads", None, "embed")),
     }
 
 
 def apply_gqa(p, x, cfg: ArchConfig, *, positions, causal: bool = True,
               window: int | None = None, impl: str = "chunked",
               cache: KVCache | PagedKVCache | RingKVCache | None = None,
-              use_pallas: bool = False, true_lens=None):
+              use_pallas: bool = False, true_lens=None, kv_rep: int = 1,
+              kv_block: int = 1024):
     """GQA self-attention, causal unless `causal=False` (the encoder's).
     Prefill when x has S > 1 (filling a dense or ring `cache` if given);
     decode when S == 1 and a cache is given. The cache is updated in
@@ -126,7 +138,10 @@ def apply_gqa(p, x, cfg: ArchConfig, *, positions, causal: bool = True,
     reference has no decode kernel). use_pallas runs the q/k/v/o
     projections on the pod GEMM. true_lens [B]: per-lane valid lengths of
     a right-padded (bucketed) prefill; a ring cache then takes each
-    lane's last-window real tokens, not the padded tail."""
+    lane's last-window real tokens, not the padded tail. kv_rep > 1
+    repeats each K/V head kv_rep times after rope (the reference's virtual
+    KV replication: a cache of n_kv_heads * kv_rep heads divides a wider
+    model axis); kv_block is the chunked prefill's KV block."""
     if use_pallas:
         q = pod_dense(x, p["q"])
         k = pod_dense(x, p["k"])
@@ -138,6 +153,9 @@ def apply_gqa(p, x, cfg: ArchConfig, *, positions, causal: bool = True,
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_rep > 1:
+        k = torch.repeat_interleave(k, kv_rep, dim=2)
+        v = torch.repeat_interleave(v, kv_rep, dim=2)
 
     if cache is not None and x.shape[1] == 1:            # decode
         q_pos = positions[..., 0]                        # scalar or [B]
@@ -166,7 +184,8 @@ def apply_gqa(p, x, cfg: ArchConfig, *, positions, causal: bool = True,
             cache.fill_prefill(k, v, true_lens)
         elif cache is not None:
             cache.append(k, v)
-        out = attention(q, k, v, impl=impl, causal=causal, window=window)
+        out = attention(q, k, v, impl=impl, causal=causal, window=window,
+                        kv_block=kv_block)
     B, S = x.shape[0], x.shape[1]
     out = out.reshape(B, S, cfg.n_heads, -1)
     if use_pallas:
@@ -220,14 +239,15 @@ class MLACache:
 
 
 def apply_mla(p, x, cfg: ArchConfig, *, positions,
-              cache: MLACache | None = None):
+              cache: MLACache | None = None, kv_block: int = 1024):
     """DeepSeek-V2 multi-head latent attention. Prefill (S > 1, or no
     cache): K and V decompressed per head from the latent through kv_b,
     the shared roped key broadcast over the heads, and chunked attention
     at 1/sqrt(qk_nope + qk_rope) whatever the model's attention_impl (the
-    reference keeps MLA on einsums; it has no MLA kernel). Decode (S == 1
-    with a cache): the weight-absorbed form over the whole latent cache
-    with the per-lane length mask, static shapes for the CUDA graphs.
+    reference keeps MLA on einsums; it has no MLA kernel) over KV blocks
+    of kv_block keys. Decode (S == 1 with a cache): the weight-absorbed
+    form over the whole latent cache with the per-lane length mask,
+    static shapes for the CUDA graphs.
     Every einsum rounds to x's dtype before the next, as in the
     reference; the cache is updated in place."""
     m = cfg.mla
@@ -269,7 +289,8 @@ def apply_mla(p, x, cfg: ArchConfig, *, positions,
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rope)],
                   dim=-1)
     qf = torch.cat([q_nope, q_rope], dim=-1)
-    out = chunked_attention(qf, k, v, causal=True, softmax_scale=scale)
+    out = chunked_attention(qf, k, v, causal=True, softmax_scale=scale,
+                            kv_block=kv_block)
     if cache is not None:
         cache.append(c_kv, k_rope)
     return torch.einsum("bshv,hvd->bsd", out, p["o"])
@@ -313,7 +334,8 @@ ATTENTION_BLOCKS = ("dense", "moe", "hybrid", "encoder", "crossdec")
 def _norms(cfg: ArchConfig, d: int, layers: int | None) -> dict:
     base = norm_schema(d, cfg.norm)
     if layers:
-        return {k: ParamSpec((layers,) + v.shape, init=v.init, dtype=v.dtype)
+        return {k: ParamSpec((layers,) + v.shape, ("layers",) + v.axes,
+                             init=v.init, dtype=v.dtype)
                 for k, v in base.items()}
     return base
 
@@ -364,7 +386,8 @@ def apply_block(p, x, cfg: ArchConfig, kind: str, *, positions,
                 window: int | None = None, impl: str = "chunked",
                 ssd_impl: str = "jnp", cache: dict | None = None,
                 use_pallas: bool = False, true_lens=None,
-                causal: bool = True, cross_src=None):
+                causal: bool = True, cross_src=None, kv_rep: int = 1,
+                kv_block: int = 1024, constrain=None):
     """One layer, residual. dense: pre-norm GQA attention and pre-norm
     MLP, `cache` {"attn": KVCache | PagedKVCache} or None. moe: the same
     with the MoE FFN (models/moe.py) in place of the MLP. With cfg.mla,
@@ -389,7 +412,12 @@ def apply_block(p, x, cfg: ArchConfig, kind: str, *, positions,
     image tokens `cross_src` (the adapted image embeddings), then the
     pre-norm MLP (on the pod GEMM under use_pallas); `cache` {"cross":
     CrossKV} or None, its K/V as crossdec's. `true_lens`: the per-lane
-    lengths of a right-padded prefill. Caches update in place."""
+    lengths of a right-padded prefill. kv_rep and kv_block reach the
+    self-attention as in the reference: kv_rep the GQA blocks' (hybrid
+    ones included), kv_block the chunked prefill of the dense, moe,
+    encoder and crossdec blocks and MLA (a hybrid block keeps the
+    default, as the reference's does). `constrain` reaches the MoE
+    experts (models/moe.py). Caches update in place."""
     if kind == "ssm":
         h = apply_norm(p["ln_ssm"], x, cfg.norm)
         return x + apply_ssm(p["ssm"], h, cfg,
@@ -405,12 +433,15 @@ def apply_block(p, x, cfg: ArchConfig, kind: str, *, positions,
     h = apply_norm(p["ln_attn"], x, cfg.norm)
     if cfg.mla is not None and kind in ("dense", "moe"):
         a = apply_mla(p["attn"], h, cfg, positions=positions,
-                      cache=cache["attn"] if cache else None)
+                      cache=cache["attn"] if cache else None,
+                      kv_block=kv_block)
     else:
         a = apply_gqa(p["attn"], h, cfg, positions=positions, causal=causal,
                       window=window, impl=impl,
                       cache=cache["attn"] if cache else None,
-                      use_pallas=use_pallas, true_lens=true_lens)
+                      use_pallas=use_pallas, true_lens=true_lens,
+                      kv_rep=kv_rep,
+                      kv_block=1024 if kind == "hybrid" else kv_block)
     if kind == "hybrid":
         s = apply_ssm(p["ssm"], apply_norm(p["ln_ssm"], x, cfg.norm), cfg,
                       cache=cache["ssm"] if cache else None, impl=ssd_impl,
@@ -422,5 +453,6 @@ def apply_block(p, x, cfg: ArchConfig, kind: str, *, positions,
         x = x + _cross_attend(p, x, cfg, cache, cross_src)
     h = apply_norm(p["ln_mlp"], x, cfg.norm)
     if kind == "moe":
-        return x + apply_moe(p["moe"], h, cfg, use_pallas=use_pallas)
+        return x + apply_moe(p["moe"], h, cfg, use_pallas=use_pallas,
+                             constrain=constrain)
     return x + apply_mlp(p["mlp"], h, cfg.activation, use_pallas=use_pallas)

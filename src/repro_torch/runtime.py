@@ -400,6 +400,36 @@ TOLERANCES: dict[str, Tol] = {
                             "microbatches=4 against 1, the largest |diff| of "
                             "any gradient element: the reference's own "
                             "bound (tests/test_train_serve.py:47-59)"),
+    # parallelism, the port on 8 gloo ranks against the reference on 8
+    # forced host devices (tests/test_torch_parallel.py); the butterfly,
+    # butterfly-2, ring, reduce-scatter, all-gather and compressed_psum
+    # shards are bit-equal (each adds in the reference's order)
+    "psum_gloo_f32": Tol(1e-6, 1e-6,
+                         "the library all-reduce sums the 8 ranks in its "
+                         "own order (gloo's schedule against XLA's psum): "
+                         "f32 reassociation of 8 terms (seen: 4.8e-7 on "
+                         "sums of 8 N(0, 1) values)"),
+    "compressed_error_jit_f32": Tol(0.0, 2 ** -22,
+                                    "the error carry x - q * scale of "
+                                    "compressed_psum inside the reference's "
+                                    "jitted make_grad_sync: XLA fuses the "
+                                    "product and the difference into one "
+                                    "FMA, which skips the rounding of "
+                                    "q * scale, so the two carries differ "
+                                    "by an ulp of x where they differ (x "
+                                    "below 4 here: 2**-22; seen 7.3e-8); "
+                                    "eager shard_map rounds the product "
+                                    "and is bit-equal"),
+    "sharded_loss_f32": Tol(1e-6, 0.0,
+                            "the sharded step against the unsharded port: "
+                            "the mean's sum split over the data ranks "
+                            "(seen: 1e-8 relative)"),
+    "sharded_grads_f32": Tol(0.0, 1e-4,
+                             "atol is relative to max|ref| of each "
+                             "gradient leaf: the sharded step's f32 sums "
+                             "split over 2 data and 4 model ranks, "
+                             "reassociated through the backward of 2 "
+                             "layers (seen: 2.2e-5 at mlp/gate)"),
     # served tokens: where two engines pick different tokens, the
     # reference's top-1 minus top-2 logit at the first differing step must
     # be below atol * max|logit| (a near tie that rounding may flip)

@@ -33,7 +33,9 @@ import chip_smoke
 assert sys.modules["jax"] is None and sys.modules["repro"] is None
 assert "repro_torch.serve.graphs" in sys.modules
 for m in ("train.optimizer", "train.train_step", "train.checkpoint",
-          "train.data", "train.tree", "launch.train"):
+          "train.data", "train.tree", "launch.train", "train.grad_sync",
+          "launch.mesh", "parallel.collectives", "parallel.compression",
+          "parallel.sharding", "parallel.autoshard"):
     assert "repro_torch." + m in sys.modules, m
 print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
 """
@@ -46,8 +48,8 @@ def test_port_and_chip_smoke_import_without_jax():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
     # every module was imported: flash attention, paging, the SSD kernel
-    # package, the SSM model, the MoE model, the step runners and the
-    # training modules included
+    # package, the SSM model, the MoE model, the step runners, the
+    # training modules and the parallel ones included
     assert int(proc.stdout.split()[1]) >= 32
 
 
