@@ -398,7 +398,35 @@ Phases, one JSON line each; any failure exits non-zero:
                its error below 0.05 of each 256-block's maximum; the flat
                vector's bytes and each reducer's ms and GB/s. No gloo, no
                CPU path; the group is destroyed at the end.
- 26. kernels - each kernel's time at the served shapes beside its bound,
+ 26. dryrun - run after phase 25 has destroyed its NCCL group: the
+               port's dry-run (repro_torch/launch/dryrun.py) checked
+               against the card. (a) phase 23's yi-6b cut (full width, 8
+               of 32 layers) at its batch 8 x 1024, registered as a
+               ShapeConfig of its own for the phase, traced on fake cuda
+               tensors over a one-rank fake group and a (data 1, model 1)
+               mesh: the full step with AdamW, and the gradients with
+               remat on and off. The predicted peak (argument bytes plus
+               MemTracker's peak above them) must be within 15% of phase
+               23's measured peak of a step, and the predicted bytes above
+               the arguments within 15% of its gradients' peak above the
+               state, remat on and off; roofline.analysis.HBM_PER_CHIP
+               must equal the card's total_memory. The traced FLOPs of a
+               step are printed beside phase 23's analytic count (6 N T +
+               2 N_layers T) and must read 1.00-1.10 of that count with
+               the two terms no op performs taken out (the token table's
+               lookup priced as a product, 6 V d T, and each layer's last
+               product, which checkpoint's early stop does not recompute,
+               2 d d_ff L T); the measured step's roofline fraction
+               against 989 TFLOP/s. (b) `python -m
+               repro_torch.launch.dryrun --arch granite-8b --shape
+               decode_32k --multi-pod` in a child process (a fake group
+               of 512 ranks, fake cuda tensors; started after phase 23,
+               it runs beside phases 24, 25 and (a)): status
+               ok, 512 chips, compute_s > 0, collective_s >= 0; its
+               hbm_gb_per_chip and bottleneck. The dry-run reaches no
+               kernel (its Model runs no use_pallas), so the kernels line
+               is unchanged.
+ 27. kernels - each kernel's time at the served shapes beside its bound,
                its plain version and one PyTorch call (a yardstick only);
                the pod GEMM at granite-8b's, dbrx-132b's and hymba-1.5b's
                shapes (hymba's head on wmma at M = 4 and 8192), flash
@@ -438,6 +466,7 @@ import gc
 import io
 import json
 import math
+import os
 import re
 import shutil
 import socket
@@ -471,7 +500,11 @@ from repro_torch.kernels.ssd.ref import (  # noqa: E402
 from repro_torch.kernels.systolic_gemm import guard as guard_mod  # noqa: E402
 from repro_torch.kernels.systolic_gemm import ops as sg_ops  # noqa: E402
 from repro_torch.kernels.systolic_gemm import systolic_gemm as sg  # noqa: E402
+from repro_torch.configs import SHAPES  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh, mesh_shape_dict  # noqa: E402
+from repro_torch.roofline.analysis import HBM_PER_CHIP  # noqa: E402
 from repro_torch.parallel.compression import BLOCK, compressed_psum  # noqa: E402
 from repro_torch.parallel.sharding import (  # noqa: E402
     batch_sharding, make_constrain, placements, pspec_for_axes, sharded_step)
@@ -4772,7 +4805,144 @@ def phase_parallel() -> None:
 
 
 # --------------------------------------------------------------------------
-# 26. kernels line
+# 26. dryrun
+# --------------------------------------------------------------------------
+
+DRYRUN_SHAPE = "train_chip"          # phase 23's batch as a ShapeConfig
+DRYRUN_PEAK_TOL = 0.15               # predicted peak against measured
+DRYRUN_FLOP_RATIO = (1.00, 1.10)     # traced FLOPs over the analytic count
+DRYRUN_CELL = ("granite-8b", "decode_32k")
+DRYRUN_CHILD_TIMEOUT = 600
+
+
+def dryrun_child() -> subprocess.Popen:
+    """The reference's slow-test cell through the port's CLI, started in
+    a child process (it runs beside phases 24, 25 and (a); main kills it
+    if a phase fails)."""
+    arch, shape = DRYRUN_CELL
+    env = dict(os.environ, PYTHONPATH=str(_build.REPO_ROOT / "src"))
+    child = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--multi-pod"], cwd=_build.REPO_ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    child.started = time.perf_counter()
+    return child
+
+
+def dryrun_traces(cfg) -> dict:
+    """Phase (a): phase 23's step traced on a one-rank fake group."""
+    SHAPES[DRYRUN_SHAPE] = ShapeConfig(DRYRUN_SHAPE, TRAIN_SEQ, TRAIN_BATCH,
+                                       "train")
+    out = {}
+    try:
+        with dryrun.fake_world(1):
+            mesh = make_host_mesh(model=1)
+            check(mesh.device_type == "cuda",
+                  f"dryrun: mesh on {mesh.device_type}")
+            for label, kw in (
+                    ("step", {}),
+                    ("grads_remat_on", dict(include_optimizer=False)),
+                    ("grads_remat_off", dict(include_optimizer=False,
+                                             opts={"remat": False}))):
+                t = time.perf_counter()
+                r = dryrun._trace_cell(TRAIN_ARCH, DRYRUN_SHAPE, mesh,
+                                       memory=True, cfg_override=cfg, **kw)
+                c = r["counter"]
+                out[label] = {
+                    "gib_arguments": r["argument_size_in_bytes"] / 2 ** 30,
+                    "gib_above_arguments": r["temp_size_in_bytes"] / 2 ** 30,
+                    "gib_peak": (r["argument_size_in_bytes"] +
+                                 r["temp_size_in_bytes"]) / 2 ** 30,
+                    "flops": c.flops, "bytes": c.bytes,
+                    "collective_bytes": c.collective_total,
+                    "seconds": time.perf_counter() - t}
+    finally:
+        del SHAPES[DRYRUN_SHAPE]
+    return out
+
+
+def phase_dryrun(train: dict, child: subprocess.Popen) -> None:
+    """The dry-run against the card: see the module docstring's phase
+    26. `train` is phase 23's row, measured in this run; `child` the CLI
+    cell of dryrun_child, started after phase 23 so that its trace (a CPU
+    process of its own) overlaps phases 24 and 25."""
+    t0 = time.perf_counter()
+    gpu = gpu_name_and_power()
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(not dist.is_initialized(), "dryrun: a process group is open")
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    traces = dryrun_traces(cfg)
+    stdout, stderr = child.communicate(timeout=DRYRUN_CHILD_TIMEOUT)
+    check(not dist.is_initialized(), "dryrun: the fake group was left open")
+    arch, shape = DRYRUN_CELL
+    report = Path(dryrun.REPORT_DIR) / "multipod_2x16x16" / \
+        f"{arch}__{shape}.json"
+    cell = json.loads(report.read_text()) if report.exists() else {}
+    ok_line = [ln for ln in stdout.splitlines() if ln.startswith("[OK ]")]
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # the analytic count without the two terms no op performs: the token
+    # table's lookup priced as a product, and each layer's last product,
+    # which checkpoint's early stop does not recompute
+    lookup = 6 * cfg.vocab * cfg.d_model * tokens
+    last = 2 * cfg.d_model * cfg.d_ff * cfg.n_layers * tokens
+    performed = train["flop_per_step"] - lookup - last
+    step_flops = traces["step"]["flops"]
+    measured = {"step": train["gib_peak_step"],
+                "grads_remat_on": train["gib_above_state_remat_on"],
+                "grads_remat_off": train["gib_above_state_remat_off"]}
+    predicted = {"step": traces["step"]["gib_peak"],
+                 "grads_remat_on": traces["grads_remat_on"][
+                     "gib_above_arguments"],
+                 "grads_remat_off": traces["grads_remat_off"][
+                     "gib_above_arguments"]}
+    row = {"hbm_per_chip": HBM_PER_CHIP, "total_memory": total,
+           "arch": cfg.name, "n_layers": TRAIN_LAYERS,
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "traces": traces,
+           "gib_predicted": predicted, "gib_measured": measured,
+           "peak_rel_err": {k: predicted[k] / measured[k] - 1
+                            for k in measured},
+           "flops_traced": step_flops,
+           "flop_per_step_analytic": train["flop_per_step"],
+           "ratio_to_analytic": step_flops / train["flop_per_step"],
+           "flop_per_step_performed": performed,
+           "ratio_to_performed": step_flops / performed,
+           "step_ms_measured": train["step_ms"],
+           "roofline_fraction_measured":
+               step_flops / (train["step_ms"] / 1e3) / BF16_FLOP_PER_S,
+           "bound_ms_traced": step_flops / BF16_FLOP_PER_S * 1e3,
+           "cell": {k: cell.get(k) for k in (
+               "status", "error", "chips", "compute_s", "memory_s",
+               "collective_s", "hbm_gb_per_chip", "bottleneck",
+               "argument_size_in_bytes", "temp_size_in_bytes",
+               "flops_per_device", "compile_s")},
+           "cell_line": ok_line, "cell_rc": child.returncode,
+           "gpu": gpu}
+    row["seconds"] = time.perf_counter() - t0
+    row["child_seconds"] = time.perf_counter() - child.started
+    emit("dryrun", **row)
+    check(HBM_PER_CHIP == total,
+          f"dryrun: HBM_PER_CHIP {HBM_PER_CHIP} is not the card's "
+          f"total_memory {total}")
+    for k, err in row["peak_rel_err"].items():
+        check(abs(err) <= DRYRUN_PEAK_TOL,
+              f"dryrun: predicted {k} {predicted[k]:.3f} GiB against "
+              f"measured {measured[k]:.3f} ({err:+.1%})")
+    lo, hi = DRYRUN_FLOP_RATIO
+    check(lo <= row["ratio_to_performed"] <= hi,
+          f"dryrun: traced FLOPs {step_flops:.4g} are "
+          f"{row['ratio_to_performed']:.4f} of the performed analytic count "
+          f"{performed:.4g}")
+    check(child.returncode == 0 and ok_line,
+          f"dryrun: the CLI cell failed (rc {child.returncode}): "
+          f"{stdout[-2000:]} {stderr[-3000:]}")
+    check(cell.get("status") == "ok" and cell.get("chips") == 512 and
+          cell.get("compute_s", 0) > 0 and cell.get("collective_s", -1) >= 0,
+          f"dryrun: the CLI cell {row['cell']}")
+
+
+# --------------------------------------------------------------------------
+# 27. kernels line
 # --------------------------------------------------------------------------
 
 def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
@@ -5577,11 +5747,19 @@ def main() -> int:
 
         phase_train_flash_vjp()
         torch.cuda.synchronize()
-        phase_train()
+        train = phase_train()
         torch.cuda.synchronize()
-        phase_launch_train()
-        torch.cuda.synchronize()
-        phase_parallel()
+        child = dryrun_child()
+        try:
+            phase_launch_train()
+            torch.cuda.synchronize()
+            phase_parallel()
+            torch.cuda.synchronize()
+            phase_dryrun(train, child)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.communicate()
         torch.cuda.synchronize()
 
         kernels = {"kernels": [gemm_line(

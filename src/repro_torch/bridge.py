@@ -40,13 +40,14 @@ def params_from_jax(tree, device="cpu"):
     return _leaf(tree, device)
 
 
-def model_params_from_jax(model, tree, device="cpu"):
-    """params_from_jax for `model` (a repro_torch Model): every leaf of a
-    one-layer segment gains the leading layer axis the port's schema has,
-    but a vlm's segment of groups, which the reference stacks at every
-    depth. Equal to params_from_jax where every segment has more than one
+def model_params_from_jax(model, tree, device=None):
+    """params_from_jax for `model` (a repro_torch Model), on the model's
+    own device unless `device` names another: every leaf of a one-layer
+    segment gains the leading layer axis the port's schema has, but a
+    vlm's segment of groups, which the reference stacks at every depth.
+    Equal to params_from_jax where every segment has more than one
     layer."""
-    out = params_from_jax(tree, device)
+    out = params_from_jax(tree, model.device if device is None else device)
     for seg in model.segs:
         if seg.n == 1 and seg.kind != "vlm":
             out[seg.name] = _stack_one(out[seg.name])

@@ -24,14 +24,15 @@ PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
 def _device_type(device) -> str:
     """'cuda' or 'cpu' after the port's device rule (None is the card).
     A group on the card must be NCCL: gloo there would move every
-    collective through the host."""
+    collective through the host. A fake group (the dry-run's, which moves
+    nothing) may model either."""
     import torch.distributed as dist
     dev = resolve_device(device)
     if not dist.is_available() or not dist.is_initialized():
         raise RuntimeError(
             "no process group: call torch.distributed.init_process_group "
             "(backend, init_method, world_size, rank) on every rank first")
-    if dev.type == "cuda" and dist.get_backend() != "nccl":
+    if dev.type == "cuda" and dist.get_backend() not in ("nccl", "fake"):
         raise RuntimeError(
             f"a mesh on the card needs the nccl backend, not "
             f"{dist.get_backend()!r}")

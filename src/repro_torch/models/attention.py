@@ -32,7 +32,10 @@ def einsum(eq: str, *operands):
     dtypes are cast to the wider one first, as jnp.einsum computes them
     (an encoder fed f32 frames runs f32 activations against bf16
     weights, and its f32 cross K/V meet a bf16 decoder query). Operands
-    of one dtype pass unchanged."""
+    of one dtype pass unchanged. DTensor operands (the sharded step's) go
+    through local_einsum."""
+    if any(is_dtensor(o) for o in operands):
+        return local_einsum(eq, *operands)
     dt = operands[0].dtype
     for o in operands[1:]:
         dt = torch.promote_types(dt, o.dtype)
@@ -53,7 +56,7 @@ def replicate_dim(t, dim: int):
     """A DTensor `t` redistributed with axis `dim` replicated (an
     all-gather over the mesh dimensions that shard it); any other tensor
     as it is. The sharded step's explicit redistribution at an op whose
-    DTensor sharding rule fails on a sharded axis (heads_replicated,
+    DTensor sharding rule fails on a sharded axis (split_safe,
     layers.embed, layers.cross_entropy_loss)."""
     if not is_dtensor(t):
         return t
@@ -65,20 +68,187 @@ def replicate_dim(t, dim: int):
         Replicate() if pl.is_shard(dim) else pl for pl in t.placements])
 
 
-def heads_replicated(*ts):
+def lane_shards(dst, *ts):
+    """For an in-place cache write of the sharded step: the local shard of
+    the DTensor `dst`, then each of `ts` as the part of it that meets
+    those rows: a DTensor redistributed to dst's placements on every
+    dimension whose size it shares with dst (a replicated tensor is then
+    only sliced), replicated on the rest, and made local; anything else as
+    it is. DTensor has no sharding rule for an in-place index_put_ into a
+    sharded cache, so the writes index the local shards, as GSPMD's
+    partitioned dynamic_update_slice writes each device's own rows. A cache
+    sharded on a dimension that its update does not share (its sequence)
+    is refused."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = dst.device_mesh
+    out = [dst.to_local()]
+    for t in ts:
+        if not isinstance(t, DTensor):
+            out.append(t)
+            continue
+        want = []
+        for pl in dst.placements:
+            if pl.is_shard() and pl.dim < t.ndim and \
+                    t.shape[pl.dim] == dst.shape[pl.dim]:
+                want.append(Shard(pl.dim))
+            elif pl.is_shard() and pl.dim < t.ndim and pl.dim != 0:
+                raise ValueError(
+                    f"a cache of {tuple(dst.shape)} sharded on dimension "
+                    f"{pl.dim}, which its update {tuple(t.shape)} does not "
+                    f"share: only lanes and heads may be sharded")
+            else:
+                want.append(Replicate())
+        out.append(t.redistribute(mesh, want).to_local())
+    return out
+
+
+def _expand_ellipsis(eq: str, operands) -> tuple[list[str], str]:
+    """The subscripts of an einsum equation with "..." spelled out in
+    letters the equation does not use, and its explicit output."""
+    ins, out = eq.replace(" ", "").split("->")
+    subs = ins.split(",")
+    free = iter(c for c in "ABCDEFGHIJKLMNOPQRSTUVWXYZ" if c not in eq)
+    n_ell = max((o.ndim - len(sub) + 3 for sub, o in zip(subs, operands)
+                 if "..." in sub), default=0)
+    ell = "".join(next(free) for _ in range(n_ell))
+    subs = [sub.replace("...", ell[n_ell - (o.ndim - len(sub) + 3):])
+            for sub, o in zip(subs, operands)]
+    return subs, out.replace("...", ell)
+
+
+def local_einsum(eq: str, *operands):
+    """einsum of DTensors computed on their local shards, the sharding
+    decided here, as GSPMD partitions a dot, rather than by DTensor's
+    rule for each op the einsum decomposes into (which may shard an output
+    over a mesh axis that no operand shards and then fail to split it
+    into heads, "Cannot unflatten unevenly sharded tensor", and on a 3-D
+    mesh spends minutes planning redistributions). On each mesh axis:
+
+    - the first operand that shards an output index keeps it: every
+      operand holding that index is sliced to match, every other sharding
+      on the axis is gathered, and the output is sharded there;
+    - else a contracted index that an operand shards is kept the same way
+      and the output is a pending sum (Partial) over the axis, as a
+      row-parallel product leaves it;
+    - else everything is gathered and the output replicated.
+
+    An operand's gradient comes back sharded as it was taken where it
+    holds the kept index, as a pending sum where it does not (it saw only
+    its slice), else replicated. Pending sums and strided shards of the
+    operands are reduced or gathered first. Plain tensors meet the
+    DTensors as replicated. Mixed float dtypes promote as in `einsum`."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    subs, out = _expand_ellipsis(eq, operands)
+    mesh = next(o.device_mesh for o in operands if is_dtensor(o))
+    dt = operands[0].dtype
+    for o in operands[1:]:
+        dt = torch.promote_types(dt, o.dtype)
+    ops = []
+    for o in operands:
+        if not is_dtensor(o):
+            o = DTensor.from_local(o, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        plain = [pl if type(pl) in (Shard, Replicate) else Replicate()
+                 for pl in o.placements]
+        if plain != list(o.placements):
+            o = o.redistribute(mesh, plain)
+        ops.append(o)
+
+    def sharded(m):
+        return [sub[o.placements[m].dim] if o.placements[m].is_shard()
+                else None for o, sub in zip(ops, subs)]
+    kept = []                       # per mesh axis: the kept index or None
+    for m in range(mesh.ndim):
+        letters = [c for c in sharded(m) if c is not None]
+        keep = next((c for c in letters if c in out), None)
+        if keep is None and letters:
+            keep = letters[0]
+        kept.append(keep)
+    sizes: dict[str, int] = {}
+    locals_ = []
+    for o, sub in zip(ops, subs):
+        sizes.update(zip(sub, o.shape))
+        want, grad = [], []
+        for m, k in enumerate(kept):
+            if k is not None and k in sub:
+                want.append(Shard(sub.index(k)))
+                grad.append(Shard(sub.index(k)))
+            else:
+                want.append(Replicate())
+                grad.append(Partial() if k is not None else Replicate())
+        if list(o.placements) != want:
+            o = o.redistribute(mesh, want)
+        locals_.append(o.to_local(grad_placements=grad).to(dt))
+    y = torch.einsum(",".join(subs) + "->" + out, *locals_)
+    shape = torch.Size(sizes[c] for c in out)
+    placements = [Shard(out.index(k)) if k is not None and k in out
+                  else (Partial() if k is not None else Replicate())
+                  for k in kept]
+    return DTensor.from_local(y, mesh, placements, run_check=False,
+                              shape=shape, stride=contiguous_stride(shape))
+
+
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of `shape` (a DTensor's global
+    strides, given to from_local without making a tensor)."""
+    stride, n = [], 1
+    for size in reversed(shape):
+        stride.append(n)
+        n *= size
+    return tuple(reversed(stride))
+
+
+def grad_as_forward(t):
+    """t as it is, its gradient brought back to t's own placements where t
+    is a DTensor. DTensor's backward may hand a reshape's output a
+    gradient sharded where the output was not (a product's rule shards it
+    over a free mesh axis), and the reshape's backward then cannot split
+    that axis back into heads that do not divide it."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t.to_local(grad_placements=t.placements),
+                              t.device_mesh, t.placements, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def split_safe(t, dim: int, parts: int):
+    """t with axis `dim` replicated where it is a DTensor sharded into a
+    number of shards that does not divide `parts`, the heads the axis is
+    split into or merged from by a reshape: DTensor reshapes a sharded
+    axis only when its leading factor divides over the shards ("Cannot
+    unflatten unevenly sharded tensor"; hymba's 5 K/V heads or 50 SSM
+    heads on a 16-way model axis). Anything else as it is."""
+    if not is_dtensor(t):
+        return t
+    dim %= t.ndim
+    ways = 1
+    for pl, n in zip(t.placements, t.device_mesh.shape):
+        if pl.is_shard(dim):
+            ways *= n
+    return replicate_dim(t, dim) if parts % ways else t
+
+
+def gqa_heads(*ts, n_kv: int):
     """The attention's [B, S, H, D] operands with the head axis replicated
-    where they are DTensors (the sharded step's; the batch axis stays
-    sharded). DTensor has no sharding rule for two of the attention's ops
-    when heads are sharded: the GQA view [B, S, Hq, D] -> [B, S, Hkv, G,
-    D] of a head axis sharded over more ranks than Hkv divides into
-    (aten.view: "Cannot unflatten unevenly sharded tensor"; reduced
-    yi-6b's 4 query heads on a 4-way model axis), and, in torch 2.11, the
-    batched products of _gqa_scores and _gqa_out, whose batch and head
-    axes einsum flattens into one (aten._unsafe_view: "Attempted to
-    flatten multiple dimensions, with dimension 1 being sharded"). So the
-    heads are gathered here, explicitly, as GSPMD would gather them;
-    plain tensors pass unchanged."""
-    return tuple(replicate_dim(t, 2) for t in ts)
+    where its sharding does not divide the n_kv K/V heads, which the GQA
+    view [B, S, Hq, D] -> [B, S, Hkv, G, D] splits out (split_safe).
+    Heads that divide stay sharded, and the attention runs head-parallel,
+    as GSPMD runs it."""
+    return tuple(split_safe(t, 2, n_kv) for t in ts)
+
+
+def seq_gathered(h):
+    """A block's normed input [B, S, D] with its sequence axis replicated
+    where it is a DTensor: under sequence parallelism (make_constrain's
+    seq_shard) the residual is sharded over S, and the block's
+    projections take it gathered, as Megatron-style sequence parallelism
+    all-gathers before a block (the block's output is scattered back at
+    the next constrain). DTensor's own rule fails there: an einsum
+    flattens B and S, both sharded, and cannot unflatten its output's
+    heads when they are fewer than the model axis. Plain tensors pass
+    unchanged."""
+    return replicate_dim(h, 1)
 
 
 def _gqa_scores(q, k):
@@ -102,6 +272,16 @@ def _mask_ok(q_pos, k_pos, causal: bool, window: int | None):
     return ok
 
 
+def _state_like(qg, fill: float, width: int | None = None):
+    """f32 online-softmax state [B, Hkv, G, Sq] (with width, [B, Hkv, G,
+    Sq, width]) filled with `fill`, made like qg [B, Sq, Hkv, G, D]: a
+    DTensor query's state keeps its batch and head sharding, where a fresh
+    tensor of the global shape would be whole on every rank."""
+    st = torch.full_like(qg.permute(0, 2, 3, 1, 4)[..., 0], fill,
+                         dtype=torch.float32)
+    return st if width is None else st[..., None].expand(*st.shape, width)
+
+
 def _forward_blocks(q, k, v, *, causal, window, q_offset, kv_block, scale,
                     kv_valid_len):
     """The online-softmax loop over KV blocks: (acc [B,Hkv,G,Sq,Dv], m, l
@@ -111,15 +291,13 @@ def _forward_blocks(q, k, v, *, causal, window, q_offset, kv_block, scale,
     Skv, Hkv = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
     G = Hq // Hkv
-    q, k, v = heads_replicated(q, k, v)
+    q, k, v = gqa_heads(q, k, v, n_kv=Hkv)
     qg = _scale_q(q, scale).reshape(B, Sq, Hkv, G, D)
     q_pos = q_offset + torch.arange(Sq, device=q.device)
 
-    acc = torch.zeros((B, Hkv, G, Sq, Dv), dtype=torch.float32,
-                      device=q.device)
-    m = torch.full((B, Hkv, G, Sq), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=q.device)
+    acc = _state_like(qg, 0.0, Dv)
+    m = _state_like(qg, NEG_INF)
+    l = _state_like(qg, 0.0)
     for start in range(0, Skv, kv_block):
         kblk = k[:, start:start + kv_block]
         vblk = v[:, start:start + kv_block]
@@ -204,14 +382,13 @@ def _flash_bwd_pass(q, k, v, out, L, dout, causal, kv_block,
     Dv = v.shape[-1]
     G = Hq // Hkv
     scale = _scale_of(q, softmax_scale)
-    q, k, v, out, dout = heads_replicated(q, k, v, out, dout)
+    q, k, v, out, dout = gqa_heads(q, k, v, out, dout, n_kv=Hkv)
     qg = q.reshape(B, Sq, Hkv, G, D)
     dog = dout.reshape(B, Sq, Hkv, G, Dv)
     delta = einsum("bqhgd,bqhgd->bhgq", dog.float(),
                    out.reshape(B, Sq, Hkv, G, Dv).float())
     q_pos = torch.arange(Sq, device=q.device)
-    dq = torch.zeros((B, Sq, Hkv, G, D), dtype=torch.float32,
-                     device=q.device)
+    dq = torch.zeros_like(qg, dtype=torch.float32)
     dks, dvs = [], []
     for start in range(0, Skv, kv_block):
         kblk = k[:, start:start + kv_block]
@@ -257,7 +434,7 @@ def naive_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
-    q, k, v = heads_replicated(q, k, v)
+    q, k, v = gqa_heads(q, k, v, n_kv=Hkv)
     qg = _scale_q(q, scale).reshape(B, Sq, Hkv, G, D)
     s = _gqa_scores(qg, k).float()
     q_pos = q_offset + torch.arange(Sq, device=q.device)
@@ -322,7 +499,14 @@ class KVCache:
         does, a start past the end is clamped to S_max - s: a freed lane
         that keeps decoding inertly past max_len overwrites its last slot
         instead of writing out of bounds."""
-        B, s = k_new.shape[0], k_new.shape[1]
+        s = k_new.shape[1]
+        if is_dtensor(self.k):
+            k, v, k_new, v_new, length = lane_shards(
+                self.k, self.v, k_new, v_new, self.length)
+            KVCache(k, v, length.clone()).append(k_new, v_new)
+            self.length += s
+            return
+        B = k_new.shape[0]
         start = torch.clamp(self.length, 0, self.k.shape[1] - s)     # [B]
         rows = torch.arange(B, device=k_new.device)[:, None]
         cols = start[:, None] + torch.arange(s, device=k_new.device)[None, :]
@@ -366,6 +550,12 @@ class RingKVCache:
     def append_token(self, k_new, v_new) -> None:
         """Decode-step write of [B, 1, H, D] into each lane's slot
         length % W, in place; `length` advances by 1."""
+        if is_dtensor(self.k):
+            k, v, k_new, v_new, length = lane_shards(
+                self.k, self.v, k_new, v_new, self.length)
+            RingKVCache(k, v, length.clone()).append_token(k_new, v_new)
+            self.length += 1
+            return
         rows = torch.arange(k_new.shape[0], device=k_new.device)
         slot = self.length % self.window
         self.k[rows, slot] = k_new[:, 0].to(self.k.dtype)
@@ -390,6 +580,15 @@ class RingKVCache:
         becomes true_lens. Without (exact length), the last W tokens are
         kept, rolled so that token p lands in slot p % W, and `length`
         becomes S. Nothing is read back to the host."""
+        if is_dtensor(self.k):
+            kl, vl, k, v, tl = lane_shards(self.k, self.v, k, v, true_lens)
+            RingKVCache(kl, vl, kl.new_zeros(kl.shape[0], dtype=torch.int64)
+                        ).fill_prefill(k, v, tl)
+            if true_lens is None:
+                self.length.fill_(k.shape[1])
+            else:
+                self.length.copy_(true_lens)
+            return
         W = self.window
         B, S = k.shape[0], k.shape[1]
         if true_lens is not None:
@@ -542,6 +741,7 @@ def decode_attention(q, cache_k, cache_v, k_pos, q_pos, *,
     Hkv = cache_k.shape[2]
     G = Hq // Hkv
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
+    q, cache_k, cache_v = gqa_heads(q, cache_k, cache_v, n_kv=Hkv)
     qg = _scale_q(q, scale).reshape(B, 1, Hkv, G, D)
     s = _gqa_scores(qg, cache_k).float()                    # [B,Hkv,G,1,S]
     k_pos = torch.as_tensor(k_pos, device=q.device)

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.systolic_gemm.guard import active_guard
-from .attention import is_dtensor, einsum, replicate_dim
+from .attention import contiguous_stride, einsum, is_dtensor, replicate_dim
 from ..kernels.systolic_gemm.ops import fused_lane_gemm, fused_lane_gemm_t
 
 
@@ -189,15 +189,29 @@ def embed_schema(vocab: int, d_model: int, tie: bool) -> dict:
 
 def embed(p: dict, tokens):
     """The token table's rows. A DTensor batch (the sharded step's) looks
-    its rows up with the token ids replicated, and the rows come back in
-    the ids' placements: DTensor's rule for the lookup's backward
-    (aten.index_put with accumulate, its indices sharded over data) fails
-    in torch 2.11 ("Shard dim -1 ... must be normalized"), so the ids are
-    gathered explicitly here."""
+    its rows up on each rank from its own ids and the table gathered whole
+    (as FSDP gathers a weight), and the rows come back in the ids'
+    placements; the table's gradient is then each rank's rows summed
+    across the ranks that hold other ids. DTensor's rule for the lookup's
+    backward (aten.index_put with accumulate, its indices sharded over
+    data) fails in torch 2.11 ("Shard dim -1 ... must be normalized"), so
+    the lookup runs on the local shards."""
     if not is_dtensor(tokens):
         return p["tok"][tokens]
-    rows = p["tok"][replicate_dim(tokens, 0)]
-    return rows.redistribute(tokens.device_mesh, tokens.placements)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = tokens.device_mesh
+    table = p["tok"]
+    if not is_dtensor(table):
+        table = DTensor.from_local(table, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+    table = table.redistribute(mesh, [Replicate()] * mesh.ndim)
+    grad = [Partial() if pl.is_shard() else Replicate()
+            for pl in tokens.placements]
+    rows = table.to_local(grad_placements=grad)[tokens.to_local()]
+    shape = tuple(tokens.shape) + (table.shape[-1],)
+    return DTensor.from_local(rows, mesh, tokens.placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
 
 
 def unembed(p: dict, x, use_pallas: bool = False):
@@ -213,24 +227,52 @@ def unembed(p: dict, x, use_pallas: bool = False):
                                    guard=g)
         return fused_lane_gemm_t(x, p["tok"], out_dtype=x.dtype, guard=g)
     if "unembed" in p:
-        return torch.einsum("...d,dv->...v", x, p["unembed"])
-    return torch.einsum("...d,vd->...v", x, p["tok"])
+        return einsum("...d,dv->...v", x, p["unembed"])
+    return einsum("...d,vd->...v", x, p["tok"])
 
 
 def cross_entropy_loss(logits, labels, ignore_id: int = -1):
     """Mean next-token cross entropy over the labels that are not
     `ignore_id`: logits in f32, logsumexp minus the label's logit, summed
     and divided by max(count, 1), as the reference's. An ignored label
-    reads logit 0 (its term is multiplied by 0). A DTensor's vocab axis
-    is replicated before the torch.gather: DTensor's rule for a gather
-    along a sharded axis leaves a masked partial sum whose mask no longer
-    fits once the gathered axis is dropped (aten.sub then fails), so the
-    sharded step redistributes explicitly here."""
-    logits = replicate_dim(logits.float(), -1)
+    reads logit 0 (its term is multiplied by 0). DTensor logits (the
+    sharded step's) take _local_cross_entropy."""
+    if is_dtensor(logits):
+        return _local_cross_entropy(logits, labels, ignore_id)
+    total, count = _cross_entropy_sums(logits.float(), labels, ignore_id)
+    return total / torch.clamp_min(count, 1.0)
+
+
+def _cross_entropy_sums(logits, labels, ignore_id: int):
+    """(sum of the kept tokens' losses, their count) of f32 logits."""
     lse = torch.logsumexp(logits, dim=-1)
     keep = labels != ignore_id
     idx = torch.where(keep, labels, 0).long()
     ll = torch.gather(logits, -1, idx[..., None])[..., 0]
     mask = keep.float()
-    loss = (lse - ll) * mask
-    return loss.sum() / torch.clamp_min(mask.sum(), 1.0)
+    return ((lse - ll) * mask).sum(), mask.sum()
+
+
+def _local_cross_entropy(logits, labels, ignore_id: int):
+    """cross_entropy_loss of the sharded step: the vocabulary gathered,
+    then each rank's rows on its local shard, the sums pending over the
+    mesh axes that shard the batch and reduced before the division.
+    DTensor's own rules fail here: a gather along a sharded vocabulary
+    leaves a masked partial sum whose mask no longer fits (aten.sub), and
+    the gather's backward makes its zeros at the logits' global shape on
+    every rank."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    logits = replicate_dim(logits.float(), -1)
+    mesh = logits.device_mesh
+    if not is_dtensor(labels):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    if list(labels.placements) != list(logits.placements):
+        labels = labels.redistribute(mesh, logits.placements)
+    total, count = _cross_entropy_sums(logits.to_local(), labels.to_local(),
+                                       ignore_id)
+    pend = [Partial() if pl.is_shard() else Replicate()
+            for pl in logits.placements]
+    total, count = (DTensor.from_local(t, mesh, pend, run_check=False)
+                    for t in (total, count))
+    return total / torch.clamp_min(count, 1.0)

@@ -116,6 +116,12 @@ def _stack_schema(sch, n: int):
                                axes=("layers",) + sch.axes)
 
 
+def _map_leaves(fn, schema):
+    if isinstance(schema, dict):
+        return {k: _map_leaves(fn, v) for k, v in schema.items()}
+    return fn(schema)
+
+
 def _index(tree, i: int):
     """Layer i of a stacked parameter or cache tree (views, no copies)."""
     if isinstance(tree, dict):
@@ -201,6 +207,15 @@ class Model:
         (which must live on that device). Same schema and init styles as
         the reference; other numbers (see bridge.py for parity)."""
         return init_from_schema(self.schema(), generator, self.device)
+
+    def shapes(self, device=None) -> dict:
+        """The schema as uninitialised tensors of each leaf's shape and
+        dtype on `device` (the model's own by default): the counterpart of
+        the reference's ShapeDtypeStruct tree, to be called under a
+        FakeTensorMode or with device="meta", where nothing is allocated."""
+        dev = self.device if device is None else torch.device(device)
+        return _map_leaves(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                                 device=dev), self.schema())
 
     def param_count(self) -> int:
         return param_count(self.schema())

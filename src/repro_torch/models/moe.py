@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig, MoEConfig
 from ..kernels.systolic_gemm.ops import grouped_gemm
 from ..runtime import no_tf32
+from .attention import einsum
 from .layers import ParamSpec, activation_fn, pod_dense
 
 
@@ -89,7 +90,7 @@ def _route(p, xt, m: MoEConfig, use_sort: bool | None = None):
     E, K = m.num_experts, m.top_k
     rdt = torch.float32 if m.router_dtype == "float32" else torch.bfloat16
     with no_tf32():
-        logits = torch.einsum("gnd,de->gne", xt.to(rdt), p["router"].to(rdt))
+        logits = einsum("gnd,de->gne", xt.to(rdt), p["router"].to(rdt))
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = _top_k(probs, K)                  # [G, n, K]
     gate_vals = gate_vals / torch.clamp_min(
@@ -127,9 +128,9 @@ def _experts(p, xe, act, constrain=None):
         xe = constrain(xe, "moe_dispatched")
     dt = torch.promote_types(xe.dtype, p["up"].dtype)
     xe = xe.to(dt)
-    h = torch.einsum("gecd,edf->gecf", xe, p["up"].to(dt))
-    g = act(torch.einsum("gecd,edf->gecf", xe, p["gate"].to(dt)))
-    ye = torch.einsum("gecf,efd->gecd", h * g, p["down"].to(dt))
+    h = einsum("gecd,edf->gecf", xe, p["up"].to(dt))
+    g = act(einsum("gecd,edf->gecf", xe, p["gate"].to(dt)))
+    ye = einsum("gecf,efd->gecd", h * g, p["down"].to(dt))
     if constrain is not None:
         ye = constrain(ye, "moe_dispatched")
     return ye
@@ -183,12 +184,12 @@ def apply_moe(p: dict, x, cfg: ArchConfig, use_pallas: bool = False,
         expert_oh = F.one_hot(expert_idx, m.num_experts).to(x.dtype)
         slot_oh = F.one_hot(torch.where(keep, pos, cap),
                             cap + 1).to(x.dtype)[..., :cap]   # [G,n,K,C]
-        dispatch = torch.einsum("gnke,gnkc->gnec", expert_oh, slot_oh)
-        combine = torch.einsum("gnke,gnkc,gnk->gnec", expert_oh, slot_oh,
-                               gate_vals.to(x.dtype))
-        xe = torch.einsum("gnec,gnd->gecd", dispatch, xt)     # [G,E,C,D]
+        dispatch = einsum("gnke,gnkc->gnec", expert_oh, slot_oh)
+        combine = einsum("gnke,gnkc,gnk->gnec", expert_oh, slot_oh,
+                         gate_vals.to(x.dtype))
+        xe = einsum("gnec,gnd->gecd", dispatch, xt)           # [G,E,C,D]
         ye = _experts(p, xe, act, constrain)
-        out = torch.einsum("gnec,gecd->gnd", combine.to(ye.dtype), ye)
+        out = einsum("gnec,gecd->gnd", combine.to(ye.dtype), ye)
 
     if m.num_shared_experts:
         if use_pallas:
@@ -196,10 +197,9 @@ def apply_moe(p: dict, x, cfg: ArchConfig, use_pallas: bool = False,
             g = pod_dense(xt, p["shared_gate"], activation=cfg.activation)
             out = out + pod_dense(h * g, p["shared_down"])
         else:
-            h = torch.einsum("gnd,df->gnf", xt, p["shared_up"])
-            g = act(torch.einsum("gnd,df->gnf", xt, p["shared_gate"]))
-            out = out + torch.einsum("gnf,fd->gnd", h * g,
-                                     p["shared_down"])
+            h = einsum("gnd,df->gnf", xt, p["shared_up"])
+            g = act(einsum("gnd,df->gnf", xt, p["shared_gate"]))
+            out = out + einsum("gnf,fd->gnd", h * g, p["shared_down"])
     return out.reshape(B, S, D).to(x.dtype)
 
 

@@ -21,6 +21,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..kernels.ssd.ops import ssd as ssd_kernel
 from ..kernels.ssd.ref import ssd_ref as ssd_reference
+from .attention import einsum, grad_as_forward, split_safe
 from .layers import ParamSpec
 
 __all__ = ["SSMCache", "apply_ssm", "ssd_chunked", "ssd_decode_step",
@@ -117,7 +118,7 @@ def ssd_decode_step(x, dt, A, B, C, D, h):
     else:
         upd = x[..., :, None] * (dtx * Bh)[..., None, :]
     h_new = h * dA + upd
-    y = torch.einsum("bHn,bHpn->bHp", Ch, h_new) + x * D[None, :, None]
+    y = einsum("bHn,bHpn->bHp", Ch, h_new) + x * D[None, :, None]
     return y, h_new
 
 
@@ -172,7 +173,7 @@ def apply_ssm(p: dict, u, cfg: ArchConfig, cache: SSMCache | None = None,
     P = s.head_dim
     G, N = s.n_groups, s.d_state
 
-    zxbcdt = torch.einsum("bsd,de->bse", u, p["in_proj"])
+    zxbcdt = einsum("bsd,de->bse", u, p["in_proj"])
     z, x, B, C, dt = _split_proj(zxbcdt, cfg)
     xBC = torch.cat([x, B, C], dim=-1)
     conv_cache = cache.conv if cache is not None else None
@@ -191,9 +192,9 @@ def apply_ssm(p: dict, u, cfg: ArchConfig, cache: SSMCache | None = None,
         dt = dt * valid[..., None]              # exact 0 at padded steps
     A = -torch.exp(p["A_log"].float())
     bsz, S = u.shape[0], u.shape[1]
-    xh = x.reshape(bsz, S, H, P)
-    Bh = B.reshape(bsz, S, G, N)
-    Ch = C.reshape(bsz, S, G, N)
+    xh = grad_as_forward(split_safe(x, -1, H).reshape(bsz, S, H, P))
+    Bh = split_safe(B, -1, G).reshape(bsz, S, G, N)
+    Ch = split_safe(C, -1, G).reshape(bsz, S, G, N)
 
     if cache is not None and S == 1:
         y, h_new = ssd_decode_step(xh[:, 0], dt[:, 0], A, Bh[:, 0],
@@ -202,12 +203,12 @@ def apply_ssm(p: dict, u, cfg: ArchConfig, cache: SSMCache | None = None,
     else:
         y, h_new = ssd_chunked(xh, dt, A, Bh, Ch, p["D"], s.chunk_size, impl)
 
-    y = y.reshape(bsz, S, di)
+    y = grad_as_forward(split_safe(y, 2, H).reshape(bsz, S, di))
     # gated RMSNorm (Mamba-2)
     yf = (y * _silu(z)).float()
     var = torch.mean(yf * yf, dim=-1, keepdim=True)
     y = (yf * torch.rsqrt(var + 1e-6)).to(u.dtype) * p["norm"]
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    out = einsum("bse,ed->bsd", y, p["out_proj"])
     if cache is not None:
         cache.conv.copy_(new_conv)
         cache.state.copy_(h_new)

@@ -34,7 +34,7 @@ import torch
 from ..configs.base import ArchConfig
 from .attention import (NEG_INF, KVCache, PagedKVCache, RingKVCache,
                         attention, chunked_attention, decode_attention,
-                        einsum)
+                        einsum, is_dtensor, lane_shards, seq_gathered)
 from .layers import (ParamSpec, apply_mlp, apply_norm, apply_rope,
                      mlp_schema, norm_schema, pod_dense, rmsnorm)
 from .moe import apply_moe, moe_schema
@@ -229,7 +229,14 @@ class MLACache:
         past the end is clamped to S_max - s, as the reference's
         dynamic_update_slice does (KVCache.append). Nothing is read back
         to the host."""
-        B, s = c_new.shape[0], c_new.shape[1]
+        s = c_new.shape[1]
+        if is_dtensor(self.c_kv):
+            c, r, c_new, r_new, length = lane_shards(
+                self.c_kv, self.k_rope, c_new, r_new, self.length)
+            MLACache(c, r, length.clone()).append(c_new, r_new)
+            self.length += s
+            return
+        B = c_new.shape[0]
         start = torch.clamp(self.length, 0, self.c_kv.shape[1] - s)  # [B]
         rows = torch.arange(B, device=c_new.device)[:, None]
         cols = start[:, None] + torch.arange(s, device=c_new.device)[None, :]
@@ -256,12 +263,12 @@ def apply_mla(p, x, cfg: ArchConfig, *, positions,
     nope, rope, R = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
     scale = 1.0 / math.sqrt(nope + rope)
 
-    q_lat = rmsnorm(torch.einsum("bsd,dr->bsr", x, p["q_a"]), p["q_a_norm"])
-    q = torch.einsum("bsr,rhk->bshk", q_lat, p["q_b"])
+    q_lat = rmsnorm(einsum("bsd,dr->bsr", x, p["q_a"]), p["q_a_norm"])
+    q = einsum("bsr,rhk->bshk", q_lat, p["q_b"])
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
-    kv_lat = torch.einsum("bsd,dr->bsr", x, p["kv_a"])
+    kv_lat = einsum("bsd,dr->bsr", x, p["kv_a"])
     c_kv = rmsnorm(kv_lat[..., :R], p["kv_a_norm"])
     k_rope = apply_rope(kv_lat[:, :, None, R:], positions,      # [B,S,1,r]
                         cfg.rope_theta)[:, :, 0, :]
@@ -272,20 +279,20 @@ def apply_mla(p, x, cfg: ArchConfig, *, positions,
     if cache is not None and S == 1:             # absorbed decode
         cache.append(c_kv, k_rope)
         ckv, krope = cache.c_kv, cache.k_rope
-        q_c = torch.einsum("bshk,rhk->bshr", q_nope, w_uk)       # [B,1,H,R]
-        s_nope = torch.einsum("bshr,btr->bhst", q_c, ckv)
-        s_rope = torch.einsum("bshk,btk->bhst", q_rope, krope)
+        q_c = einsum("bshk,rhk->bshr", q_nope, w_uk)             # [B,1,H,R]
+        s_nope = einsum("bshr,btr->bhst", q_c, ckv)
+        s_rope = einsum("bshk,btk->bhst", q_rope, krope)
         s = (s_nope + s_rope).float() * scale                    # [B,H,1,T]
         t_pos = torch.arange(ckv.shape[1], device=x.device)
         s = s + torch.where(t_pos[None, :] < cache.length[:, None], 0.0,
                             NEG_INF)[:, None, None, :]
         pr = torch.softmax(s, dim=-1).to(x.dtype)
-        ctx_c = torch.einsum("bhst,btr->bshr", pr, ckv)          # [B,1,H,R]
-        ctx = torch.einsum("bshr,rhv->bshv", ctx_c, w_uv)
-        return torch.einsum("bshv,hvd->bsd", ctx, p["o"])
+        ctx_c = einsum("bhst,btr->bshr", pr, ckv)                # [B,1,H,R]
+        ctx = einsum("bshr,rhv->bshv", ctx_c, w_uv)
+        return einsum("bshv,hvd->bsd", ctx, p["o"])
 
-    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, w_uk)
-    v = torch.einsum("bsr,rhv->bshv", c_kv, w_uv)
+    k_nope = einsum("bsr,rhk->bshk", c_kv, w_uk)
+    v = einsum("bsr,rhv->bshv", c_kv, w_uv)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rope)],
                   dim=-1)
     qf = torch.cat([q_nope, q_rope], dim=-1)
@@ -293,7 +300,7 @@ def apply_mla(p, x, cfg: ArchConfig, *, positions,
                             kv_block=kv_block)
     if cache is not None:
         cache.append(c_kv, k_rope)
-    return torch.einsum("bshv,hvd->bsd", out, p["o"])
+    return einsum("bshv,hvd->bsd", out, p["o"])
 
 
 def block_schema(cfg: ArchConfig, kind: str, layers: int | None) -> dict:
@@ -373,7 +380,7 @@ def _cross_attend(p, x, cfg: ArchConfig, cache: dict | None, cross_src):
     without its residual: q and o projections on einsums and chunked
     attention over every source row (no mask), as in the reference, also
     under use_pallas and attention_impl="pallas"."""
-    h = apply_norm(p["ln_cross"], x, cfg.norm)
+    h = seq_gathered(apply_norm(p["ln_cross"], x, cfg.norm))
     k, v = _cross_kv(p["cross"], h, cfg, cache, cross_src)
     q = einsum("bsd,dhk->bshk", h, p["cross"]["q"])
     out = chunked_attention(q, k, v, causal=False)
@@ -419,18 +426,18 @@ def apply_block(p, x, cfg: ArchConfig, kind: str, *, positions,
     default, as the reference's does). `constrain` reaches the MoE
     experts (models/moe.py). Caches update in place."""
     if kind == "ssm":
-        h = apply_norm(p["ln_ssm"], x, cfg.norm)
+        h = seq_gathered(apply_norm(p["ln_ssm"], x, cfg.norm))
         return x + apply_ssm(p["ssm"], h, cfg,
                              cache=cache["ssm"] if cache else None,
                              impl=ssd_impl, true_lens=true_lens)
     if kind == "cross_layer":
         x = x + _cross_attend(p, x, cfg, cache, cross_src)
-        h = apply_norm(p["ln_mlp"], x, cfg.norm)
+        h = seq_gathered(apply_norm(p["ln_mlp"], x, cfg.norm))
         return x + apply_mlp(p["mlp"], h, cfg.activation,
                              use_pallas=use_pallas)
     if kind not in ATTENTION_BLOCKS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    h = apply_norm(p["ln_attn"], x, cfg.norm)
+    h = seq_gathered(apply_norm(p["ln_attn"], x, cfg.norm))
     if cfg.mla is not None and kind in ("dense", "moe"):
         a = apply_mla(p["attn"], h, cfg, positions=positions,
                       cache=cache["attn"] if cache else None,
@@ -443,7 +450,8 @@ def apply_block(p, x, cfg: ArchConfig, kind: str, *, positions,
                       kv_rep=kv_rep,
                       kv_block=1024 if kind == "hybrid" else kv_block)
     if kind == "hybrid":
-        s = apply_ssm(p["ssm"], apply_norm(p["ln_ssm"], x, cfg.norm), cfg,
+        s = apply_ssm(p["ssm"],
+                      seq_gathered(apply_norm(p["ln_ssm"], x, cfg.norm)), cfg,
                       cache=cache["ssm"] if cache else None, impl=ssd_impl,
                       true_lens=true_lens)
         x = x + 0.5 * (a + s)
@@ -451,7 +459,7 @@ def apply_block(p, x, cfg: ArchConfig, kind: str, *, positions,
         x = x + a
     if kind == "crossdec":
         x = x + _cross_attend(p, x, cfg, cache, cross_src)
-    h = apply_norm(p["ln_mlp"], x, cfg.norm)
+    h = seq_gathered(apply_norm(p["ln_mlp"], x, cfg.norm))
     if kind == "moe":
         return x + apply_moe(p["moe"], h, cfg, use_pallas=use_pallas,
                              constrain=constrain)

@@ -172,26 +172,31 @@ def shardings_from_schema(schema, mesh):
         schema)
 
 
-def distribute_params(params, schema, mesh, rules: dict | None = None):
+def distribute_params(params, schema, mesh, rules: dict | None = None,
+                      specs=None):
     """Each leaf of `params` (nested dicts of tensors of `schema`'s
     structure) distributed over the DeviceMesh `mesh` by
     torch.distributed.tensor.distribute_tensor with the placements of
     its spec: the counterpart of jax.device_put with NamedShardings. Every
-    rank passes the same full tensors; each keeps its shard."""
+    rank passes the same full tensors; each keeps its shard. The spec of a
+    leaf is pspec_for_axes under `rules`, or its entry of `specs` (a tree
+    of P of the schema's structure, e.g. fsdp_pspecs_from_schema's)."""
     from torch.distributed.tensor import distribute_tensor
 
-    def walk(p, s):
+    def walk(p, s, sp):
         if isinstance(s, ParamSpec):
             if tuple(p.shape) != tuple(s.shape):
                 raise ValueError(f"leaf of shape {tuple(p.shape)} for a spec "
                                  f"of {s.shape}")
-            spec = pspec_for_axes(s.axes, s.shape, mesh, rules)
+            spec = sp if sp is not None else \
+                pspec_for_axes(s.axes, s.shape, mesh, rules)
             return distribute_tensor(p, mesh, placements(spec, mesh))
         if set(p) != set(s):
             raise ValueError(f"params keys {sorted(p)} against schema keys "
                              f"{sorted(s)}")
-        return {k: walk(p[k], s[k]) for k in p}
-    return walk(params, schema)
+        return {k: walk(p[k], s[k], None if sp is None else sp[k])
+                for k in p}
+    return walk(params, schema, specs)
 
 
 def sharded_step(fn):

@@ -18,6 +18,7 @@ from typing import Callable
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..models.attention import is_dtensor
 from ..models.model import Model
 from .optimizer import AdamWConfig, AdamWState, adamw_update
 from .tree import tree_leaves, tree_map, tree_unflatten
@@ -51,12 +52,33 @@ def _refuse_kernels(model: Model) -> None:
 
 
 def _split_micro(batch: dict, n: int) -> list[dict]:
+    """The batch cut into n microbatches along its leading axis, in order.
+    A DTensor batch (the sharded step's, its rows over the data axes) is
+    cut on each rank: microbatch i takes the i-th part of every rank's
+    rows, so no row moves between ranks (the reference's reshape of a
+    sharded axis would move them; DTensor cannot unflatten it). The
+    microbatches then group other rows than the reference's, and sum to
+    the same batch."""
     def split(x):
         b = x.shape[0]
         assert b % n == 0, f"batch {b} not divisible by {n} microbatches"
+        if is_dtensor(x):
+            return _split_local(x, n)
         return x.reshape(n, b // n, *x.shape[1:])
     parts = {k: split(v) for k, v in batch.items()}
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _split_local(x, n: int) -> list:
+    from torch.distributed.tensor import DTensor
+    local = x.to_local()
+    b = local.shape[0]
+    assert b % n == 0, f"local batch {b} not divisible by {n} microbatches"
+    shape = (x.shape[0] // n,) + tuple(x.shape[1:])
+    return [DTensor.from_local(part, x.device_mesh, x.placements,
+                               run_check=False, shape=torch.Size(shape),
+                               stride=part.stride())
+            for part in local.reshape(n, b // n, *local.shape[1:])]
 
 
 def _scalar_like(x: float, t: torch.Tensor) -> torch.Tensor:

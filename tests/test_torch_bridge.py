@@ -35,7 +35,9 @@ assert "repro_torch.serve.graphs" in sys.modules
 for m in ("train.optimizer", "train.train_step", "train.checkpoint",
           "train.data", "train.tree", "launch.train", "train.grad_sync",
           "launch.mesh", "parallel.collectives", "parallel.compression",
-          "parallel.sharding", "parallel.autoshard"):
+          "parallel.sharding", "parallel.autoshard", "launch.dryrun",
+          "roofline.analysis", "roofline.report", "core.executor",
+          "tenancy.sweep"):
     assert "repro_torch." + m in sys.modules, m
 print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
 """
@@ -134,6 +136,26 @@ def test_model_aware_bridge_stacks_one_layer_segments():
         got = t.view(torch.int16 if bits is np.int16 else torch.int32)
         assert np.array_equal(got.numpy().reshape(a.shape), a.view(bits)), \
             name
+
+
+def test_model_aware_bridge_lands_on_the_models_device():
+    """model_params_from_jax puts the leaves on the model's device unless
+    the caller names another (a card model's weights go to the card); a
+    model on the meta device gets meta leaves of the schema's shapes."""
+    cfg = reduced(get_arch("hymba-1.5b"))
+    jp = jax.tree.map(np.asarray, JaxModel(cfg).init(jax.random.PRNGKey(0)))
+    meta = Model(t_reduced(t_get_arch("hymba-1.5b")), device="meta")
+    got = dict(_leaves(model_params_from_jax(meta, jp)))
+    schema = dict(_leaves(meta.schema()))
+    assert got.keys() == schema.keys()
+    for name, t in got.items():
+        assert t.device.type == "meta", name
+        assert tuple(t.shape) == schema[name].shape, name
+    cpu = dict(_leaves(model_params_from_jax(meta, jp, device="cpu")))
+    assert all(t.device.type == "cpu" for t in cpu.values())
+    on_cpu = Model(t_reduced(t_get_arch("hymba-1.5b")), device="cpu")
+    for name, t in _leaves(model_params_from_jax(on_cpu, jp)):
+        assert torch.equal(t, cpu[name]), name
 
 
 def test_port_init_follows_the_schema():

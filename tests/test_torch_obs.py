@@ -49,7 +49,8 @@ COPIES = ["core/__init__.py", "core/arrays.py", "core/interconnect.py",
           "tenancy/planner.py", "tenancy/trace.py", "obs/__init__.py",
           "obs/metrics.py", "obs/export.py", "obs/drift.py",
           "train/fault.py", "train/data.py", "serve/chaos.py",
-          "serve/admission.py", "parallel/autoshard.py"]
+          "serve/admission.py", "parallel/autoshard.py", "core/executor.py",
+          "tenancy/sweep.py"]
 DESIGNS = [((32, 32, "butterfly-2", 64), 0), ((16, 16, "benes", 128), 0),
            ((32, 32, "butterfly-2", 64), 16)]
 
