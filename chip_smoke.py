@@ -396,8 +396,17 @@ Phases, one JSON line each; any failure exits non-zero:
                butterfly2 and ring return them bit-equal; compressed's
                reduced + new_error equals the input within one f32 ulp,
                its error below 0.05 of each 256-block's maximum; the flat
-               vector's bytes and each reducer's ms and GB/s. No gloo, no
-               CPU path; the group is destroyed at the end.
+               vector's bytes and each reducer's ms and GB/s. At one rank
+               no mesh axis splits the vocabulary or the heads, so the
+               step takes the replicated loss; the vocabulary-parallel
+               sums that a split vocabulary takes
+               (models/layers.py::_VocabParallelSums, NCCL all-reduces
+               of max and sum over the one-rank "model" group) run beside
+               the plain loss on the step's bf16 logits [8, 1024, 64000]:
+               loss within sharded_loss_f32, the logits' gradient within
+               sharded_grads_f32 (bit-equality reported), each path's ms
+               and peak above the logits. No gloo, no CPU path; the group
+               is destroyed at the end.
  26. dryrun - run after phase 25 has destroyed its NCCL group: the
                port's dry-run (repro_torch/launch/dryrun.py) checked
                against the card. (a) phase 23's yi-6b cut (full width, 8
@@ -419,13 +428,17 @@ Phases, one JSON line each; any failure exits non-zero:
                2 d d_ff L T); the measured step's roofline fraction
                against 989 TFLOP/s. (b) `python -m
                repro_torch.launch.dryrun --arch granite-8b --shape
-               decode_32k --multi-pod` in a child process (a fake group
-               of 512 ranks, fake cuda tensors; started after phase 23,
-               it runs beside phases 24, 25 and (a)): status
-               ok, 512 chips, compute_s > 0, collective_s >= 0; its
-               hbm_gb_per_chip and bottleneck. The dry-run reaches no
-               kernel (its Model runs no use_pallas), so the kernels line
-               is unchanged.
+               decode_32k --multi-pod` and `--arch yi-6b --shape
+               train_4k` (the pod mesh: the sharded step's
+               vocabulary-parallel loss and its GQA attention on split
+               query heads at 256 ranks on this torch), each in a child
+               process (a fake group of 512 or 256 ranks, fake cuda
+               tensors; both started before phase 22, they run beside
+               phases 22-25 and (a)): status ok, its chips, compute_s >
+               0, collective_s >= 0; its hbm_gb_per_chip and bottleneck;
+               yi-6b's cell must fit under the card's total_memory. The
+               dry-run reaches no kernel (its Model runs no use_pallas),
+               so the kernels line is unchanged.
  27. kernels - each kernel's time at the served shapes beside its bound,
                its plain version and one PyTorch call (a yardstick only);
                the pod GEMM at granite-8b's, dbrx-132b's and hymba-1.5b's
@@ -513,8 +526,9 @@ from repro_torch.kernels.systolic_gemm.ref import (  # noqa: E402
     epilogue_ref, grouped_systolic_gemm_ref, splitk_partials, systolic_gemm_ref,
     systolic_gemm_t_ref)
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models.layers import (apply_norm, apply_rope, embed,  # noqa: E402
-                                       pod_dense)
+                                       cross_entropy_loss, pod_dense)
 from repro_torch.runtime import no_tf32  # noqa: E402
 from repro_torch.train import tree as train_tree  # noqa: E402
 from repro_torch.train.checkpoint import (restore_checkpoint,  # noqa: E402
@@ -4732,6 +4746,8 @@ def phase_parallel() -> None:
         del g_p, g_d
         _, plain_ms = timed_ms(plain_fn, params, batch)
         (loss_d, g_d), dt_ms = timed_ms(dt_fn, dparams, dbatch)
+        vocab_parallel = vocab_parallel_check(model, params, batch,
+                                              mesh.get_group("model"))
         del params, dparams
         gc.collect()
         torch.cuda.empty_cache()
@@ -4780,7 +4796,8 @@ def phase_parallel() -> None:
                "pending_leaves": len(local),
                "leaves": len(train_tree.tree_leaves(g_d)),
                "flat_bytes": flat_bytes, "reducers": reducers,
-               "compressed": gates, "gpu": gpu}
+               "compressed": gates, "vocab_parallel": vocab_parallel,
+               "gpu": gpu}
         del g_d, local
     finally:
         dist.destroy_process_group()
@@ -4802,6 +4819,58 @@ def phase_parallel() -> None:
     check(gates["ulps_of_input"] <= 1.0 and
           gates["max_block_rel_err"] < 0.05,
           f"parallel: compressed_psum {gates}")
+    check(vocab_parallel["loss_excess"] <= 1.0 and
+          vocab_parallel["grad_max_rel"] <=
+          TOLERANCES["sharded_grads_f32"].atol,
+          f"parallel: the vocabulary-parallel loss differs from the plain "
+          f"one {vocab_parallel}")
+
+
+def vocab_parallel_check(model, params, batch, group) -> dict:
+    """The vocabulary-parallel sums over the one-rank `group` against the
+    plain loss on the same bf16 logits of `batch` (see the module
+    docstring's phase 25): each path's loss and gradient with respect to
+    the logits, timed and its peak above the logits read on the second
+    of two calls."""
+    with torch.no_grad():
+        logits = model.forward(params, batch)[0]
+    labels = batch["labels"]
+
+    def plain(x):
+        return cross_entropy_loss(x, labels)
+
+    def split(x):
+        total, count = layers_mod._VocabParallelSums.apply(
+            x, labels, -1, 0, [group])
+        return total / torch.clamp_min(count, 1.0)
+
+    out: dict = {"logits": list(logits.shape),
+                 "dtype": str(logits.dtype).replace("torch.", "")}
+    res = {}
+    for name, fn in (("plain", plain), ("vocab_parallel", split)):
+        x = logits.detach().requires_grad_()
+
+        def run():
+            loss = fn(x)
+            return loss.detach(), torch.autograd.grad(loss, x)[0]
+        run()
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res[name], ms = timed_ms(run)
+        out[name] = {"ms": ms, "gib_above_logits":
+                     (torch.cuda.max_memory_allocated() - before) / 2 ** 30}
+        del x
+    (lp, gp), (lv, gv) = res["plain"], res["vocab_parallel"]
+    out.update(loss=float(lp), loss_bit_equal=bool(torch.equal(lp, lv)),
+               grad_bit_equal=bool(torch.equal(gp, gv)),
+               loss_excess=TOLERANCES["sharded_loss_f32"].excess(lv, lp),
+               grad_max_rel=float((gv.float() - gp.float()).abs().max()
+                                  / gp.float().abs().max()))
+    del logits, res, gp, gv
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -4811,22 +4880,52 @@ def phase_parallel() -> None:
 DRYRUN_SHAPE = "train_chip"          # phase 23's batch as a ShapeConfig
 DRYRUN_PEAK_TOL = 0.15               # predicted peak against measured
 DRYRUN_FLOP_RATIO = (1.00, 1.10)     # traced FLOPs over the analytic count
-DRYRUN_CELL = ("granite-8b", "decode_32k")
+# (arch, shape, multi-pod): the reference's slow-test cell, and the pod
+# mesh's yi-6b train_4k (the vocabulary-parallel loss and the split query
+# heads at 256 ranks)
+DRYRUN_CELLS = (("granite-8b", "decode_32k", True),
+                ("yi-6b", "train_4k", False))
 DRYRUN_CHILD_TIMEOUT = 600
 
 
-def dryrun_child() -> subprocess.Popen:
-    """The reference's slow-test cell through the port's CLI, started in
-    a child process (it runs beside phases 24, 25 and (a); main kills it
-    if a phase fails)."""
-    arch, shape = DRYRUN_CELL
+def dryrun_children() -> list[subprocess.Popen]:
+    """The DRYRUN_CELLS through the port's CLI, each started in a child
+    process of its own (they run beside phases 22-25 and (a); main kills
+    them if a phase fails)."""
     env = dict(os.environ, PYTHONPATH=str(_build.REPO_ROOT / "src"))
-    child = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, "--multi-pod"], cwd=_build.REPO_ROOT, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    child.started = time.perf_counter()
-    return child
+    children = []
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        child = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape] + (["--multi-pod"] if multi_pod
+                                        else []),
+            cwd=_build.REPO_ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        child.cell = (arch, shape, multi_pod)
+        child.started = time.perf_counter()
+        children.append(child)
+    return children
+
+
+def dryrun_cell(child: subprocess.Popen) -> dict:
+    """A CLI cell's outcome: its exit code, [OK ] line, seconds and
+    report's figures."""
+    stdout, stderr = child.communicate(timeout=DRYRUN_CHILD_TIMEOUT)
+    arch, shape, multi_pod = child.cell
+    mesh = "multipod_2x16x16" if multi_pod else "pod_16x16"
+    report = Path(dryrun.REPORT_DIR) / mesh / f"{arch}__{shape}.json"
+    cell = json.loads(report.read_text()) if report.exists() else {}
+    return {"arch": arch, "shape": shape, "mesh": mesh,
+            "rc": child.returncode, "seconds":
+                time.perf_counter() - child.started,
+            "line": [ln for ln in stdout.splitlines()
+                     if ln.startswith("[OK ]")],
+            "tail": f"{stdout[-2000:]} {stderr[-3000:]}",
+            **{k: cell.get(k) for k in (
+                "status", "error", "chips", "compute_s", "memory_s",
+                "collective_s", "hbm_gb_per_chip", "hbm_fit", "bottleneck",
+                "argument_size_in_bytes", "temp_size_in_bytes",
+                "flops_per_device", "model_flops_ratio", "compile_s")}}
 
 
 def dryrun_traces(cfg) -> dict:
@@ -4861,24 +4960,24 @@ def dryrun_traces(cfg) -> dict:
     return out
 
 
-def phase_dryrun(train: dict, child: subprocess.Popen) -> None:
+def phase_dryrun(train: dict, children: list[subprocess.Popen]) -> None:
     """The dry-run against the card: see the module docstring's phase
-    26. `train` is phase 23's row, measured in this run; `child` the CLI
-    cell of dryrun_child, started after phase 23 so that its trace (a CPU
-    process of its own) overlaps phases 24 and 25."""
+    26. `train` is phase 23's row, measured in this run; `children` the
+    CLI cells of dryrun_children, started before phase 22 so that their
+    traces (CPU processes of their own) overlap phases 22-25."""
     t0 = time.perf_counter()
     gpu = gpu_name_and_power()
     total = torch.cuda.get_device_properties(0).total_memory
     check(not dist.is_initialized(), "dryrun: a process group is open")
     cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
     traces = dryrun_traces(cfg)
-    stdout, stderr = child.communicate(timeout=DRYRUN_CHILD_TIMEOUT)
+    cells = [dryrun_cell(c) for c in children]
     check(not dist.is_initialized(), "dryrun: the fake group was left open")
-    arch, shape = DRYRUN_CELL
-    report = Path(dryrun.REPORT_DIR) / "multipod_2x16x16" / \
-        f"{arch}__{shape}.json"
-    cell = json.loads(report.read_text()) if report.exists() else {}
-    ok_line = [ln for ln in stdout.splitlines() if ln.startswith("[OK ]")]
+    for c in cells:
+        print(f"dryrun cell {c['arch']} {c['shape']} {c['mesh']}: "
+              f"{c['status']}, {c['hbm_gb_per_chip']} GB a chip "
+              f"(total_memory {total / 2 ** 30:.2f} GiB), "
+              f"{c['seconds']:.1f} s; {gpu}", flush=True)
 
     tokens = TRAIN_BATCH * TRAIN_SEQ
     # the analytic count without the two terms no op performs: the token
@@ -4911,15 +5010,10 @@ def phase_dryrun(train: dict, child: subprocess.Popen) -> None:
            "roofline_fraction_measured":
                step_flops / (train["step_ms"] / 1e3) / BF16_FLOP_PER_S,
            "bound_ms_traced": step_flops / BF16_FLOP_PER_S * 1e3,
-           "cell": {k: cell.get(k) for k in (
-               "status", "error", "chips", "compute_s", "memory_s",
-               "collective_s", "hbm_gb_per_chip", "bottleneck",
-               "argument_size_in_bytes", "temp_size_in_bytes",
-               "flops_per_device", "compile_s")},
-           "cell_line": ok_line, "cell_rc": child.returncode,
+           "cells": [{k: v for k, v in c.items() if k != "tail"}
+                     for c in cells],
            "gpu": gpu}
     row["seconds"] = time.perf_counter() - t0
-    row["child_seconds"] = time.perf_counter() - child.started
     emit("dryrun", **row)
     check(HBM_PER_CHIP == total,
           f"dryrun: HBM_PER_CHIP {HBM_PER_CHIP} is not the card's "
@@ -4933,12 +5027,22 @@ def phase_dryrun(train: dict, child: subprocess.Popen) -> None:
           f"dryrun: traced FLOPs {step_flops:.4g} are "
           f"{row['ratio_to_performed']:.4f} of the performed analytic count "
           f"{performed:.4g}")
-    check(child.returncode == 0 and ok_line,
-          f"dryrun: the CLI cell failed (rc {child.returncode}): "
-          f"{stdout[-2000:]} {stderr[-3000:]}")
-    check(cell.get("status") == "ok" and cell.get("chips") == 512 and
-          cell.get("compute_s", 0) > 0 and cell.get("collective_s", -1) >= 0,
-          f"dryrun: the CLI cell {row['cell']}")
+    for c in cells:
+        name = f"{c['arch']} {c['shape']} {c['mesh']}"
+        check(c["rc"] == 0 and c["line"],
+              f"dryrun: the CLI cell {name} failed (rc {c['rc']}): "
+              f"{c['tail']}")
+        check(c["status"] == "ok" and c["chips"] ==
+              (512 if c["mesh"] == "multipod_2x16x16" else 256) and
+              (c["compute_s"] or 0) > 0 and
+              (c["collective_s"] if c["collective_s"] is not None
+               else -1) >= 0,
+              f"dryrun: the CLI cell {name}: {c}")
+        if c["arch"] == "yi-6b":
+            check(c["argument_size_in_bytes"] + c["temp_size_in_bytes"]
+                  <= total and c["hbm_fit"],
+                  f"dryrun: {name} does not fit the card's {total} bytes: "
+                  f"{c['hbm_gb_per_chip']} GiB a chip")
 
 
 # --------------------------------------------------------------------------
@@ -5745,21 +5849,22 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-        phase_train_flash_vjp()
-        torch.cuda.synchronize()
-        train = phase_train()
-        torch.cuda.synchronize()
-        child = dryrun_child()
+        children = dryrun_children()
         try:
+            phase_train_flash_vjp()
+            torch.cuda.synchronize()
+            train = phase_train()
+            torch.cuda.synchronize()
             phase_launch_train()
             torch.cuda.synchronize()
             phase_parallel()
             torch.cuda.synchronize()
-            phase_dryrun(train, child)
+            phase_dryrun(train, children)
         finally:
-            if child.poll() is None:
-                child.kill()
-                child.communicate()
+            for child in children:
+                if child.poll() is None:
+                    child.kill()
+                    child.communicate()
         torch.cuda.synchronize()
 
         kernels = {"kernels": [gemm_line(

@@ -57,7 +57,7 @@ def replicate_dim(t, dim: int):
     all-gather over the mesh dimensions that shard it); any other tensor
     as it is. The sharded step's explicit redistribution at an op whose
     DTensor sharding rule fails on a sharded axis (split_safe,
-    layers.embed, layers.cross_entropy_loss)."""
+    seq_gathered)."""
     if not is_dtensor(t):
         return t
     dim %= t.ndim
@@ -234,8 +234,92 @@ def gqa_heads(*ts, n_kv: int):
     where its sharding does not divide the n_kv K/V heads, which the GQA
     view [B, S, Hq, D] -> [B, S, Hkv, G, D] splits out (split_safe).
     Heads that divide stay sharded, and the attention runs head-parallel,
-    as GSPMD runs it."""
+    as GSPMD runs it. Query heads that divide where the K/V heads do not
+    never reach here: the entry points run them on their local shards
+    (query_head_dims, on_query_shards)."""
     return tuple(split_safe(t, 2, n_kv) for t in ts)
+
+
+def query_head_dims(q, k, v) -> tuple[int, ...]:
+    """The mesh dimensions that split the heads of a DTensor query q [B,
+    S, Hq, D] where that split divides Hq but not the Hkv heads of k and
+    v: GSPMD splits one mesh axis over (Hkv, G) there, which DTensor
+    cannot. Empty (the attention then takes gqa_heads) for a plain q, a
+    split that divides Hkv too (head-parallel) or not Hq (gathered), and
+    where q or the K/V hold any other placement than a batch or head
+    split (a sequence-sharded cache keeps its own path)."""
+    if not is_dtensor(q):
+        return ()
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    dims = tuple(i for i, pl in enumerate(q.placements)
+                 if type(pl) is Shard and pl.dim % q.ndim == 2)
+    ways = math.prod(mesh.size(i) for i in dims)
+    if ways == 1 or q.shape[2] % ways or k.shape[2] % ways == 0:
+        return ()
+    for t in (q, k, v):
+        if is_dtensor(t) and any(
+                type(pl) is not Replicate and not (
+                    type(pl) is Shard and pl.dim % t.ndim in (0, 2))
+                for pl in t.placements):
+            return ()
+    return dims
+
+
+def on_query_shards(fn, q, k, v, dims, rows=()):
+    """fn(q, k, v, *rows) of the sharded step where the query heads stay
+    split over the mesh dimensions `dims` (query_head_dims), computed on
+    each rank's local tensors: q's shard of Hq / m heads [h0, h0 + Hq /
+    m), the whole K and V (they hold the Hkv heads only) narrowed to the
+    heads those query heads read (query head h reads K/V head h // G: one
+    head where the rank's heads share it, else one per query head, G 1),
+    and each of `rows` (tensors led by the batch axis, 0-d tensors, None)
+    cut to the rank's batch. The batch keeps q's data split. The output
+    [B, S, Hq, Dv] keeps q's placements; q's gradient comes back split
+    like q, K's and V's as sums pending (Partial) over `dims` (each rank
+    saw only its query heads), reduced where they meet the K/V's
+    producers."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = q.device_mesh
+    B, S, Hq = q.shape[:3]
+    Hkv = k.shape[2]
+    batch = [type(pl) is Shard and pl.dim % q.ndim == 0
+             for pl in q.placements]
+    tq = [Shard(2) if i in dims else Shard(0) if batch[i] else Replicate()
+          for i in range(mesh.ndim)]
+    tkv = [Shard(0) if batch[i] else Replicate() for i in range(mesh.ndim)]
+    gkv = [Partial() if i in dims else pl for i, pl in enumerate(tkv)]
+
+    def local(t, want, grad=None):
+        if not isinstance(t, torch.Tensor):
+            return t
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        if t.ndim == 0:
+            want = [Replicate()] * mesh.ndim
+        if list(t.placements) != want:
+            t = t.redistribute(mesh, want)
+        return t.to_local(grad_placements=grad or want)
+
+    ql = local(q, tq)
+    kl, vl = local(k, tkv, gkv), local(v, tkv, gkv)
+    hl = ql.shape[2]
+    rank = 0
+    for i in dims:
+        rank = rank * mesh.size(i) + mesh.get_local_rank(i)
+    G = Hq // Hkv
+    first, last = rank * hl // G, (rank * hl + hl - 1) // G
+    if first == last:
+        kl, vl = kl[:, :, first:first + 1], vl[:, :, first:first + 1]
+    else:
+        idx = torch.div(rank * hl + torch.arange(hl, device=kl.device), G,
+                        rounding_mode="floor")
+        kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+    out = fn(ql, kl, vl, *(local(t, tkv) for t in rows))
+    shape = torch.Size((B, S, Hq, out.shape[-1]))
+    return DTensor.from_local(out, mesh, tq, run_check=False, shape=shape,
+                              stride=contiguous_stride(shape))
 
 
 def seq_gathered(h):
@@ -340,7 +424,16 @@ def chunked_attention(q, k, v, *, causal: bool = True,
     recomputes the scores blockwise in the backward. Every other case is
     the forward loop, which autograd differentiates as JAX's autodiff does
     the reference's; with no gradient to take, the flash case runs the
-    same loop without L."""
+    same loop without L. A DTensor query whose head split divides Hq but
+    not Hkv runs on its local heads (on_query_shards), the flash forward
+    and backward with it."""
+    dims = query_head_dims(q, k, v)
+    if dims:
+        return on_query_shards(
+            lambda q, k, v, n: chunked_attention(
+                q, k, v, causal=causal, window=window, q_offset=q_offset,
+                kv_block=kv_block, softmax_scale=softmax_scale,
+                kv_valid_len=n), q, k, v, dims, rows=(kv_valid_len,))
     if (window is None and kv_valid_len is None and q_offset == 0
             and torch.is_grad_enabled()
             and (q.requires_grad or k.requires_grad or v.requires_grad)):
@@ -429,7 +522,16 @@ class _FlashVJP(torch.autograd.Function):
 
 def naive_attention(q, k, v, *, causal=True, window=None, q_offset=0,
                     softmax_scale=None, kv_valid_len=None):
-    """Reference implementation (materializes [Sq, Skv] scores)."""
+    """Reference implementation (materializes [Sq, Skv] scores). A
+    DTensor query whose head split divides Hq but not Hkv runs on its
+    local heads (on_query_shards)."""
+    dims = query_head_dims(q, k, v)
+    if dims:
+        return on_query_shards(
+            lambda q, k, v, n: naive_attention(
+                q, k, v, causal=causal, window=window, q_offset=q_offset,
+                softmax_scale=softmax_scale, kv_valid_len=n), q, k, v, dims,
+            rows=(kv_valid_len,))
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -736,17 +838,26 @@ def decode_attention(q, cache_k, cache_v, k_pos, q_pos, *,
                      softmax_scale=None, window: int | None = None):
     """Single-token decode against a cache. q [B,1,Hq,D]; cache [B,S,Hkv,D];
     k_pos [S] or [B,S] absolute positions (-1 = invalid slot); q_pos a
-    scalar or [B] (per-lane positions)."""
+    scalar or [B] (per-lane positions). A DTensor query whose head split
+    divides Hq but not Hkv (where kv_rep leaves Hkv undivided) runs on
+    its local heads (on_query_shards)."""
     B, _, Hq, D = q.shape
     Hkv = cache_k.shape[2]
     G = Hq // Hkv
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
+    k_pos = torch.as_tensor(k_pos, device=q.device)
+    k_pos = torch.atleast_2d(k_pos).expand(B, cache_k.shape[1])
+    q_pos = torch.as_tensor(q_pos, device=q.device).expand(B)
+    dims = query_head_dims(q, cache_k, cache_v)
+    if dims:
+        return on_query_shards(
+            lambda q, k, v, kp, qp: decode_attention(
+                q, k, v, kp, qp, softmax_scale=scale, window=window),
+            q, cache_k, cache_v, dims, rows=(k_pos, q_pos))
     q, cache_k, cache_v = gqa_heads(q, cache_k, cache_v, n_kv=Hkv)
     qg = _scale_q(q, scale).reshape(B, 1, Hkv, G, D)
     s = _gqa_scores(qg, cache_k).float()                    # [B,Hkv,G,1,S]
-    k_pos = torch.as_tensor(k_pos, device=q.device)
-    k_pos = torch.atleast_2d(k_pos).expand(B, cache_k.shape[1])
-    q_pos = torch.as_tensor(q_pos, device=q.device).expand(B)[:, None]
+    q_pos = q_pos[:, None]
     ok = (k_pos >= 0) & (k_pos <= q_pos)
     if window is not None:
         ok &= (q_pos - k_pos) < window

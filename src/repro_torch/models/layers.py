@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.systolic_gemm.guard import active_guard
-from .attention import contiguous_stride, einsum, is_dtensor, replicate_dim
+from .attention import contiguous_stride, einsum, is_dtensor
 from ..kernels.systolic_gemm.ops import fused_lane_gemm, fused_lane_gemm_t
 
 
@@ -227,8 +227,29 @@ def unembed(p: dict, x, use_pallas: bool = False):
                                    guard=g)
         return fused_lane_gemm_t(x, p["tok"], out_dtype=x.dtype, guard=g)
     if "unembed" in p:
-        return einsum("...d,dv->...v", x, p["unembed"])
-    return einsum("...d,vd->...v", x, p["tok"])
+        return einsum("...d,dv->...v", _head_input(x, p["unembed"], 1),
+                      p["unembed"])
+    return einsum("...d,vd->...v", _head_input(x, p["tok"], 0), p["tok"])
+
+
+def _head_input(x, w, vdim: int):
+    """The head's input [B, S, d] with its sequence gathered over the mesh
+    axes on which the DTensor weight `w` splits its vocabulary (axis vdim)
+    and x its sequence (sequence parallelism): the product keeps one split
+    an axis, and the sequence, d wide, is the cheap one to gather, so the
+    logits come out split over the vocabulary as the "logits" constraint
+    places them, as GSPMD partitions it, rather than re-split from the
+    sequence (an all-to-all of the logits, which a CPU mesh runs as an
+    all-gather of them whole). Anything else as it is."""
+    if not (is_dtensor(x) and is_dtensor(w)) or x.ndim < 3:
+        return x
+    from torch.distributed.tensor import Replicate
+    sdim = x.ndim - 2
+    want = [Replicate() if pl.is_shard(sdim) and wpl.is_shard(vdim) else pl
+            for pl, wpl in zip(x.placements, w.placements)]
+    if want == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
 
 
 def cross_entropy_loss(logits, labels, ignore_id: int = -1):
@@ -236,9 +257,9 @@ def cross_entropy_loss(logits, labels, ignore_id: int = -1):
     `ignore_id`: logits in f32, logsumexp minus the label's logit, summed
     and divided by max(count, 1), as the reference's. An ignored label
     reads logit 0 (its term is multiplied by 0). DTensor logits (the
-    sharded step's) take _local_cross_entropy."""
+    sharded step's) take _sharded_cross_entropy."""
     if is_dtensor(logits):
-        return _local_cross_entropy(logits, labels, ignore_id)
+        return _sharded_cross_entropy(logits, labels, ignore_id)
     total, count = _cross_entropy_sums(logits.float(), labels, ignore_id)
     return total / torch.clamp_min(count, 1.0)
 
@@ -253,26 +274,102 @@ def _cross_entropy_sums(logits, labels, ignore_id: int):
     return ((lse - ll) * mask).sum(), mask.sum()
 
 
-def _local_cross_entropy(logits, labels, ignore_id: int):
-    """cross_entropy_loss of the sharded step: the vocabulary gathered,
-    then each rank's rows on its local shard, the sums pending over the
-    mesh axes that shard the batch and reduced before the division.
-    DTensor's own rules fail here: a gather along a sharded vocabulary
-    leaves a masked partial sum whose mask no longer fits (aten.sub), and
-    the gather's backward makes its zeros at the logits' global shape on
-    every rank."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
-    logits = replicate_dim(logits.float(), -1)
+def _sharded_cross_entropy(logits, labels, ignore_id: int):
+    """cross_entropy_loss of the sharded step, on each rank's local shard
+    of the logits as the "logits" constrain left them: the rows as their
+    placements split them (the batch over the data axes), the vocabulary
+    split where act_pspec shards it (over model, where it divides), as
+    GSPMD partitions the reference's loss. A vocabulary split over more
+    than one rank takes _VocabParallelSums, which never gathers it; a
+    replicated one (hymba's 32001 words on 16 ways, or a one-rank mesh)
+    _cross_entropy_sums on the local rows. Any other placement (a pending
+    sum, an uneven split of the vocabulary) is replicated first. The
+    sums are pending (Partial) over the mesh axes that split the rows,
+    and reduced before the division."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = logits.device_mesh
+    vdim = logits.ndim - 1
+    vdims = [i for i, pl in enumerate(logits.placements)
+             if type(pl) is Shard and pl.dim % logits.ndim == vdim]
+    even = logits.shape[vdim] % math.prod(mesh.size(i) for i in vdims) == 0
+    want = []
+    for i, pl in enumerate(logits.placements):
+        rows = type(pl) is Shard and pl.dim % logits.ndim != vdim
+        want.append(pl if rows or (i in vdims and even) else Replicate())
+    if want != list(logits.placements):
+        logits = logits.redistribute(mesh, want)
     if not is_dtensor(labels):
         labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
                                     run_check=False)
-    if list(labels.placements) != list(logits.placements):
-        labels = labels.redistribute(mesh, logits.placements)
-    total, count = _cross_entropy_sums(logits.to_local(), labels.to_local(),
-                                       ignore_id)
-    pend = [Partial() if pl.is_shard() else Replicate()
-            for pl in logits.placements]
+    rows = [pl if i not in vdims else Replicate()
+            for i, pl in enumerate(want)]
+    if list(labels.placements) != rows:
+        labels = labels.redistribute(mesh, rows)
+    split = [i for i in vdims if even and mesh.size(i) > 1]
+    if split:
+        # the rank's vocabulary range: its coordinate over the splitting
+        # mesh axes, major to minor in mesh order, as DTensor lays out a
+        # dimension sharded over several of them
+        local_v = logits.to_local().shape[-1]
+        start = 0
+        for i in vdims:
+            start = start * mesh.size(i) + mesh.get_local_rank(i)
+        total, count = _VocabParallelSums.apply(
+            logits.to_local(), labels.to_local(), ignore_id,
+            start * local_v, [mesh.get_group(i) for i in split])
+    else:
+        total, count = _cross_entropy_sums(logits.to_local().float(),
+                                           labels.to_local(), ignore_id)
+    pend = [Partial() if pl.is_shard() else Replicate() for pl in rows]
     total, count = (DTensor.from_local(t, mesh, pend, run_check=False)
                     for t in (total, count))
     return total / torch.clamp_min(count, 1.0)
+
+
+def _all_reduce(t, op: str, groups):
+    """t reduced by `op` over each process group in turn."""
+    from torch.distributed import _functional_collectives as funcol
+    for g in groups:
+        t = funcol.all_reduce(t, op, g)
+        if isinstance(t, funcol.AsyncCollectiveTensor):
+            t = t.wait()
+    return t
+
+
+class _VocabParallelSums(torch.autograd.Function):
+    """_cross_entropy_sums of logits whose vocabulary is split over the
+    ranks of `groups`, on this rank's shard [..., V_local], which holds
+    the words [start, start + V_local): the row maxima reduced by max,
+    the sums of exp(logit - max) by sum, and each label's logit taken on
+    the rank that holds it (0 elsewhere) and reduced by sum, so that
+    every rank holds each row's logsumexp and label logit. The backward
+    is (softmax - onehot) * mask * grad on the rank's own slice, with no
+    collective and no tensor of the whole vocabulary; the forward saves
+    the logits as they came (the cast to f32 is made again)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, ignore_id, start, groups):
+        lf = logits.float()
+        m = _all_reduce(lf.amax(dim=-1), "max", groups)
+        s = _all_reduce((lf - m[..., None]).exp_().sum(dim=-1), "sum",
+                        groups)
+        lse = torch.log(s) + m
+        keep = labels != ignore_id
+        idx = labels.long() - start
+        own = keep & (idx >= 0) & (idx < lf.shape[-1])
+        idx = torch.where(own, idx, 0)
+        ll = _all_reduce(torch.gather(lf, -1, idx[..., None])[..., 0] * own,
+                         "sum", groups)
+        mask = keep.float()
+        ctx.save_for_backward(logits, lse, idx, own, mask)
+        count = mask.sum()
+        ctx.mark_non_differentiable(count)
+        return ((lse - ll) * mask).sum(), count
+
+    @staticmethod
+    def backward(ctx, g_total, g_count):
+        logits, lse, idx, own, mask = ctx.saved_tensors
+        dl = g_total * mask
+        grad = (logits.float() - lse[..., None]).exp_().mul_(dl[..., None])
+        grad.scatter_add_(-1, idx[..., None], -(dl * own)[..., None])
+        return grad.to(logits.dtype), None, None, None, None

@@ -9,16 +9,19 @@ repro.train.train_step) under shard_map on 8 CPU devices and writes
 `jax.npz` and `jax.json`. `gloo` starts 8 ranks with
 torch.multiprocessing (init_method file:// inside WORKDIR, so concurrent
 test workers never share a port), runs the port on the same inputs and
-writes `rank{r}.npz`. Neither world imports the other package, and the
+writes `rank{r}.npz`, with the local shapes that the sharded step's loss
+and attention saw on that rank (`_recording`). Neither world imports the other package, and the
 test compares their files: one world of each per test module, not one per
 case.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
+import types
 
 import numpy as np
 
@@ -34,6 +37,9 @@ SHARD_ARCHS = ("granite-8b", "dbrx-132b", "deepseek-v2-236b", "mamba2-370m",
                "hymba-1.5b")
 MESHES = {"pdm": ((2, 2, 2), ("pod", "data", "model")),
           "dm": ((2, 4), ("data", "model"))}
+MICROBATCHES = 2                 # the microbatched sharded step's
+LOSS_VOCABS = (256, 255)         # split 64 a rank on 4 ways; replicated
+DECODE_PAD = 4                   # cache rows past the prompt
 
 
 def coll_inputs() -> dict:
@@ -198,11 +204,13 @@ def jax_world(workdir: str) -> None:
     batch = {k: jnp.asarray(data[f"batch/{k}"]) for k in ("tokens",
                                                           "labels")}
     jm = Model(reduced(get_arch("yi-6b")))
-    loss, jg = jax.jit(grads_fn(jm, TrainConfig()))(params, batch)
-    out["step/loss"] = np.asarray(loss)
-    for path, leaf in jax.tree_util.tree_flatten_with_path(jg)[0]:
-        out["step/grads/" + "/".join(str(p.key) for p in path)] = \
-            np.asarray(leaf)
+    for name, n in (("step", 1), ("micro", MICROBATCHES)):
+        loss, jg = jax.jit(grads_fn(jm, TrainConfig(microbatches=n)))(
+            params, batch)
+        out[f"{name}/loss"] = np.asarray(loss)
+        for path, leaf in jax.tree_util.tree_flatten_with_path(jg)[0]:
+            out[f"{name}/grads/" + "/".join(str(p.key) for p in path)] = \
+                np.asarray(leaf)
     np.savez(os.path.join(workdir, "jax.npz"), **out)
     with open(os.path.join(workdir, "jax.json"), "w") as fh:
         json.dump(meta, fh)
@@ -225,6 +233,65 @@ def _rank_main(rank: int, workdir: str) -> None:
         np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _recording():
+    """The local shapes the sharded step's loss and attention see on this
+    rank: the logits each loss path takes (the vocabulary-parallel sums,
+    or _cross_entropy_sums on replicated logits), and the head counts of
+    q, k and v in each attention forward and of q, out and dout in each
+    flash backward and local decode attention, with whether q came as a
+    DTensor (the gathered path) or as a local shard."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    seen = types.SimpleNamespace(vocab_parallel=[], replicated=[], fwd=[],
+                                 bwd=[], decode=[])
+    orig = (L._VocabParallelSums, L._cross_entropy_sums, A._forward_blocks,
+            A._flash_bwd_pass, A.decode_attention)
+
+    def heads(t):
+        return (t.to_local() if A.is_dtensor(t) else t).shape[2]
+
+    class VocabParallel:
+        @staticmethod
+        def apply(logits, *args):
+            seen.vocab_parallel.append(list(logits.shape))
+            return orig[0].apply(logits, *args)
+
+    def replicated(logits, *args):
+        seen.replicated.append(list(logits.shape))
+        return orig[1](logits, *args)
+
+    def fwd(q, k, v, **kw):
+        seen.fwd.append([heads(q), heads(k), heads(v), A.is_dtensor(q)])
+        return orig[2](q, k, v, **kw)
+
+    def bwd(q, k, v, out, lse, dout, *args):
+        seen.bwd.append([heads(q), heads(out), heads(dout),
+                         A.is_dtensor(q)])
+        return orig[3](q, k, v, out, lse, dout, *args)
+
+    def decode(q, k, v, *args, **kw):
+        # the module's own name: reached by on_query_shards on the local
+        # heads, while the model calls the name it imported
+        seen.decode.append([heads(q), heads(k), heads(v), A.is_dtensor(q)])
+        return orig[4](q, k, v, *args, **kw)
+
+    (L._VocabParallelSums, L._cross_entropy_sums, A._forward_blocks,
+     A._flash_bwd_pass, A.decode_attention) = (VocabParallel, replicated,
+                                               fwd, bwd, decode)
+    try:
+        yield seen
+    finally:
+        (L._VocabParallelSums, L._cross_entropy_sums, A._forward_blocks,
+         A._flash_bwd_pass, A.decode_attention) = orig
+
+
+def _save_seen(out: dict, prefix: str, seen) -> None:
+    for k, v in vars(seen).items():
+        out[f"{prefix}/seen/{k}"] = np.array(v, dtype=np.int64).reshape(
+            len(v), len(v[0]) if v else 0)
 
 
 def _rank_cases(rank: int, workdir: str) -> dict:
@@ -318,18 +385,65 @@ def _rank_cases(rank: int, workdir: str) -> dict:
              for k in ("tokens", "labels")}
     dbatch = {k: distribute_tensor(v, mesh, batch_sharding(mesh, v.ndim))
               for k, v in batch.items()}
-    loss, grads = sharded_step(grads_fn(model, TrainConfig()))(dparams,
-                                                               dbatch)
-    out["step/loss"] = loss.full_tensor().numpy()
-    out["step/loss_placements"] = np.array(str(loss.placements))
-    for k, g in leaves_with_paths(grads):
-        out[f"step/grads/{k}"] = g.full_tensor().numpy()
-        out[f"step/placements/{k}"] = np.array(str(g.placements))
+    for name, n in (("micro", MICROBATCHES), ("step", 1)):
+        with _recording() as seen:
+            loss, grads = sharded_step(grads_fn(
+                model, TrainConfig(microbatches=n)))(dparams, dbatch)
+        _save_seen(out, name, seen)
+        out[f"{name}/loss"] = loss.full_tensor().numpy()
+        out[f"{name}/loss_placements"] = np.array(str(loss.placements))
+        for k, g in leaves_with_paths(grads):
+            out[f"{name}/grads/{k}"] = g.full_tensor().numpy()
+            out[f"{name}/placements/{k}"] = np.array(str(g.placements))
     # the pending data-parallel sum, completed by make_grad_sync
     synced, _ = make_grad_sync(mesh, axis="data", impl="butterfly")(grads)
     for k, g in leaves_with_paths(synced):
         out[f"step/synced/{k}"] = g.full_tensor().numpy()
         out[f"step/synced_placements/{k}"] = np.array(str(g.placements))
+
+    # the loss alone on logits placed by the "logits" constrain: the
+    # vocabulary split 64 a rank, or replicated where it does not divide
+    from repro_torch.models.layers import cross_entropy_loss
+    for V in LOSS_VOCABS:
+        logits = distribute_tensor(torch.from_numpy(data[f"loss/logits{V}"]),
+                                   mesh, batch_sharding(mesh, 3))
+        logits.requires_grad_()
+        labels = distribute_tensor(torch.from_numpy(data[f"loss/labels{V}"]),
+                                   mesh, batch_sharding(mesh, 2))
+        placed = make_constrain(mesh, V)(logits, "logits")
+
+        def loss_grad(x, y):
+            loss = cross_entropy_loss(placed, y)
+            return loss, torch.autograd.grad(loss, x)[0]
+        with _recording() as seen:
+            loss, g = sharded_step(loss_grad)(logits, labels)
+        _save_seen(out, f"loss{V}", seen)
+        out[f"loss{V}/placements"] = np.array(str(placed.placements))
+        out[f"loss{V}/loss"] = loss.full_tensor().detach().numpy()
+        out[f"loss{V}/grad"] = g.full_tensor().numpy()
+
+    # prefill and a decode step on a DTensor cache: the chunked forward
+    # and decode attention on the local query heads
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.launch.dryrun import _distribute
+    from repro_torch.parallel.sharding import cache_pspecs
+    tokens = dbatch["tokens"]
+    B, S = tokens.shape
+    cache = model.init_cache(B, S + DECODE_PAD, dtype=torch.float32)
+    cache = _distribute(cache, cache_pspecs(cache, mesh), mesh)
+    with _recording() as seen, torch.no_grad():
+        logits, cache = sharded_step(model.prefill)(dparams,
+                                                    {"tokens": tokens},
+                                                    cache)
+        out["serve/prefill"] = logits.full_tensor().numpy()
+        nxt = distribute_tensor(batch["tokens"][:, 0], mesh,
+                                batch_sharding(mesh, 1))
+        pos = distribute_tensor(torch.tensor(S), mesh,
+                                [Replicate()] * mesh.ndim)
+        logits, _ = sharded_step(model.decode_step)(dparams, nxt, cache, pos)
+        out["serve/decode"] = logits.full_tensor().numpy()
+    _save_seen(out, "serve", seen)
     return out
 
 

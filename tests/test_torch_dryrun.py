@@ -15,7 +15,10 @@ cells on (data 2, model 4) to the byte of XLA's memory_analysis(). The
 port counts every layer it traces, so its full-depth count equals the
 calibration's extrapolation (FLOPs and collective bytes exactly). Then the H100 Roofline terms, the
 report tables, the 512-rank granite-8b decode_32k cell through the CLI,
-and that importing the dry-run opens no process group.
+and that importing the dry-run opens no process group. On a fake group of
+16 ranks: the sharded loss's peak scales with each rank's vocabulary
+shard, and a reduced GQA prefill's peak and FLOPs fall 16-fold with the
+query heads kept split.
 """
 
 import dataclasses
@@ -181,6 +184,102 @@ def test_counter_counts_local_shards_and_collectives():
     rl = from_counts("x", c, 8)
     assert rl.collective_by_kind == c.collective
     assert rl.flops_per_device == c.flops
+
+
+def _loss_peak(vocab: int, B: int = 4, S: int = 1024):
+    """MemTracker's peak above the inputs of the sharded loss and its
+    gradient on fake bf16 logits [B, S, vocab] of a fake 16-rank group,
+    (data 1, model 16), placed as the unembedding leaves them (the
+    vocabulary over model where it divides), with the local logits'
+    shape and placements."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models.layers import cross_entropy_loss
+    from repro_torch.parallel.sharding import make_constrain, sharded_step
+    with dryrun.fake_world(16):
+        mesh = make_host_mesh(model=16, device="cpu")
+        constrain = make_constrain(mesh, vocab)
+        with FakeTensorMode(), dryrun._dtensor_patches():
+            x = distribute_tensor(
+                torch.empty(B, S, vocab, dtype=torch.bfloat16), mesh,
+                (Shard(0), Shard(2) if vocab % 16 == 0 else Replicate()))
+            x.requires_grad_()
+            y = distribute_tensor(torch.empty(B, S, dtype=torch.int64), mesh,
+                                  (Shard(0), Replicate()))
+
+            def loss_grad(x, y):
+                loss = cross_entropy_loss(constrain(x, "logits"), y)
+                return torch.autograd.grad(loss, x)[0]
+            mt = MemTracker()
+            mt.track_external(x.to_local(), y.to_local())
+            before = dryrun._total(mt.get_tracker_snapshot("current"), "cpu")
+            with mt:
+                sharded_step(loss_grad)(x, y)
+            peak = dryrun._total(mt.get_tracker_snapshot("peak"), "cpu")
+            placed = constrain(x, "logits")
+            return (peak - before, tuple(placed.to_local().shape),
+                    placed.placements)
+
+
+def test_sharded_loss_peak_scales_with_the_vocabulary_shard():
+    """The loss of the sharded step never gathers a vocabulary that the
+    "logits" constrain splits: at fixed B S = 4096 its peak above the
+    logits is two f32 copies of the rank's [4, 1024, V / 16] shard (the
+    forward's f32 cast beside exp(x - max), the backward's cast beside
+    the gradient it makes in place; 2.0053 and 2.0026 of a copy at V =
+    16000 and 32000) and doubles with V. A gathered vocabulary would hold
+    at least one f32 copy of all V, 16 shards. hymba's 32001 words do not
+    divide 16: they stay replicated, and _cross_entropy_sums holds five
+    f32 copies of the whole vocabulary as on one card."""
+    from torch.distributed.tensor import Replicate, Shard
+    peaks = {}
+    for vocab in (16 * 1000, 16 * 2000):
+        peak, local, placements = _loss_peak(vocab)
+        assert local == (4, 1024, vocab // 16)
+        assert placements == (Shard(0), Shard(2))
+        shard_f32 = 4 * 1024 * (vocab // 16) * 4
+        assert 2.0 * shard_f32 <= peak <= 2.01 * shard_f32, peak / shard_f32
+        peaks[vocab] = peak
+    assert 1.99 <= peaks[32000] / peaks[16000] <= 2.01
+    peak, local, placements = _loss_peak(32001)
+    assert local == (4, 1024, 32001)
+    assert placements == (Shard(0), Replicate())
+    assert peak >= 5 * 4 * 1024 * 32001 * 4
+
+
+def test_gqa_prefill_keeps_query_heads_split_on_16_ranks():
+    """A reduced GQA prefill_32k cell (reduced yi-6b widened to yi-6b's 32
+    query heads over 4 K/V heads) on a fake group of 16 ranks, (data 1,
+    model 16): 4 K/V heads do not divide 16, 32 query heads do. With the
+    query heads kept split (attention.on_query_shards) the step's peak
+    above its arguments and its FLOPs a rank are each at least 15 times
+    below the gathered path's (attention.query_head_dims forced empty:
+    every head on every rank; 15.7 and 15.9 when written)."""
+    from repro_torch.models import attention
+    cfg = dataclasses.replace(reduced(get_arch("yi-6b")), n_heads=32,
+                              n_kv_heads=4)
+    split = _reduced_cell_16("yi-6b", "prefill_32k", cfg)
+    orig = attention.query_head_dims
+    attention.query_head_dims = lambda q, k, v: ()
+    try:
+        gathered = _reduced_cell_16("yi-6b", "prefill_32k", cfg)
+    finally:
+        attention.query_head_dims = orig
+    assert split["argument_size_in_bytes"] == \
+        gathered["argument_size_in_bytes"]
+    assert gathered["temp_size_in_bytes"] >= 15 * split["temp_size_in_bytes"]
+    assert gathered["counter"].flops >= 15 * split["counter"].flops
+
+
+def _reduced_cell_16(arch, shape, cfg):
+    """One traced cell of `cfg` on 16 fake ranks, (data 1, model 16)."""
+    with dryrun.fake_world(16):
+        mesh = make_host_mesh(model=16, device="cpu")
+        return dryrun._trace_cell(arch, shape, mesh, memory=True,
+                                  device="cpu", cfg_override=cfg,
+                                  microbatches=1)
 
 
 def test_roofline_terms_and_bottleneck():

@@ -14,7 +14,11 @@ JAX's on replicated grads and against a numpy sum on per-rank grads,
 each rank's shard from distribute_params against the slice JAX's
 NamedSharding names for that device, and the sharded step: reduced yi-6b
 on (data 2, model 4) in f32 against the unsharded port and JAX's
-grads_fn.
+grads_fn, whole and in 2 microbatches, with the local shapes its loss
+and attention saw on each rank (the vocabulary 256 split 64 a rank; 4
+query heads over 2 K/V heads, one query head a rank); the loss alone on
+logits of a vocabulary that divides 4 and of one that does not; and a
+prefill and a decode step on a DTensor cache.
 """
 
 import functools
@@ -40,6 +44,7 @@ from repro_torch.train.tree import leaves_with_paths, tree_map
 
 ROOT = Path(__file__).resolve().parents[1]
 B, S = 4, 16
+IGNORED = 3                       # labels set to ignore_id a row, past the last
 
 
 class Mesh:
@@ -65,8 +70,18 @@ def _yi_inputs() -> dict:
         out["yi/" + k] = a
     toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int64)
     out["batch/tokens"] = toks
-    out["batch/labels"] = np.concatenate(
-        [toks[:, 1:], np.full((B, 1), -1, np.int64)], axis=1)
+    labels = np.concatenate([toks[:, 1:], np.full((B, 1), -1, np.int64)],
+                            axis=1)
+    # IGNORED more labels a row, at other places in each row: every row
+    # keeps as many, so the port's microbatches (each rank's rows cut in
+    # turn) and the reference's (the batch reshaped) count alike
+    for row in labels:
+        row[rng.choice(S - 1, IGNORED, replace=False)] = -1
+    out["batch/labels"] = labels
+    for V in W.LOSS_VOCABS:
+        out[f"loss/logits{V}"] = (rng.standard_normal((B, S, V)) * 3).astype(
+            np.float32)
+        out[f"loss/labels{V}"] = np.where(labels < 0, -1, labels % V)
     return out
 
 
@@ -292,15 +307,38 @@ def test_named_sharding_specs_equal_jax(worlds, mesh):
 # --------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _unsharded():
+def _unsharded(microbatches: int = 1):
     inputs = _yi_inputs()
     cfg = reduced(get_arch("yi-6b"))
     params = tree_map(torch.from_numpy, W.nest(inputs, "yi/"))
     batch = {k: torch.from_numpy(inputs[f"batch/{k}"])
              for k in ("tokens", "labels")}
-    loss, grads = grads_fn(Model(cfg, device="cpu"), TrainConfig())(params,
-                                                                    batch)
+    loss, grads = grads_fn(Model(cfg, device="cpu"), TrainConfig(
+        microbatches=microbatches))(params, batch)
     return loss, dict(leaves_with_paths(grads))
+
+
+def _check_step(worlds, name: str, microbatches: int) -> None:
+    """The gloo world's `name` step: loss and every full_tensor() gradient
+    against the unsharded port (sharded_loss_f32, sharded_grads_f32) and
+    JAX's grads_fn (loss_f32, grads_f32)."""
+    got = worlds.ranks[0]
+    loss, grads = _unsharded(microbatches)
+    tl, tg = TOLERANCES["sharded_loss_f32"], TOLERANCES["sharded_grads_f32"]
+    assert tl.ok(torch.from_numpy(got[f"{name}/loss"]), loss)
+    assert TOLERANCES["loss_f32"].ok(
+        torch.from_numpy(got[f"{name}/loss"]),
+        torch.from_numpy(worlds.jax[f"{name}/loss"]))
+    prefix = f"{name}/grads/"
+    assert set(grads) == {k[len(prefix):] for k in got
+                          if k.startswith(prefix)}
+    for k, g in grads.items():
+        mine = torch.from_numpy(got[prefix + k])
+        ref = torch.from_numpy(worlds.jax[prefix + k])
+        scale = float(g.abs().max())
+        assert float((mine - g).abs().max()) <= tg.atol * scale, k
+        assert float((mine - ref).abs().max()) <= \
+            TOLERANCES["grads_f32"].atol * float(ref.abs().max()), k
 
 
 def test_sharded_step_equals_unsharded_and_jax(worlds):
@@ -310,24 +348,111 @@ def test_sharded_step_equals_unsharded_and_jax(worlds):
     divisibility guard leaves k and v replicated; the loss and the
     gradients of data-replicated weights come back Partial over data."""
     got = worlds.ranks[0]
-    loss, grads = _unsharded()
-    tl, tg = TOLERANCES["sharded_loss_f32"], TOLERANCES["sharded_grads_f32"]
-    assert tl.ok(torch.from_numpy(got["step/loss"]), loss)
-    assert TOLERANCES["loss_f32"].ok(torch.from_numpy(got["step/loss"]),
-                                     torch.from_numpy(worlds.jax["step/loss"]))
-    assert set(grads) == {k[len("step/grads/"):] for k in got
-                          if k.startswith("step/grads/")}
-    for k, g in grads.items():
-        mine = torch.from_numpy(got[f"step/grads/{k}"])
-        ref = torch.from_numpy(worlds.jax[f"step/grads/{k}"])
-        scale = float(g.abs().max())
-        assert float((mine - g).abs().max()) <= tg.atol * scale, k
-        assert float((mine - ref).abs().max()) <= \
-            TOLERANCES["grads_f32"].atol * float(ref.abs().max()), k
+    _check_step(worlds, "step", 1)
     assert str(got["step/loss_placements"]).startswith("(Partial(sum)")
     for key in ("layers/mlp/up", "layers/attn/q"):
         assert str(got[f"step/placements/{key}"]).startswith(
             "(Partial(sum)"), key
+
+
+def test_sharded_microbatched_step_equals_unsharded_and_jax(worlds):
+    """The same step in 2 microbatches, each rank's rows cut in turn
+    (train_step._split_micro), against the unsharded port's and JAX's
+    microbatched grads_fn. Every row ignores as many labels, so both
+    packages' microbatches count alike; each microbatch's count is
+    reduced over the data axis before its division."""
+    _check_step(worlds, "micro", W.MICROBATCHES)
+    for r in range(W.N):
+        assert str(worlds.ranks[r]["micro/loss_placements"]).startswith(
+            "(Partial(sum)")
+
+
+@pytest.mark.parametrize("name", ["step", "micro"])
+def test_sharded_loss_takes_each_ranks_vocabulary_shard(worlds, name):
+    """The logits enter the loss as [B_local, S, V / 4] on every rank: the
+    batch of 4 over data 2 (in 2 microbatches, 1 row a rank each), the
+    vocabulary of 256 over model 4, 64 words a rank, through the
+    vocabulary-parallel sums and never the replicated path."""
+    n = W.MICROBATCHES if name == "micro" else 1
+    want = [[B // 2 // n, S, 256 // 4]] * n
+    for r in range(W.N):
+        seen = worlds.ranks[r]
+        assert seen[f"{name}/seen/vocab_parallel"].tolist() == want, r
+        assert seen[f"{name}/seen/replicated"].size == 0, r
+
+
+@pytest.mark.parametrize("name", ["step", "micro"])
+def test_sharded_attention_keeps_the_query_heads_split(worlds, name):
+    """Reduced yi-6b's 4 query heads over 2 K/V heads on a model axis of
+    4 (Hq divides, Hkv does not): every attention forward and flash
+    backward on every rank runs on local tensors with Hq / 4 = 1 query
+    head, its out and dout 1 head, and the one K/V head that head reads
+    (head r reads K/V head r // 2); none on a gathered DTensor."""
+    n = W.MICROBATCHES if name == "micro" else 1
+    layers = reduced(get_arch("yi-6b")).n_layers
+    for r in range(W.N):
+        seen = worlds.ranks[r]
+        assert seen[f"{name}/seen/fwd"].tolist() == [[1, 1, 1, 0]] * (
+            layers * n), r
+        assert seen[f"{name}/seen/bwd"].tolist() == [[1, 1, 1, 0]] * (
+            layers * n), r
+
+
+@pytest.mark.parametrize("vocab", W.LOSS_VOCABS)
+def test_loss_on_placed_logits_equals_plain(worlds, vocab):
+    """cross_entropy_loss on [4, 16, V] f32 logits placed by the "logits"
+    constrain, with ignored labels, and its gradient against the plain
+    loss on the whole tensor: V = 256 splits 64 a rank over model
+    (Shard(2)) through the vocabulary-parallel sums; V = 255 does not
+    divide 4, stays replicated as act_pspec leaves it and takes
+    _cross_entropy_sums on each rank's rows."""
+    from repro_torch.models.layers import cross_entropy_loss
+    x = torch.from_numpy(worlds.inputs[f"loss/logits{vocab}"]).requires_grad_()
+    loss = cross_entropy_loss(
+        x, torch.from_numpy(worlds.inputs[f"loss/labels{vocab}"]))
+    grad, = torch.autograd.grad(loss, x)
+    split = vocab % 4 == 0
+    for r in range(W.N):
+        got = worlds.ranks[r]
+        assert str(got[f"loss{vocab}/placements"]) == (
+            "(Shard(dim=0), Shard(dim=2))" if split
+            else "(Shard(dim=0), Replicate())")
+        assert TOLERANCES["sharded_loss_f32"].ok(
+            torch.from_numpy(got[f"loss{vocab}/loss"]), loss.detach())
+        mine = torch.from_numpy(got[f"loss{vocab}/grad"])
+        assert float((mine - grad).abs().max()) <= \
+            TOLERANCES["sharded_grads_f32"].atol * float(grad.abs().max())
+        local = [[B // 2, S, vocab // 4 if split else vocab]]
+        assert got[f"loss{vocab}/seen/vocab_parallel"].tolist() == (
+            local if split else [])
+        assert got[f"loss{vocab}/seen/replicated"].tolist() == (
+            [] if split else local)
+
+
+def test_sharded_prefill_and_decode_equal_unsharded(worlds):
+    """Model.prefill on a DTensor cache (cache_pspecs: the 2 K/V heads do
+    not divide model 4, so it is replicated there) and one decode step:
+    the last-position logits against the unsharded port's (logits_f32),
+    the chunked forward and decode attention each on 1 local query head
+    and the K/V head it reads."""
+    inputs = _yi_inputs()
+    cfg = reduced(get_arch("yi-6b"))
+    model = Model(cfg, device="cpu")
+    params = tree_map(torch.from_numpy, W.nest(inputs, "yi/"))
+    tokens = torch.from_numpy(inputs["batch/tokens"])
+    cache = model.init_cache(B, S + W.DECODE_PAD, dtype=torch.float32)
+    with torch.no_grad():
+        prefill, cache = model.prefill(params, {"tokens": tokens}, cache)
+        decode, _ = model.decode_step(params, tokens[:, 0], cache, S)
+    for r in range(W.N):
+        got = worlds.ranks[r]
+        for key, want in (("prefill", prefill), ("decode", decode)):
+            assert TOLERANCES["logits_f32"].ok(
+                torch.from_numpy(got[f"serve/{key}"]), want), (key, r)
+        assert got["serve/seen/fwd"].tolist() == [[1, 1, 1, 0]] * \
+            cfg.n_layers
+        assert got["serve/seen/decode"].tolist() == [[1, 1, 1, 0]] * \
+            cfg.n_layers
 
 
 def test_grad_sync_completes_the_sharded_sum(worlds):
