@@ -123,8 +123,8 @@ Phases, one JSON line each; any failure exits non-zero:
                pass of each engine gives its steady figures (decode
                ms/step, prefill ms/call, tokens/s; the graphed one
                captures nothing), and one decode chunk of each is traced
-               with torch.profiler (idle_share: 1 - kernel time over the
-               chunk's wall), with capture seconds, graph count, the graph
+               with torch.profiler (its kernels and walls), with capture
+               seconds, graph count, the graph
                pool's bytes and whether one decode step's logits are
                bit-equal graphed and eager.
   8. oracle  - the same requests through the per-token ReferenceEngine.
@@ -1900,8 +1900,8 @@ def pass_figures(engine, run: dict, reqs: list[Request], st0: dict) -> dict:
 def profile_decode_chunk(engine, vocab: int, label: str,
                          extras: dict | None = None) -> dict:
     """One full decode chunk (decode_chunk steps, every slot live) under
-    torch.profiler: the device's kernel time summed from the trace over
-    the chunk's wall, and idle_share = 1 - that share. A chunk before it
+    torch.profiler: the device's kernel, copy and set time summed from the
+    trace, and the chunk's wall. A chunk before it
     admits and captures what is new; the chunk after it is timed without
     the profiler (its wall beside the profiled one: the profiler's own
     cost on the host). `extras` go with every request (whisper's
@@ -1936,19 +1936,11 @@ def profile_decode_chunk(engine, vocab: int, label: str,
         if e.get("ph") == "X" and e.get("cat") in device:
             device[e["cat"]][0] += float(e.get("dur", 0.0)) / 1e3
             device[e["cat"]][1] += 1
-    kernel_ms = device["kernel"][0]
-    out = {"steps": n, "wall_ms": 1e3 * wall,
-           "unprofiled_wall_ms": 1e3 * unprofiled,
-           "kernel_ms": kernel_ms, "kernels": device["kernel"][1],
-           "memcpy_ms": device["gpu_memcpy"][0],
-           "memset_ms": device["gpu_memset"][0]}
-    if device["kernel"][1]:
-        out["idle_share"] = 1.0 - kernel_ms / (1e3 * wall)
-        out["idle_share_of_unprofiled_wall"] = \
-            1.0 - kernel_ms / (1e3 * unprofiled)
-    else:
-        out["idle_share"] = "not measured (the trace holds no kernel)"
-    return out
+    return {"steps": n, "wall_ms": 1e3 * wall,
+            "unprofiled_wall_ms": 1e3 * unprofiled,
+            "kernel_ms": device["kernel"][0], "kernels": device["kernel"][1],
+            "memcpy_ms": device["gpu_memcpy"][0],
+            "memset_ms": device["gpu_memset"][0]}
 
 
 def cache_tensors(cache: dict) -> list[torch.Tensor]:

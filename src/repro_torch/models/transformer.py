@@ -32,6 +32,7 @@ import math
 import torch
 
 from ..configs.base import ArchConfig
+from ..obs.spans import region
 from .attention import (NEG_INF, KVCache, PagedKVCache, RingKVCache,
                         attention, chunked_attention, decode_attention,
                         einsum, is_dtensor, lane_shards, seq_gathered)
@@ -159,21 +160,23 @@ def apply_gqa(p, x, cfg: ArchConfig, *, positions, causal: bool = True,
 
     if cache is not None and x.shape[1] == 1:            # decode
         q_pos = positions[..., 0]                        # scalar or [B]
-        if isinstance(cache, RingKVCache):
-            cache.append_token(k, v)
-            ck, cv, k_pos = cache.k, cache.v, cache.positions()
-        elif isinstance(cache, PagedKVCache):
-            # append into the mapped page, then gather the lane's pages
-            # back into a position-ordered view: the dense path's contract
-            cache.append(k, v)
-            ck, cv, k_pos = cache.flat_view()
-        else:
-            cache.append(k, v)
-            ck, cv = cache.k, cache.v
-            ar = torch.arange(ck.shape[1], device=x.device)
-            k_pos = torch.where(ar[None, :] < cache.length[:, None],
-                                ar[None, :], -1)         # [B, S]
-        out = decode_attention(q, ck, cv, k_pos, q_pos, window=window)
+        with region("decode_attention"):    # timed by a tracing engine
+            if isinstance(cache, RingKVCache):
+                cache.append_token(k, v)
+                ck, cv, k_pos = cache.k, cache.v, cache.positions()
+            elif isinstance(cache, PagedKVCache):
+                # append into the mapped page, then gather the lane's
+                # pages back into a position-ordered view: the dense
+                # path's contract
+                cache.append(k, v)
+                ck, cv, k_pos = cache.flat_view()
+            else:
+                cache.append(k, v)
+                ck, cv = cache.k, cache.v
+                ar = torch.arange(ck.shape[1], device=x.device)
+                k_pos = torch.where(ar[None, :] < cache.length[:, None],
+                                    ar[None, :], -1)     # [B, S]
+            out = decode_attention(q, ck, cv, k_pos, q_pos, window=window)
     else:                                                # prefill
         if isinstance(cache, PagedKVCache):
             raise TypeError(

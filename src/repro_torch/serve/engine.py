@@ -88,6 +88,36 @@ slow-chunk detector halves the next chunk while the device is slow.
 only what the chunk's one packed read already brought back: they add no
 host sync, no runner and no graph.
 
+A tracer that defines `on_span` and sets `detail = True` asks for more
+(ServeTraceRecorder does not, and sees what the reference's engine gives):
+  * each span the engine emits (prefill/bucket{b}, prefill/exact{S},
+    decode/chunk{n}) is also a torch.profiler `record_function` range
+    around its work, so a device trace taken meanwhile holds the engine's
+    spans on its own clock;
+  * child spans, category "serve", each both a profiler range and an
+    on_span span with its parent's name in `parent`: serve.step (one
+    step(), the root), serve.admit (the whole of _admit; args the queue
+    length at entry and the requests admitted), serve.copy_in (a call's
+    feed into its runner's static buffers, or the exact-length prefill's
+    lane cache and batch), serve.launch (a graph replay or the eager
+    body's enqueue; args the runner's key, `decode_chunk8`),
+    serve.capture/<key> (a call that warms up and captures, in place of
+    serve.launch; args StepRunner.seconds), serve.read (to_host: the host
+    waiting on the device) and serve.retire (everything after a decode
+    chunk's read, in-chunk recycling included);
+  * one serve.queue span per admitted request (args its rid; parent the
+    prefill that serves it) from its submit stamp to the start of that
+    prefill, emitted when the wait ends: an on_span span only, since it
+    spans steps;
+  * decode attention timed inside the runners (obs/spans.py, the region
+    around apply_gqa's decode branch): each decode/chunk{n} span carries
+    attention_ms (over the chunk's n steps: device time on the card, the
+    engine's clock on the CPU) and attention_regions, read after the
+    chunk's one host read, with no sync of their own.
+Any other tracer, and tracer=None, gets none of it: no range is opened, no
+region recorded and no event captured in any graph, and the hot paths
+test one boolean.
+
 The SDC guard (`guard=`, kernels/systolic_gemm/guard.py), as in the
 reference: under "probe" or "abft" every bucketed prefill forward and
 every decode step runs under its own GuardTape, so each pod GEMM of the
@@ -119,6 +149,7 @@ next prefill.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -127,12 +158,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..kernels.systolic_gemm.guard import GuardTape, as_guard
 from ..models.attention import KVCache, PagedKVCache, RingKVCache
 from ..models.model import CrossKV, Model
 from ..models.ssm import SSMCache
 from ..models.transformer import MLACache
+from ..obs import spans
 from ..runtime import to_host
 from ..train.fault import Ewma
 from .admission import (AdmissionConfig, AdmissionController,  # noqa: F401
@@ -145,6 +178,7 @@ from .graphs import GraphPool, StepRunner
 from .paging import PagePool
 
 MIN_BUCKET = 8          # smallest prefill bucket (the reference's default)
+_NOTHING = contextlib.nullcontext()
 
 
 @dataclasses.dataclass
@@ -361,6 +395,39 @@ def _decode_body(model: Model, params, cache: dict, eos_id: Optional[int],
     return torch.cat(parts)
 
 
+class _Scope:
+    """One detail span of an engine (the module docstring): a profiler range
+    around the block and its name on the engine's stack of open spans;
+    on a clean exit, if `emit`, an on_span span with its parent's name and
+    the args dict the block was given (and may have added to)."""
+
+    __slots__ = ("engine", "name", "emit", "args", "parent", "t0", "range")
+
+    def __init__(self, engine: "ServeEngine", name: str, emit: bool,
+                 args: dict):
+        self.engine, self.name, self.emit, self.args = engine, name, emit, args
+
+    def __enter__(self) -> dict:
+        e = self.engine
+        self.parent = e._open[-1] if e._open else None
+        e._open.append(self.name)
+        self.range = record_function(self.name,
+                                     repr(self.args) if self.args else None)
+        self.range.__enter__()
+        self.t0 = e._clock()
+        return self.args
+
+    def __exit__(self, exc_type, *exc) -> bool:
+        e = self.engine
+        t1 = e._clock()
+        self.range.__exit__(None, None, None)
+        e._open.pop()
+        if self.emit and exc_type is None:
+            e._span(self.name, "serve", self.t0, t1, parent=self.parent,
+                    **self.args)
+        return False
+
+
 class ServeEngine:
     def __init__(self, model: Model, params, slots: int = 4,
                  max_len: int = 512, src_len: int = 0,
@@ -389,8 +456,14 @@ class ServeEngine:
         # optional duck-typed event sink (tenancy.ServeTraceRecorder): gets
         # on_prefill(rid, prompt_len) / on_decode(lanes, contexts) in the
         # engine's step-locked order, and (if it defines on_span) one timed
-        # span per device call for the Perfetto export (obs/export.py)
+        # span per device call for the Perfetto export (obs/export.py).
+        # One that also sets `detail` gets the module docstring's detail.
         self.tracer = tracer
+        self._detail = (hasattr(tracer, "on_span")
+                        and bool(getattr(tracer, "detail", False)))
+        self._open: list[str] = []          # detail spans open, innermost last
+        self._admitted = 0                  # requests whose prefill started
+        self._attention: dict = {}          # the last runner call's regions
         self.decode_chunk = max(1, decode_chunk)
         self.device = model.device
         self.bucketed = bool(prefill_buckets) and model.bucketed_prefill_ok
@@ -510,6 +583,10 @@ class ServeEngine:
         # deadline-aware chunk sizing reads it
         self._sec_per_tok = Ewma(alpha=0.3)
         self._t0 = self._clock()
+        # decode attention's regions, timed on the card's events or, on the
+        # CPU, on the engine's clock; made current around runner calls
+        self._regions = (spans.RegionRecorder(self.device, self._clock)
+                         if self._detail else None)
 
     # -- fault boundary -------------------------------------------------
     def _sleep(self, seconds: float) -> None:
@@ -626,6 +703,23 @@ class ServeEngine:
             self.tracer.on_span(name, ts=t_start - self._t0,
                                 dur=t_end - t_start, cat=cat, **args)
 
+    def _scope(self, name: str, emit: bool = True, **args):
+        """A detail span around a block (a _Scope), or nothing without
+        detail."""
+        if not self._detail:
+            return _NOTHING
+        return _Scope(self, name, emit, args)
+
+    def _note_queue_waits(self, reqs: list, t_start: float) -> None:
+        """Detail: each request's serve.queue span, from its submit stamp
+        to `t_start`, the start of the prefill that serves it (the open
+        span), emitted as the wait ends."""
+        parent = self._open[-1]
+        for r in reqs:
+            self._span("serve.queue", "serve", r._submit_t, t_start,
+                       parent=parent, rid=r.rid)
+        self._admitted += len(reqs)
+
     def _observe_prefill(self, path: str, tokens: int, lanes: int,
                          seconds: float) -> None:
         m = self.metrics
@@ -729,12 +823,36 @@ class ServeEngine:
         captured)."""
         captured = runner.captures
         t_start = time.perf_counter()
-        out = to_host(runner(**feed))
+        if self._detail:
+            out = self._call_traced(runner, feed, captured)
+        else:
+            out = to_host(runner(**feed))
         seconds = time.perf_counter() - t_start
         if captured:
             self.stats["graphs"] = self._graphs.graphs
             self.stats["capture_s"] = self._graphs.capture_s
         return out, seconds, captured
+
+    def _call_traced(self, runner: StepRunner, feed: dict,
+                     captured: bool):
+        """A runner call with detail: its copy-in, launch (or warm-up and
+        capture) and read as child spans, under the engine's region
+        recorder; the regions' time is kept for the call's span."""
+        with self._regions.recording():
+            with self._scope("serve.copy_in"):
+                runner.load(**feed)
+            launch = (f"serve.capture/{runner.name}" if captured
+                      else "serve.launch")
+            with self._scope(launch, runner=runner.name) as args:
+                out = runner.launch()
+                if captured:
+                    args.update(runner.seconds)
+            with self._scope("serve.read"):
+                out = to_host(out)
+        pairs = self._regions.take()
+        self._attention = {"attention_ms": spans.elapsed_ms(pairs),
+                           "attention_regions": len(pairs)}
+        return out
 
     def _prefill_runner(self, bucket: int) -> StepRunner:
         """The bucket's runner, made at its first use: static tokens [slots,
@@ -762,7 +880,8 @@ class ServeEngine:
         self._lane_caches[bucket] = lane
         body = functools.partial(_prefill_body, self.model, self.params,
                                  self.cache, lane, **self._guard_kw(inputs))
-        runner = StepRunner(body, inputs, self._graphs)
+        runner = StepRunner(body, inputs, self._graphs,
+                            name=f"prefill_bucket{bucket}")
         self._prefill_runners[bucket] = runner
         return runner
 
@@ -785,7 +904,8 @@ class ServeEngine:
             body = functools.partial(_decode_body, self.model, self.params,
                                      self.cache, self.eos_id, n=n,
                                      **self._guard_kw(inputs))
-            runner = StepRunner(body, inputs, self._graphs)
+            runner = StepRunner(body, inputs, self._graphs,
+                                name=f"decode_chunk{n}")
             self._decode_runners[n] = runner
         return runner
 
@@ -795,6 +915,14 @@ class ServeEngine:
         return min(b, self.max_len)
 
     def _admit(self) -> None:
+        if not self._detail:
+            return self._admit_queue()
+        with self._scope("serve.admit", queue=len(self.queue)) as args:
+            before = self._admitted
+            self._admit_queue()
+            args["admitted"] = self._admitted - before
+
+    def _admit_queue(self) -> None:
         # queue sweep first: expire queued-past-deadline, shed predicted
         # misses (slo-aware), and order the queue per policy. Pure host
         # work; a fifo queue with no deadlines passes through untouched.
@@ -883,7 +1011,12 @@ class ServeEngine:
             corrected = self._verdict("prefill", out[-2:])
             return out[:-2], seconds, captured, corrected
         try:
-            got = self._device_call("prefill", call)    # the ONE host sync
+            with self._scope(f"prefill/bucket{bucket}", emit=False,
+                             bucket=bucket, lanes=len(reqs),
+                             rids=[r.rid for r in reqs]):
+                if self._detail:
+                    self._note_queue_waits(reqs, t_start)
+                got = self._device_call("prefill", call)  # the ONE host sync
         except PermanentFault:
             # the call never ran: shed the group (terminal `rejected`);
             # its slots stay free and its pages return to the pool
@@ -939,35 +1072,44 @@ class ServeEngine:
         S = len(req.prompt)
         self._buckets_seen.add(S)
         t_start = self._clock()
-        lane_cache = self.model.init_cache(1, self.max_len,
-                                           src_len=self.src_len)
-        batch = {"tokens": torch.as_tensor(np.asarray(req.prompt, np.int64),
-                                           device=self.device)[None, :]}
-        for key, val in req.extras.items():
-            batch[key] = torch.as_tensor(val, device=self.device)
+        with self._scope(f"prefill/exact{S}", emit=False, bucket=S,
+                         lanes=1, rids=[req.rid]):
+            if self._detail:
+                self._note_queue_waits([req], t_start)
+            with self._scope("serve.copy_in"):
+                lane_cache = self.model.init_cache(1, self.max_len,
+                                                   src_len=self.src_len)
+                batch = {"tokens": torch.as_tensor(
+                    np.asarray(req.prompt, np.int64),
+                    device=self.device)[None, :]}
+                for key, val in req.extras.items():
+                    batch[key] = torch.as_tensor(val, device=self.device)
 
-        def call():
-            wall0 = time.perf_counter()
-            logits, lane = self.model.prefill(self.params, batch,
-                                              lane_cache)
-            last = logits[0]
-            first = torch.where(torch.isfinite(last).all(),
-                                torch.argmax(last), -1)
-            first = int(to_host(first))                  # the ONE host sync
-            return first, lane, time.perf_counter() - wall0
-        try:
-            first, lane_cache, seconds = self._device_call("prefill", call)
-        except PermanentFault:
-            self._reject_group([req], "device-fault")
-            return
-        self.stats["prefill_calls"] += 1
-        self.stats["prefill_s"] += seconds
-        if first < 0:
-            self._shed_non_finite([(req, slot)], where="prefill")
-            return
-        _write_lane(self.cache, lane_cache, slot)
-        req.out.append(first)
-        t_end = self._clock()
+            def call():
+                wall0 = time.perf_counter()
+                with self._scope("serve.launch", runner=f"prefill_exact{S}"):
+                    logits, lane = self.model.prefill(self.params, batch,
+                                                      lane_cache)
+                    last = logits[0]
+                    first = torch.where(torch.isfinite(last).all(),
+                                        torch.argmax(last), -1)
+                with self._scope("serve.read"):
+                    first = int(to_host(first))          # the ONE host sync
+                return first, lane, time.perf_counter() - wall0
+            try:
+                first, lane_cache, seconds = self._device_call("prefill",
+                                                               call)
+            except PermanentFault:
+                self._reject_group([req], "device-fault")
+                return
+            self.stats["prefill_calls"] += 1
+            self.stats["prefill_s"] += seconds
+            if first < 0:
+                self._shed_non_finite([(req, slot)], where="prefill")
+                return
+            _write_lane(self.cache, lane_cache, slot)
+            req.out.append(first)
+            t_end = self._clock()
         if self.tracer is not None:
             self.tracer.on_prefill(req.rid, S, t=t_start - self._t0)
         self._span(f"prefill/exact{S}", "prefill", t_start, t_end,
@@ -1031,6 +1173,10 @@ class ServeEngine:
     def step(self) -> int:
         """One scheduling quantum: admission, then one fused decode chunk.
         Returns the number of lanes live at the chunk start."""
+        with self._scope("serve.step"):
+            return self._step()
+
+    def _step(self) -> int:
         self._admit()
         live = [i for i, r in enumerate(self.active) if r is not None]
         if not live:
@@ -1073,7 +1219,9 @@ class ServeEngine:
         if self._guard_on:
             self._save_decode_state()
         try:
-            got = self._device_call("decode", call)     # the ONE host sync
+            with self._scope(f"decode/chunk{n}", emit=False, steps=n,
+                             lanes=len(live)):
+                got = self._device_call("decode", call)  # the ONE host sync
         except SilentCorruption:
             # every retry's chunk failed the guard; its state was put back,
             # but the lanes are unservable: reject them
@@ -1097,6 +1245,17 @@ class ServeEngine:
         if self._guard_on:
             self._note_guard(got[3])
         t_end = self._clock()
+        with self._scope("serve.retire"):
+            self._retire_chunk(live, n, pos0, packed, seconds, captured,
+                               t_start, t_end)
+        return len(live)
+
+    def _retire_chunk(self, live: list[int], n: int, pos0: np.ndarray,
+                      packed: np.ndarray, seconds: float, captured: bool,
+                      t_start: float, t_end: float) -> None:
+        """Everything after a decode chunk's read: the tallies, its span and
+        metrics, tokens appended, finishes, releases, non-finite lanes,
+        expiry and in-chunk recycling."""
         self.stats["chunks"] += 1
         self.stats["decode_steps"] += n
         if captured:
@@ -1110,7 +1269,8 @@ class ServeEngine:
         bad = packed[2 * k + 2:]
         self._span(f"decode/chunk{n}", "decode", t_start, t_end,
                    steps=n, lanes=len(live), tokens=emitted,
-                   live_end=live_end)
+                   live_end=live_end,
+                   **(self._attention if self._detail else {}))
         self._observe_decode(n, len(live), emitted, live_end,
                              t_end - t_start)
         if emitted > 0 and t_end > t_start:
@@ -1175,7 +1335,6 @@ class ServeEngine:
             self.recycled += max(
                 0, sum(r is not None for r in self.active) - occupied)
         self._observe_paged()
-        return len(live)
 
     def paged_kv_stats(self) -> dict:
         """Host-side page-pool accounting (no device sync). KV bytes come

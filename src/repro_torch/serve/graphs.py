@@ -48,6 +48,7 @@ import torch
 from ..kernels.flash_attention.flash_attention import flash_attention_cuda
 from ..kernels.ssd import ssd as ssd_mod
 from ..kernels.systolic_gemm import systolic_gemm as sg
+from ..obs import spans
 
 # the kernel wrappers whose `launches` / `mainloop_launches` a replay moves
 COUNTED = (sg.systolic_gemm_cuda, sg.systolic_gemm_nt_cuda,
@@ -106,13 +107,20 @@ class StepRunner:
     `inputs` are the buffers, allocated by the caller on the step's device
     (outside any pool). `pool` is the engine's GraphPool on the card, or
     None to run every call eagerly (the CPU, or the engine's eager
-    option)."""
+    option). `name` is the runner's key in the engine's spans
+    (`decode_chunk8`).
+
+    A capture made while a region recorder is current (obs/spans.py) keeps
+    the regions it recorded, whose events are nodes of the graph, and each
+    replay hands them to the recorder current then."""
 
     def __init__(self, body: Callable[..., Any], inputs: dict,
-                 pool: Optional[GraphPool] = None):
+                 pool: Optional[GraphPool] = None, name: str = ""):
         self.body = body
         self.inputs = inputs
         self.pool = pool
+        self.name = name
+        self.regions: list[tuple] = []
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out: Any = None
         self._delta: list[tuple[int, dict]] = []
@@ -127,16 +135,26 @@ class StepRunner:
         return self.pool is not None and self.graph is None
 
     def __call__(self, **feed) -> Any:
+        """`load(**feed)`, then `launch()`."""
+        self.load(**feed)
+        return self.launch()
+
+    def load(self, **feed) -> None:
         """Copy `feed` (host arrays or tensors) into the static buffers of
-        the same names, in place, then run the step: eagerly, as warm-up
-        and capture, or as a replay. Returns the body's outputs (the static
-        ones on a replay: read them before the next call)."""
+        the same names, in place."""
         for name, value in feed.items():
             buf = self.inputs[name]
             buf.copy_(torch.as_tensor(value).to(buf.dtype))
+
+    def launch(self) -> Any:
+        """Run the step over the static buffers: eagerly, as warm-up and
+        capture, or as a replay. Returns the body's outputs (the static
+        ones on a replay: read them before the next call)."""
         if self.graph is not None:
             self.graph.replay()
             _add_counts(self._delta)
+            if self.regions:
+                spans.replayed(self.regions)
             return self.out
         if self.pool is None:
             return self.body(**self.inputs)
@@ -153,6 +171,8 @@ class StepRunner:
         torch.cuda.synchronize(pool.device)
         t1 = time.perf_counter()
         before = launch_counts()
+        rec = spans.current()
+        warm = len(rec.pairs) if rec is not None else 0
         graph = torch.cuda.CUDAGraph()
         # destroying a graph while another is captured invalidates the
         # capture: no collection of unreachable ones runs during it
@@ -167,6 +187,10 @@ class StepRunner:
                 gc.enable()
         self._delta = _counts_since(before)
         _add_counts(self._delta, -1)             # capture launched nothing
+        if rec is not None:
+            # the capture's regions have not run: the graph's, not the call's
+            self.regions = rec.pairs[warm:]
+            del rec.pairs[warm:]
         # the workspaces this graph writes stay alive with it
         self._held = (sg.workspaces(pool.device) +
                       ssd_mod.workspaces(pool.device))
